@@ -1,0 +1,118 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its entry
+points refuse to fall back to the CPU silently, and the synthetic serving corpus
+builds and self-retrieves through the plain path."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "triple_hybrid_rag_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "triple_hybrid_rag_tpu")
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts), path
+
+
+def test_import_leaves_jax_out():
+    mods = [m for m, _ in _port_modules()]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", [p for _, p in _port_modules()] + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_entry_points_refuse_silent_cpu(monkeypatch):
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.device import resolve_device
+    from triple_hybrid_rag_tpu_torch.engine import Engine
+    from triple_hybrid_rag_tpu_torch.synthetic import build_synthetic
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_synthetic(RAGConfig(embedding_dim=16), 64, 16, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_synthetic_corpus_self_retrieval():
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.engine import Engine
+    from triple_hybrid_rag_tpu_torch.synthetic import L_DOC, build_synthetic, make_query_texts
+
+    n, dim, n_ent = 4096, 64, 300
+    cfg = RAGConfig(
+        capacity_round=1024, embedding_dim=dim, embedding_dim_full=dim,
+        embedding_dtype="bfloat16", maxsim_doc_tokens=32, maxsim_dim=64, maxsim_query_tokens=16,
+        safety_threshold=0.0, graph_max_entities_per_chunk=4, lexical_backend="sorted",
+        bm25_df_cap=256, embedder_backend="bowhash",
+    )
+    syn = build_synthetic(cfg, n, dim, n_ent, seed=0, device="cpu")
+    st = syn.state
+    assert st.n_pad == 4096 and syn.term_ids.shape == (4096, L_DOC)
+    assert st.embeddings.shape == (4096, dim) and st.embeddings.dtype == torch.bfloat16
+    assert st.maxsim_tokens.shape == (1024, 32, 64) and st.maxsim_mask.shape == (1024, 32)
+    assert st.nbr.shape == (1024, cfg.graph_max_degree) and st.lex_l_max == 256
+    assert int(st.lex_lengths.max()) <= 256
+    eng = Engine(st, embedder=syn.embedder, device="cpu")
+    rng = np.random.default_rng(42)
+    rows = rng.integers(0, n // 5, size=128) * 5
+    texts, is_graph = make_query_texts(rows, syn.term_ids, rng, 0.3, n_ent)
+    plans, out = eng.search_arrays(texts)
+    ids = out[0].numpy()
+    plain = [i for i in range(len(rows)) if not is_graph[i]]
+    frac = np.mean([rows[i] in ids[i] for i in plain])
+    assert frac >= 0.95
+    assert any(p.requires_graph for p in plans)
+    res = eng.retrieve_batch(texts[:2])
+    assert res[0].results[0].chunk_id == f"c{rows[0]}"

@@ -1,0 +1,71 @@
+"""Shared helpers of the port's tests: carry a JAX ``Retriever`` over to the port.
+
+Not a test module itself (no ``test_`` prefix); the ``tests/test_torch_*.py`` files
+import it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from triple_hybrid_rag_tpu_torch.config import RAGConfig as TorchConfig
+from triple_hybrid_rag_tpu_torch.corpus import CorpusView
+from triple_hybrid_rag_tpu_torch.index.state import IndexState
+from triple_hybrid_rag_tpu_torch.types import Entity as TorchEntity
+
+
+def torch_config(cfg) -> TorchConfig:
+    """The port's config with every field of the reference's."""
+    return TorchConfig(**dataclasses.asdict(cfg))
+
+
+def _record(obj) -> dict:
+    d = dataclasses.asdict(obj)
+    if "modality" in d:
+        d["modality"] = getattr(obj.modality, "value", obj.modality)
+    return d
+
+
+def state_from_retriever(ret, config=None, device="cpu") -> IndexState:
+    """IndexState.from_numpy over the JAX retriever's index arrays (as numpy)."""
+    cfg = config or torch_config(ret.config)
+    arrays = {"parent_of": np.asarray(ret.parent_of)}
+    host = {
+        "collection_ids": dict(ret.collection_ids),
+        "maxsim_calibration": float(getattr(ret.embedder, "maxsim_calibration", 1.0)),
+        "corpus": CorpusView.from_records(
+            [_record(c) for c in ret.corpus.children], [_record(p) for p in ret.corpus.parents]
+        ),
+    }
+    arrays["collection_of"] = np.asarray(ret.collection_of)
+    bm = ret.bm25_index
+    if bm is not None:
+        offs, lens, pd, _ = bm.host_csr
+        arrays.update(
+            bm25_offsets=np.asarray(offs), bm25_lengths=np.asarray(lens),
+            bm25_postings_doc=np.asarray(pd), bm25_postings_weight=np.asarray(bm.host_weights),
+            bm25_idf=np.asarray(bm.idf),
+        )
+        host["vocab"] = bm.vocab.to_list()
+        host["n_rows"] = int(bm.term_ids.shape[0])
+    dx = ret.dense_index
+    if dx is not None:
+        arrays.update(embeddings=np.asarray(dx.embeddings), valid=np.asarray(dx.valid))
+    gx = ret.graph_index
+    if gx is not None:
+        arrays.update(nbr=np.asarray(gx.nbr), chunk_entities=np.asarray(gx.host_chunk_entities))
+        host.update(
+            entity_keys=list(gx.store.entities.keys()),
+            entities=[
+                TorchEntity(entity_id=e.entity_id, canonical_name=e.canonical_name, row=e.row)
+                for e in gx.store.entities.values()
+            ],
+            row_of=dict(gx.row_of),
+            seed_stop=gx.seed_stop,
+        )
+    mx = ret.maxsim_index
+    if mx is not None:
+        arrays.update(maxsim_tokens=np.asarray(mx.tokens), maxsim_mask=np.asarray(mx.mask))
+    return IndexState.from_numpy(arrays, host, cfg, device)

@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of triple_hybrid_rag_tpu's batched three-channel query program.
+
+The JAX package stays the reference; this package imports nothing of it. Entry
+points run on a CUDA device unless the caller passes ``device="cpu"``, where every
+kernel's plain PyTorch version runs instead.
+"""
+
+from .config import RAGConfig, get_settings, reset_settings
+from .engine import Engine
+from .index.state import IndexState
+
+__all__ = ["Engine", "IndexState", "RAGConfig", "get_settings", "reset_settings"]

@@ -1,0 +1,393 @@
+"""Device index state of the engine: the placed tensors and the host query tables.
+
+The single-device counterpart of the JAX ``ShardedEngine``'s placement
+(``parallel/engine.py`` ``__init__``) plus the host lookups a query needs: the
+vocabulary and stored df of ``BM25Index.encode_query``/``encode_query_tiered`` and
+the entity lookup of ``GraphIndex.seed_lookup``.
+
+:meth:`IndexState.from_numpy` is the carry-over from the reference: it takes the
+JAX retriever's index arrays as numpy (see its docstring for the keys) so that both
+packages compute on identical indexes. :meth:`IndexState.from_tensors` takes
+tensors already in the engine's layout (the synthetic corpus builds them on the
+card). Both apply the reference's graph-backend policy.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..analyzer import Vocabulary
+from ..config import RAGConfig
+from ..models.entity_extractor import EntityStore
+from ..ops.maxsim import dequantize_tokens
+from ..types import Entity
+
+QUERY_PAD = -1
+
+
+def _csr_layout(offsets, lengths, postings_doc, postings_weight):
+    """The reference's per-shard CSR reshape (``_shard_csr``) at one shard: term
+    blocks packed in term order, postings tail-padded by l_max (doc -1, weight 0).
+    Returns (offsets i32[V+1], lengths i32[V], docs i32[W], weights f32[W], l_max)."""
+    offs = np.asarray(offsets).astype(np.int64)
+    lens = np.asarray(lengths).astype(np.int64)
+    v = lens.shape[0]
+    nnz = int(offs[-1])
+    pd = np.asarray(postings_doc)
+    pw = np.asarray(postings_weight)[:nnz].astype(np.float32)
+    l_max = max(int(lens.max()) if nnz else 1, 1)
+    out_offsets = np.zeros(v + 1, np.int32)
+    np.cumsum(lens, out=out_offsets[1:])
+    total = int(out_offsets[-1])
+    out_pd = np.full(total + l_max, -1, np.int32)
+    out_pw = np.zeros(total + l_max, np.float32)
+    if total:
+        idx = np.repeat(offs[:-1], lens) + (
+            np.arange(total) - np.repeat(out_offsets[:-1].astype(np.int64), lens)
+        )
+        out_pd[:total] = pd[idx]
+        out_pw[:total] = pw[idx]
+    return out_offsets, lens.astype(np.int32), out_pd, out_pw, l_max
+
+
+def mention_csr(ce_host: np.ndarray, e_pad: int, cap: int):
+    """Invert chunk_entities[N, M] into an entity -> chunk mention CSR (the
+    reference's ``_shard_mentions`` at one shard). Entities mentioned in more than
+    ``cap`` chunks keep their ``cap`` lowest chunk rows.
+    Returns (offsets i32[E+1], lengths i32[E], docs i32[W], l_max, truncated)."""
+    n, m = ce_host.shape
+    flat_ent = ce_host.reshape(-1).astype(np.int64)
+    flat_doc = np.repeat(np.arange(n, dtype=np.int64), m)
+    keep = (flat_ent >= 0) & (flat_ent < e_pad)
+    fe, fd = flat_ent[keep], flat_doc[keep]
+    order = np.lexsort((fd, fe))  # entity-major, chunk-ascending
+    fe, fd = fe[order], fd[order]
+    cnt = np.bincount(fe, minlength=e_pad)
+    offs_full = np.zeros(e_pad + 1, np.int64)
+    np.cumsum(cnt, out=offs_full[1:])
+    pos_in_ent = np.arange(fe.shape[0]) - np.repeat(offs_full[:-1], cnt)
+    k2 = pos_in_ent < cap
+    truncated = bool((cnt > cap).any())
+    fd = fd[k2]
+    lens = np.minimum(cnt, cap)
+    l_max = max(int(lens.max()) if fd.size else 1, 1)
+    out_offsets = np.zeros(e_pad + 1, np.int32)
+    np.cumsum(lens, out=out_offsets[1:])
+    out_docs = np.full(fd.size + l_max, -1, np.int32)
+    out_docs[: fd.size] = fd
+    return out_offsets, lens.astype(np.int32), out_docs, l_max, truncated
+
+
+def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """numpy -> tensor, including the ml_dtypes bfloat16 arrays JAX hands out."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:  # e.g. a read-only view of a JAX array
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _pad_rows(t: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Pad the leading axis to ``n_rows`` (-1 for integers, 0/False otherwise)."""
+    if t.shape[0] == n_rows:
+        return t
+    fill = -1 if not t.is_floating_point() and t.dtype != torch.bool else 0
+    pad = t.new_full((n_rows - t.shape[0],) + tuple(t.shape[1:]), fill)
+    return torch.cat([t, pad], 0)
+
+
+@dataclass
+class IndexState:
+    """Placed index tensors (one device) + host query tables. Absent channels hold
+    ``None``; the static statistics decide the engine's program variants."""
+
+    config: RAGConfig
+    device: torch.device
+    n_pad: int
+    # lexical (sorted CSR of precomputed BM25 weights)
+    lexical_mode: str  # "sorted" | "none"
+    lex_offsets: Optional[torch.Tensor]
+    lex_lengths: Optional[torch.Tensor]
+    lex_pd: Optional[torch.Tensor]
+    lex_pt: Optional[torch.Tensor]
+    lex_l_max: int
+    vocab: Optional[Vocabulary]
+    stored_df: Optional[np.ndarray]
+    idf: Optional[np.ndarray]
+    # dense
+    embeddings: Optional[torch.Tensor]
+    valid: Optional[torch.Tensor]
+    dim: int
+    # graph
+    graph_mode: str  # "none" | "sparse" | "dense"
+    graph_small_sparse: bool
+    graph_active: int
+    graph_m: int
+    nbr: Optional[torch.Tensor]
+    chunk_entities: Optional[torch.Tensor]
+    g_offsets: Optional[torch.Tensor]
+    g_lengths: Optional[torch.Tensor]
+    g_docs: Optional[torch.Tensor]
+    g_l_max: int
+    entity_store: Optional[EntityStore]
+    row_of: Dict[str, int]
+    seed_stop: Optional[np.ndarray]
+    # scoping, expansion, rerank
+    collection_of: torch.Tensor
+    collection_ids: Dict[str, int]
+    parent_of: torch.Tensor
+    maxsim_tokens: Optional[torch.Tensor]
+    maxsim_mask: Optional[torch.Tensor]
+    maxsim_calibration: float
+    corpus: Any = None  # view with child_by_row / parent (decode)
+
+    @property
+    def has_graph(self) -> bool:
+        return self.graph_mode != "none"
+
+    @property
+    def has_dense(self) -> bool:
+        return self.embeddings is not None
+
+    # ------------------------------------------------------------------ builders
+
+    @classmethod
+    def from_numpy(
+        cls,
+        arrays: Mapping[str, np.ndarray],
+        host: Mapping[str, Any],
+        config: RAGConfig,
+        device,
+    ) -> "IndexState":
+        """Carry the reference retriever's index arrays over to the port.
+
+        ``arrays`` (numpy; every channel optional except ``parent_of``):
+        ``parent_of`` i32[N]; ``bm25_offsets`` i32[V+1], ``bm25_lengths`` i32[V],
+        ``bm25_postings_doc`` i32[W], ``bm25_postings_weight`` f32[W] (precomputed
+        per-posting contributions), ``bm25_idf`` f32[V]; ``embeddings`` f32/bf16[N, D],
+        ``valid`` bool[N]; ``nbr`` i32[E, Dg], ``chunk_entities`` i32[N, M];
+        ``collection_of`` i32[N]; ``maxsim_tokens`` bf16/int8[P, Td, Dm],
+        ``maxsim_mask`` bool[P, Td].
+
+        ``host``: ``vocab`` (list of terms), ``entity_keys`` + ``entities`` (the entity
+        store's canonical keys and :class:`Entity` rows, in store order), ``row_of``,
+        ``seed_stop`` (bool[E] or None), ``collection_ids``, ``maxsim_calibration``,
+        ``corpus`` (a view for decoding), ``n_rows`` (the lexical table's capacity)."""
+        dev = torch.device(device)
+        t: Dict[str, Any] = {}
+        h = dict(host)
+        if "bm25_offsets" in arrays:
+            offs, lens, pd, pw, l_max = _csr_layout(
+                arrays["bm25_offsets"], arrays["bm25_lengths"],
+                arrays["bm25_postings_doc"], arrays["bm25_postings_weight"],
+            )
+            t.update(bm25_offsets=offs, bm25_lengths=lens, bm25_postings_doc=pd,
+                     bm25_postings_weight=pw)
+            h.update(bm25_l_max=l_max, stored_df=np.asarray(arrays["bm25_lengths"]),
+                     idf=np.asarray(arrays["bm25_idf"], np.float32))
+        for key in ("parent_of", "embeddings", "valid", "nbr", "collection_of",
+                    "maxsim_tokens", "maxsim_mask"):
+            if key in arrays and arrays[key] is not None:
+                t[key] = arrays[key]
+        if "chunk_entities" in arrays:
+            t["chunk_entities"] = arrays["chunk_entities"]
+            h["chunk_entities_host"] = np.asarray(arrays["chunk_entities"])
+        tensors = {k: _to_tensor(v, dev) for k, v in t.items()}
+        return cls.from_tensors(tensors, h, config, dev)
+
+    @classmethod
+    def from_tensors(
+        cls,
+        tensors: Mapping[str, torch.Tensor],
+        host: Mapping[str, Any],
+        config: RAGConfig,
+        device,
+    ) -> "IndexState":
+        """Place tensors already in the engine's layout (keys as in
+        :meth:`from_numpy`, the CSR already reshaped; ``host`` adds ``bm25_l_max``,
+        ``stored_df``, ``idf`` and ``chunk_entities_host``)."""
+        cfg = config
+        dev = torch.device(device)
+        tt = {k: v.to(dev) for k, v in tensors.items()}
+        n_rows = [tt["parent_of"].shape[0], int(host.get("n_rows", 0))]
+        if "embeddings" in tt:
+            n_rows.append(tt["embeddings"].shape[0])
+        n_pad = max(n_rows)
+
+        # ---- lexical ----
+        lexical_mode = "none"
+        lex = [None] * 4
+        l_max = 1
+        vocab = stored_df = idf = None
+        if "bm25_offsets" in tt and cfg.lexical_enabled:
+            if cfg.lexical_backend not in ("sorted", "auto"):
+                raise NotImplementedError(
+                    f"lexical_backend={cfg.lexical_backend!r} is not ported "
+                    "(ROADMAP.md, Queue 1); use 'sorted' or 'auto'"
+                )
+            lexical_mode = "sorted"
+            lex = [tt["bm25_offsets"].int(), tt["bm25_lengths"].int(),
+                   tt["bm25_postings_doc"].int(), tt["bm25_postings_weight"].float()]
+            l_max = int(host["bm25_l_max"])
+            terms = host["vocab"]
+            vocab = terms if isinstance(terms, Vocabulary) else Vocabulary.from_list(terms)
+            stored_df = np.asarray(host["stored_df"])
+            idf = np.asarray(host["idf"], np.float32)
+
+        # ---- dense ----
+        embeddings = valid = None
+        dim = 8
+        if "embeddings" in tt:
+            embeddings = _pad_rows(tt["embeddings"], n_pad)
+            if embeddings.dtype in (torch.int8, torch.uint8):
+                raise NotImplementedError(
+                    "int8/int4 dense rows are not ported yet (ROADMAP.md, Queue 2)"
+                )
+            valid = _pad_rows(tt["valid"].bool(), n_pad)
+            dim = embeddings.shape[1]
+
+        # ---- graph: the reference's backend policy (parallel/engine.py) ----
+        graph_mode = "none"
+        graph_small_sparse = False
+        graph_active, g_l_max, graph_m = 1, 1, 1
+        nbr = chunk_entities = None
+        g_csr = [None] * 3
+        store = None
+        if "nbr" in tt:
+            nbr = tt["nbr"].int()
+            e_pad = nbr.shape[0]
+            ce_host = host["chunk_entities_host"]
+            graph_m = int(ce_host.shape[1])
+            backend = cfg.graph_backend
+            deg = int(nbr.shape[1])
+            reach, bound = 1, 1
+            for _ in range(cfg.graph_hops):
+                reach *= deg
+                bound += reach
+            bound = min(cfg.graph_max_seeds * bound, e_pad)
+            a_slots = min(bound, cfg.graph_active_slots)
+            want_small = cfg.graph_sparse_max_batch > 0
+            if backend in ("sparse", "auto") and (
+                backend == "sparse" or bound <= cfg.graph_active_slots or want_small
+            ):
+                g_off, g_len, g_docs, l_max_g, truncated = mention_csr(
+                    ce_host, e_pad, cfg.graph_mention_cap
+                )
+                exact = (not truncated) and bound <= cfg.graph_active_slots
+                if backend == "sparse" or exact or want_small:
+                    graph_active = a_slots
+                    g_l_max = l_max_g
+                    g_csr = [torch.from_numpy(x).to(dev) for x in (g_off, g_len, g_docs)]
+                    if backend == "sparse" or exact:
+                        graph_mode = "sparse"
+                    else:
+                        graph_small_sparse = True
+            if graph_mode != "sparse":
+                graph_mode = "dense"
+                chunk_entities = _pad_rows(tt["chunk_entities"].int(), n_pad)
+            store = EntityStore.from_items(zip(host["entity_keys"], host["entities"]))
+
+        collection_of = (
+            _pad_rows(tt["collection_of"].int(), n_pad)
+            if "collection_of" in tt
+            else torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+        )
+        tokens = mask = None
+        if "maxsim_tokens" in tt:
+            tokens = dequantize_tokens(tt["maxsim_tokens"]).to(torch.bfloat16).contiguous()
+            mask = tt["maxsim_mask"].bool()
+        return cls(
+            config=cfg, device=dev, n_pad=n_pad,
+            lexical_mode=lexical_mode, lex_offsets=lex[0], lex_lengths=lex[1],
+            lex_pd=lex[2], lex_pt=lex[3], lex_l_max=l_max,
+            vocab=vocab, stored_df=stored_df, idf=idf,
+            embeddings=embeddings, valid=valid, dim=dim,
+            graph_mode=graph_mode, graph_small_sparse=graph_small_sparse,
+            graph_active=graph_active, graph_m=graph_m, nbr=nbr,
+            chunk_entities=chunk_entities, g_offsets=g_csr[0], g_lengths=g_csr[1],
+            g_docs=g_csr[2], g_l_max=g_l_max, entity_store=store,
+            row_of=dict(host.get("row_of", {})), seed_stop=host.get("seed_stop"),
+            collection_of=collection_of,
+            collection_ids=dict(host.get("collection_ids", {})),
+            parent_of=_pad_rows(tt["parent_of"].int(), n_pad),
+            maxsim_tokens=tokens, maxsim_mask=mask,
+            maxsim_calibration=float(host.get("maxsim_calibration", 1.0)),
+            corpus=host.get("corpus"),
+        )
+
+    # ------------------------------------------------------------------ host lookups
+
+    def encode_query(self, keywords: Sequence[str]) -> np.ndarray:
+        """Keywords -> padded i32[max_query_terms] term ids (OOV / pad = -1)."""
+        q = self.config.max_query_terms
+        ids: List[int] = []
+        seen: set = set()
+        for kw in keywords:
+            tid = self.vocab.get(kw)
+            if tid >= 0 and tid not in seen:
+                seen.add(tid)
+                ids.append(tid)
+            if len(ids) >= q:
+                break
+        out = np.full((q,), QUERY_PAD, dtype=np.int32)
+        out[: len(ids)] = ids
+        return out
+
+    def encode_query_tiered(
+        self, keywords: Sequence[str]
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(small_terms, small_slots, large_terms, large_slots): terms with stored df
+        <= bm25_small_window go to the small tier; the large tier keeps the
+        bm25_large_slots rarest (by idf). Slots are the original query positions."""
+        qt = self.encode_query(keywords)
+        cfg = self.config
+        small, large = [], []
+        for slot, t in enumerate(qt):
+            if t < 0:
+                continue
+            (small if self.stored_df[t] <= cfg.bm25_small_window else large).append((int(t), slot))
+        large.sort(key=lambda ts: -float(self.idf[ts[0]]))
+        large = large[: cfg.bm25_large_slots]
+
+        def pad(pairs, cap):
+            terms = np.full((cap,), -1, np.int32)
+            slots = np.zeros((cap,), np.int32)
+            for i, (t, s) in enumerate(pairs[:cap]):
+                terms[i], slots[i] = t, s
+            return terms, slots
+
+        st, ss = pad(small, cfg.max_query_terms)
+        lt, ls = pad(large, cfg.bm25_large_slots)
+        return st, ss, lt, ls
+
+    def seed_lookup(self, name: str, limit: int = 3) -> List[Entity]:
+        """Entity lookup minus the seed stoplist (stop entities never seed a query's
+        expansion; filtering happens before the limit)."""
+        out: List[Entity] = []
+        for e in self.entity_store.lookup(name, self.config.graph_fuzzy_threshold):
+            row = self.row_of.get(e.entity_id)
+            if row is not None and self.seed_stop is not None and bool(self.seed_stop[row]):
+                continue
+            out.append(e)
+            if len(out) >= limit:
+                break
+        return out
+
+    def nbytes(self) -> Dict[str, int]:
+        """Device bytes per placed component (for reporting)."""
+        parts = {
+            "embeddings": [self.embeddings, self.valid],
+            "postings": [self.lex_offsets, self.lex_lengths, self.lex_pd, self.lex_pt],
+            "maxsim": [self.maxsim_tokens, self.maxsim_mask],
+            "graph": [self.nbr, self.chunk_entities, self.g_offsets, self.g_lengths, self.g_docs],
+            "tables": [self.parent_of, self.collection_of],
+        }
+        return {
+            k: sum(t.numel() * t.element_size() for t in v if t is not None)
+            for k, v in parts.items()
+        }

@@ -1,0 +1,179 @@
+"""Sort-based sparse BM25 top-k over CSR postings: the lexical channel.
+
+The port of the JAX package's ``ops/bm25.py`` query ops, batched over a leading query
+axis. Work is O(matched postings), independent of corpus size:
+
+1. gather each query term's postings window (contiguous slices of precomputed
+   per-posting BM25 weights),
+2. sort the (doc, query-slot) pairs,
+3. reduce each run of equal docs with a segmented *doubling* tree,
+4. top-k over the run totals.
+
+The doubling tree is kept in the reference's order on purpose: a run's total depends
+only on run-relative offsets, so every score is bit-identical to the JAX op (the
+property the reference's sharding proofs rest on). A ``scatter_add``/``index_add_``
+would sum in another order and is deliberately not used.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .topk import NEG_INF, lax_top_k
+
+QUERY_PAD = -1  # query slot sentinel (also the OOV term id)
+
+
+def bm25_idf(n_docs, df: torch.Tensor) -> torch.Tensor:
+    """Okapi BM25 idf with the +1 smoothing that keeps it positive."""
+    return torch.log1p((n_docs - df + 0.5) / (df + 0.5))
+
+
+def bm25_denom_k1(
+    doc_lengths: torch.Tensor, avgdl: torch.Tensor, k1: float, b: float
+) -> torch.Tensor:
+    """Per-document ``k1 * (1 - b + b * dl / avgdl)``."""
+    return k1 * (1.0 - b + b * doc_lengths / torch.clamp(avgdl, min=1e-6))
+
+
+def gather_windows(
+    offsets: torch.Tensor,   # i32[V + 1] CSR offsets
+    lengths: torch.Tensor,   # i32[V] stored df
+    postings_doc: torch.Tensor,     # i32[nnz_pad] doc row per posting
+    postings_weight: torch.Tensor,  # f32[nnz_pad] precomputed contribution
+    terms: torch.Tensor,     # i[B, Q] term ids (-1 = empty slot)
+    window: int,
+    n_pad: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(docs i64[B, Q, window], contrib f32[B, Q, window]); invalid slots hold doc
+    ``n_pad`` (sorts last) and contribution 0."""
+    terms = terms.long()
+    valid_t = terms >= 0
+    t = torch.where(valid_t, terms, torch.zeros_like(terms))
+    # dynamic_slice semantics: the start clamps so the window stays in bounds
+    start = offsets.long()[t].clamp(0, postings_doc.shape[0] - window)
+    df = lengths.long()[t]
+    pos = torch.arange(window, device=terms.device)
+    idx = start[..., None] + pos
+    valid = (pos < df[..., None]) & valid_t[..., None]
+    docs = torch.where(valid, postings_doc.long()[idx], torch.full_like(idx, n_pad))
+    contrib = torch.where(
+        valid, postings_weight.float()[idx], torch.zeros((), device=terms.device)
+    )
+    return docs, contrib
+
+
+def sparse_topk_from_windows(
+    docs: torch.Tensor,      # i64[B, P]
+    slots: torch.Tensor,     # i64[B, P] query slot of each entry
+    contribs: torch.Tensor,  # f32[B, P]
+    q_slots: int,
+    n_pad: int,
+    top_k: int,
+    row_mask: Optional[torch.Tensor] = None,  # bool[B, n_pad]
+    combine: str = "sum",
+    run_bound: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared tail: (doc, slot) sort, segmented doubling reduction, top-k over run
+    starts. ``combine`` is "sum" (BM25) or "max" (graph best-entity);
+    ``run_bound`` caps the doubling depth when runs are known to be shorter than
+    ``q_slots``."""
+    b, p = docs.shape
+    key = (docs.long() << 32) | slots.long()
+    perm = torch.argsort(key, dim=1, stable=True)
+    sorted_docs = torch.gather(docs.long(), 1, perm)
+    acc = torch.gather(contribs.float(), 1, perm)
+
+    # after step s, acc[i] = reduction of run elements in [i, i + 2^s)
+    step = 1
+    bound = q_slots if run_bound is None else min(run_bound, q_slots)
+    while step < bound:
+        shifted_acc = torch.cat([acc[:, step:], acc.new_zeros((b, min(step, p)))], 1)[:, :p]
+        shifted_doc = torch.cat(
+            [sorted_docs[:, step:], sorted_docs.new_full((b, min(step, p)), -9)], 1
+        )[:, :p]
+        same = shifted_doc == sorted_docs
+        if combine == "max":
+            acc = torch.maximum(acc, shifted_acc.masked_fill(~same, NEG_INF))
+        else:
+            acc = acc + shifted_acc.masked_fill(~same, 0.0)
+        step <<= 1
+
+    prev_docs = torch.cat([sorted_docs.new_full((b, 1), -9), sorted_docs[:, :-1]], 1)
+    ok_row = (sorted_docs != prev_docs) & (sorted_docs < n_pad)
+    if row_mask is not None:
+        ok_row = ok_row & torch.gather(row_mask, 1, sorted_docs.clamp(0, n_pad - 1))
+    score_at_start = acc.masked_fill(~ok_row, NEG_INF)
+    kk = min(top_k, p)
+    vals, pos = lax_top_k(score_at_start, kk)
+    ok = vals > NEG_INF
+    ids = torch.where(ok, torch.gather(sorted_docs, 1, pos), torch.full_like(pos, -1))
+    vals = vals.masked_fill(~ok, NEG_INF)
+    if kk < top_k:
+        ids = torch.cat([ids, ids.new_full((b, top_k - kk), -1)], 1)
+        vals = torch.cat([vals, vals.new_full((b, top_k - kk), NEG_INF)], 1)
+    return ids, vals
+
+
+def score_postings_topk_pre(
+    offsets: torch.Tensor,
+    lengths: torch.Tensor,
+    postings_doc: torch.Tensor,
+    postings_weight: torch.Tensor,
+    query_terms: torch.Tensor,  # i[B, Q]
+    row_mask: Optional[torch.Tensor] = None,  # bool[B, n_pad]
+    *,
+    l_max: int,
+    n_pad: int,
+    top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched sparse BM25 top-k with one ``l_max`` window per query slot."""
+    b, q = query_terms.shape
+    docs, contrib = gather_windows(
+        offsets, lengths, postings_doc, postings_weight, query_terms, l_max, n_pad
+    )
+    slots = torch.arange(q, device=docs.device)[None, :, None].expand(b, q, l_max)
+    return sparse_topk_from_windows(
+        docs.reshape(b, -1), slots.reshape(b, -1), contrib.reshape(b, -1),
+        q, n_pad, top_k, row_mask,
+    )
+
+
+def score_postings_topk_tiered(
+    offsets: torch.Tensor,
+    lengths: torch.Tensor,
+    postings_doc: torch.Tensor,
+    postings_weight: torch.Tensor,
+    small_terms: torch.Tensor,  # i[B, Qs] terms with stored df <= l_small (-1 pad)
+    small_slots: torch.Tensor,  # i[B, Qs] original query slot of each small term
+    large_terms: torch.Tensor,  # i[B, Ql] high-df terms (-1 pad)
+    large_slots: torch.Tensor,  # i[B, Ql]
+    row_mask: Optional[torch.Tensor] = None,
+    *,
+    l_small: int,
+    l_max: int,
+    n_pad: int,
+    top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """df-tiered variant: rare terms read ``l_small`` windows, the few large-tier
+    slots read ``l_max``. The sort's secondary key is the ORIGINAL query slot, so
+    the summation order (and every ulp) matches the untiered op."""
+    b = small_terms.shape[0]
+    ws = min(l_small, l_max)
+    ds, cs = gather_windows(
+        offsets, lengths, postings_doc, postings_weight, small_terms, ws, n_pad
+    )
+    dl, cl = gather_windows(
+        offsets, lengths, postings_doc, postings_weight, large_terms, l_max, n_pad
+    )
+    ss = small_slots.long()[:, :, None].expand(-1, -1, ws)
+    sl = large_slots.long()[:, :, None].expand(-1, -1, l_max)
+    docs = torch.cat([ds.reshape(b, -1), dl.reshape(b, -1)], 1)
+    slots = torch.cat([ss.reshape(b, -1), sl.reshape(b, -1)], 1)
+    contribs = torch.cat([cs.reshape(b, -1), cl.reshape(b, -1)], 1)
+    q_slots = int(small_terms.shape[1] + large_terms.shape[1])
+    return sparse_topk_from_windows(
+        docs, slots, contribs, q_slots, n_pad, top_k, row_mask
+    )

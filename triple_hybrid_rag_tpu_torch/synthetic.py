@@ -1,0 +1,206 @@
+"""Synthetic serving-size corpus, built on the device from a seed.
+
+The construction of the JAX package's ``bench.py`` (``build_synthetic`` and
+``make_query_texts``), in PyTorch: documents are bags of ``L_DOC`` vocabulary terms
+with u^4-skewed ids (a Zipf-like head); the BM25 postings are capped at ``df_cap``
+per term with precomputed weights; the dense rows ARE the BowHash embeddings of the
+documents' terms (summed from the same per-term directions the query embedder
+uses); parent p holds the MaxSim token vectors of chunk 5p's first terms; the
+graph has ``n_entities`` entities with random adjacency of mean degree deg/2 and
+two mentions per chunk. Self-retrieval (a document's own terms as the query) is
+therefore a real end-to-end check.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .analyzer import Vocabulary
+from .config import RAGConfig
+from .corpus import SyntheticCorpusView
+from .device import resolve_device
+from .index.state import IndexState
+from .models.embedder import BowHashEmbedder
+from .models.entity_extractor import canonical_key
+from .types import Entity
+
+L_DOC = 64  # terms per document
+VOCAB = 65536
+CHILDREN_PER_PARENT = 5
+_ROW_BLOCK = 1 << 17  # rows per embedding block (bounds the f32 accumulator)
+
+
+def term_str(i: int) -> str:
+    return f"t{i:06d}"
+
+
+def entity_name(i: int) -> str:
+    return f"Acme{i:05d}"
+
+
+class SyntheticCorpus(NamedTuple):
+    state: IndexState
+    term_ids: np.ndarray  # i32[n_pad, L_DOC] host copy of each document's terms
+    embedder: BowHashEmbedder  # the query embedder whose directions built the rows
+    n: int
+    n_entities: int
+
+
+def build_synthetic(
+    config: RAGConfig,
+    n: int,
+    dim: int,
+    n_entities: int,
+    seed: int = 0,
+    device=None,
+) -> SyntheticCorpus:
+    """Build the synthetic index on ``device`` (CUDA unless ``device="cpu"``).
+
+    ``config`` fixes the capacity rounding, ``bm25_df_cap``, the BM25 constants,
+    the MaxSim token shape and the graph widths; ``dim`` must equal
+    ``config.embedding_dim``."""
+    dev = resolve_device(device)
+    cfg = config
+    if dim != cfg.embedding_dim:
+        raise ValueError("dim must equal config.embedding_dim")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pad = cfg.round_capacity(n)
+    df_cap = cfg.bm25_df_cap or n
+
+    # ---- documents: u^4-skewed term ids ----
+    u = torch.rand((n_pad, L_DOC), generator=gen, device=dev)
+    term_ids = torch.floor(VOCAB * u**4).to(torch.int32).clamp_(max=VOCAB - 1)
+    term_ids[n:] = 0
+    del u
+
+    # ---- CSR postings (term-major, doc-ascending), capped at df_cap ----
+    flat_terms = term_ids[:n].reshape(-1).long()
+    key = flat_terms * n + torch.arange(n, device=dev).repeat_interleave(L_DOC)
+    key = torch.sort(key).values
+    st, sd = key // n, key % n
+    del key, flat_terms
+    df = torch.bincount(st, minlength=VOCAB)
+    offsets_full = torch.zeros(VOCAB + 1, dtype=torch.long, device=dev)
+    offsets_full[1:] = torch.cumsum(df, 0)
+    pos_in_term = torch.arange(st.shape[0], device=dev) - torch.repeat_interleave(offsets_full[:-1], df)
+    keep = pos_in_term < df_cap
+    st, sd = st[keep], sd[keep]
+    del pos_in_term, keep
+    stored_df = torch.clamp(df, max=df_cap)
+    offsets = torch.zeros(VOCAB + 1, dtype=torch.long, device=dev)
+    offsets[1:] = torch.cumsum(stored_df, 0)
+    nnz = int(offsets[-1])
+    l_max = int(stored_df.max())
+    idf64 = torch.log1p((n - df.double() + 0.5) / (df.double() + 0.5))
+    idf = idf64.float()
+    k1, b = cfg.bm25_k1, cfg.bm25_b
+    denom = k1 * (1.0 - b + b * 1.0)  # every document has the average length
+    postings_doc = torch.full((nnz + l_max,), -1, dtype=torch.int32, device=dev)
+    postings_doc[:nnz] = sd.to(torch.int32)
+    postings_weight = torch.zeros(nnz + l_max, dtype=torch.float32, device=dev)
+    postings_weight[:nnz] = (idf[st] * (k1 + 1.0) / (1.0 + denom)).float()
+    del st, sd
+
+    # ---- dense rows = BowHash of each document's terms ----
+    embedder = BowHashEmbedder(dim=dim, config=cfg)
+    terms = [term_str(i) for i in range(VOCAB)]
+    dirs = torch.from_numpy(np.stack([embedder._token_vec(t) for t in terms]))
+    dirs = dirs.to(torch.float16).to(dev)  # the reference ships the table as f16
+    emb = torch.empty((n_pad, dim), dtype=torch.bfloat16, device=dev)
+    for lo in range(0, n_pad, _ROW_BLOCK):
+        ids = term_ids[lo:lo + _ROW_BLOCK].long()
+        acc = torch.zeros((ids.shape[0], dim), dtype=torch.float32, device=dev)
+        for g in range(L_DOC):
+            acc += dirs[ids[:, g]].float()
+        acc /= torch.clamp(torch.linalg.vector_norm(acc, dim=1, keepdim=True), min=1e-12)
+        emb[lo:lo + _ROW_BLOCK] = acc.to(torch.bfloat16)
+    del dirs, acc
+    valid = torch.arange(n_pad, device=dev) < n
+
+    # ---- MaxSim token store: parent p holds chunk 5p's first terms ----
+    m_dim, td = cfg.maxsim_dim, cfg.maxsim_doc_tokens
+    mtok = embedder.token_embeddings(terms, max_tokens=1, dim=m_dim)[:, 0, :]
+    mdirs = torch.from_numpy(mtok).to(torch.float16).to(dev)
+    n_parents = n // CHILDREN_PER_PARENT
+    p_pad = cfg.round_capacity(n_parents)
+    parent_terms = torch.zeros((p_pad, td), dtype=torch.long, device=dev)
+    parent_terms[:n_parents] = term_ids[: CHILDREN_PER_PARENT * n_parents : CHILDREN_PER_PARENT, :td].long()
+    tokens = mdirs[parent_terms].to(torch.bfloat16)
+    tok_mask = (torch.arange(p_pad, device=dev) < n_parents)[:, None].expand(p_pad, td).contiguous()
+    del parent_terms, mdirs
+    parent_of = (torch.arange(n_pad, device=dev) // CHILDREN_PER_PARENT).to(torch.int32)
+
+    # ---- graph: random adjacency (mean degree deg/2) + two mentions per chunk ----
+    e_pad = cfg.round_capacity(n_entities)
+    deg = cfg.graph_max_degree
+    nbr = torch.randint(0, n_entities, (e_pad, deg), generator=gen, device=dev, dtype=torch.int32)
+    nbr[n_entities:] = -1
+    nbr[:, deg // 2:] = -1
+    m_ent = cfg.graph_max_entities_per_chunk
+    chunk_entities = torch.randint(0, n_entities, (n_pad, m_ent), generator=gen, device=dev, dtype=torch.int32)
+    chunk_entities[:, m_ent // 2:] = -1
+    chunk_entities[n:] = -1
+    entities = [Entity(entity_id=f"e{i}", canonical_name=entity_name(i), row=i) for i in range(n_entities)]
+
+    term_ids_host = term_ids.cpu().numpy()
+    del term_ids
+
+    def text_of(row: int) -> str:
+        return " ".join(term_str(int(t)) for t in term_ids_host[row])
+
+    state = IndexState.from_tensors(
+        {
+            "parent_of": parent_of,
+            "bm25_offsets": offsets.to(torch.int32), "bm25_lengths": stored_df.to(torch.int32),
+            "bm25_postings_doc": postings_doc, "bm25_postings_weight": postings_weight,
+            "embeddings": emb, "valid": valid,
+            "nbr": nbr, "chunk_entities": chunk_entities,
+            "maxsim_tokens": tokens, "maxsim_mask": tok_mask,
+        },
+        {
+            "bm25_l_max": l_max,
+            "stored_df": stored_df.cpu().numpy(),
+            "idf": idf.cpu().numpy(),
+            "vocab": Vocabulary.from_list(terms),
+            "chunk_entities_host": chunk_entities.cpu().numpy(),
+            "entity_keys": [canonical_key(e.canonical_name) for e in entities],
+            "entities": entities,
+            "row_of": {e.entity_id: e.row for e in entities},
+            "corpus": SyntheticCorpusView(n, text_of, CHILDREN_PER_PARENT),
+        },
+        cfg,
+        dev,
+    )
+    return SyntheticCorpus(state, term_ids_host, embedder, n, n_entities)
+
+
+def make_query_texts(
+    rows: Sequence[int],
+    term_ids: np.ndarray,
+    rng: np.random.Generator,
+    graph_frac: float,
+    n_entities: int,
+) -> Tuple[List[str], np.ndarray]:
+    """Query text for each target row: its first 8 distinct terms; a fraction
+    ``graph_frac`` get a relation question over two entity names, which the rule
+    planner turns into a graph-seeded plan. Returns (texts, is_graph)."""
+    texts, is_graph = [], []
+    for r in rows:
+        seen, terms = set(), []
+        for t in term_ids[r]:
+            if t not in seen:
+                seen.add(t)
+                terms.append(term_str(int(t)))
+            if len(terms) >= 8:
+                break
+        text = " ".join(terms)
+        g = rng.random() < graph_frac
+        if g:
+            e1, e2 = rng.integers(0, n_entities, size=2)
+            text = f"How is {entity_name(e1)} related to {entity_name(e2)}? " + text
+        texts.append(text)
+        is_graph.append(g)
+    return texts, np.asarray(is_graph)
