@@ -86,6 +86,19 @@ def bound(bytes_: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def near_ties_only(ids_a: torch.Tensor, ids_b: torch.Tensor, s_ref: torch.Tensor, atol: float) -> int:
+    """Number of slots where two [B, k] id lists differ. Each such slot's score in
+    ``s_ref`` must lie within ``atol`` of a neighbour's, else the script fails."""
+    diff = ids_a != ids_b
+    if bool(diff.any()):
+        inf = torch.full_like(s_ref[:, :1], float("inf"))
+        step = (s_ref[:, 1:] - s_ref[:, :-1]).abs()
+        gap = torch.minimum(torch.cat([inf, step], 1), torch.cat([step, inf], 1))
+        if not bool((gap[diff] <= atol).all()):
+            return -1
+    return int(diff.sum())
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """Max |a - b| over finite entries; -inf entries must agree exactly."""
     if not torch.equal(torch.isinf(a), torch.isinf(b)):
@@ -98,8 +111,13 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def check_fused(dev, gen):
+    from triple_hybrid_rag_tpu_torch.index.dense_index import dense_scores_batch
     from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
     from triple_hybrid_rag_tpu_torch.ops.topk import bucketed_masked_top_k_batch
+
+    def bucketed_topk(m):  # the use_fused_topk=False path: bf16 GEMM, f32 out
+        return bucketed_masked_top_k_batch(dense_scores_batch(emb, q), 100, valid=m,
+                                           invalid_score_floor=-2.0)
 
     n = 1_000_448
     emb = torch.randn((n, DIM), generator=gen, device=dev)
@@ -122,20 +140,14 @@ def check_fused(dev, gen):
             fail(f"fused_bucket_maxima disagrees with its plain version ({e})")
         err = max(err, e)
         # ids of the fused top-k vs the bucketed matmul path, up to near ties
-        ids_k, s_k = ft.fused_dense_topk(emb, valid, q, 100, c, k)
-        scores = ft.dense_scores_blocked(emb, q)
+        ids_k, _ = ft.fused_dense_topk(emb, valid, q, 100, c, k)
         m = valid[None, :] if not scoped else valid[None, :] & ((k[:, None] == -1) | (coll[None, :] == k[:, None]))
-        ids_p, s_p = bucketed_masked_top_k_batch(scores, 100, valid=m, invalid_score_floor=-2.0)
-        del scores
-        diff = ids_k != ids_p
-        if bool(diff.any()):
-            inf = torch.full_like(s_p[:, :1], float("inf"))
-            step = (s_p[:, 1:] - s_p[:, :-1]).abs()
-            gap = torch.minimum(torch.cat([inf, step], 1), torch.cat([step, inf], 1))
-            if not bool((gap[diff] <= FUSED_ATOL).all()):
-                fail("fused_dense_topk ids differ from the bucketed matmul path beyond near ties")
-        log(f"fused_dense_topk ids vs bucketed matmul path: {int(diff.sum())} of {diff.numel()} "
-            "slots differ, all at near ties")
+        ids_p, s_p = bucketed_topk(m)
+        n_diff = near_ties_only(ids_k, ids_p, s_p, FUSED_ATOL)
+        if n_diff < 0:
+            fail("fused_dense_topk ids differ from the bucketed matmul path beyond near ties")
+        log(f"fused_dense_topk ids vs bucketed matmul path: {n_diff} of {ids_k.numel()} "
+            f"slots differ, all at near ties (atol {FUSED_ATOL})")
 
     # the float32-row variant (not on the serving path), on a slice of the rows
     e32 = emb[:65536].float()
@@ -148,12 +160,16 @@ def check_fused(dev, gen):
 
     ms = time_ms(lambda: ft.bucket_maxima(emb, q, valid))
     plain_ms = time_ms(lambda: ft.bucket_maxima_plain(emb, q, valid), iters=3, warmup=1)
-    qb = q.to(torch.bfloat16)
-    matmul_ms = time_ms(lambda: torch.matmul(qb, emb.T))
+    matmul_ms = time_ms(lambda: dense_scores_batch(emb, q))
     nb = -(-n // 16)
     b_ms, b_by = bound(n * DIM * 2 + BATCH * DIM * 4 + n + BATCH * nb * 4, 2.0 * BATCH * n * DIM)
     log(f"fused_bucket_maxima N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.matmul bf16 {matmul_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"bf16 GEMM with f32 out alone {matmul_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # the whole dense channel (top-100) both ways: the use_fused_topk decision
+    topk_ms = time_ms(lambda: ft.fused_dense_topk(emb, valid, q, 100))
+    bucketed_ms = time_ms(lambda: bucketed_topk(valid[None, :]))
+    log(f"dense top-100 N={n} B={BATCH}: fused kernel path {topk_ms:.4f} ms, "
+        f"bucketed GEMM path {bucketed_ms:.4f} ms")
     del emb, valid, coll
     torch.cuda.empty_cache()
     return {
@@ -162,6 +178,7 @@ def check_fused(dev, gen):
         "replaces": "triple_hybrid_rag_tpu/ops/pallas/fused_topk.py:252",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "matmul_ms": matmul_ms,
+        "topk_ms": topk_ms, "bucketed_topk_ms": bucketed_ms,
     }
 
 
@@ -296,13 +313,12 @@ def main_path(dev, card):
     batch = texts[3 * BATCH:4 * BATCH]
     _, out_k = eng.search_arrays(batch)
     _, out_x = eng_x.search_arrays(batch)
-    ids_k, ids_x = out_k[0].cpu().numpy(), out_x[0].cpu().numpy()
-    s_k, s_x = out_k[1].cpu().numpy(), out_x[1].cpu().numpy()
-    differ = (ids_k != ids_x).any(axis=1)
-    if differ.any() and np.abs(s_k - s_x)[differ].max() > 1e-3:
+    n_diff = near_ties_only(out_k[0], out_x[0], out_x[1], FUSED_ATOL)
+    if n_diff < 0:
         fail("bucketed path and kernel path differ beyond near ties")
-    log(f"use_fused_topk=False vs kernel path: {int(differ.sum())} of {BATCH} queries differ in "
-        f"final ids (near ties only); max final-score gap {float(np.abs(s_k - s_x).max()):.3g}")
+    log(f"use_fused_topk=False vs kernel path: {n_diff} of {out_k[0].numel()} final slots differ, "
+        f"all at near ties (atol {FUSED_ATOL}); max final-score gap "
+        f"{float((out_k[1] - out_x[1]).abs().max()):.3g}")
 
     # ---- timing ----
     batches = [texts[i * BATCH:(i + 1) * BATCH] for i in range(2, 6)]
@@ -317,22 +333,26 @@ def main_path(dev, card):
     for a in args:
         eng.run(a)
     torch.cuda.synchronize()
-    dev_ms = (time.perf_counter() - t0) / (len(batches) * BATCH) * 1e3
+    wall_ms = (time.perf_counter() - t0) / (len(batches) * BATCH) * 1e3
     t0 = time.perf_counter()
     for a in args:
         eng_x.run(a)
     torch.cuda.synchronize()
-    dev_x_ms = (time.perf_counter() - t0) / (len(batches) * BATCH) * 1e3
-    log(f"batched B={BATCH}: {e2e:.4f} ms/query with host prep, {dev_ms:.4f} ms/query device only "
-        f"(kernel dense path), {dev_x_ms:.4f} ms/query device only (bucketed matmul path); "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
-    stage_profile(eng, args)
+    wall_x_ms = (time.perf_counter() - t0) / (len(batches) * BATCH) * 1e3
+    log(f"batched B={BATCH}: {e2e:.4f} ms/query with host prep; program wall ms/query (prepared "
+        f"args, host dispatch included) {wall_ms:.4f} kernel dense path, {wall_x_ms:.4f} bucketed "
+        f"matmul path; peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card {card}")
+    busy = stage_profile(eng, args, "kernel dense path")
+    busy_x = stage_profile(eng_x, args, "bucketed matmul path")
+    log(f"device busy ms/query (profiler): {busy / BATCH:.4f} kernel dense path, "
+        f"{busy_x / BATCH:.4f} bucketed matmul path")
     return launches
 
 
-def stage_profile(eng, args) -> None:
+def stage_profile(eng, args, label: str) -> float:
     """Device time per engine stage and per kernel over a few batches
-    (torch.profiler; the profiler's own cost is in the wall time)."""
+    (torch.profiler; the profiler's own cost is in the wall time). Returns the
+    device busy ms per batch (the sum of the kernels' times)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -357,10 +377,10 @@ def stage_profile(eng, args) -> None:
     kernels = [e for e in on_dev if not e.key.startswith("engine.")]
     busy = sum(dev_self(e) for e in kernels)
     if busy <= 0:
-        log("profile: the profiler recorded no device time (not measured)")
-        return
+        log(f"profile ({label}): the profiler recorded no device time (not measured)")
+        return float("nan")
     n = len(args)
-    log(f"profile over {n} batches of {BATCH}: wall {wall_ms / n:.3f} ms/batch, device busy "
+    log(f"profile ({label}) over {n} batches of {BATCH}: wall {wall_ms / n:.3f} ms/batch, device busy "
         f"{busy / n:.3f} ms/batch ({100 * busy / wall_ms:.1f} % of wall, idle "
         f"{100 * max(0.0, 1 - busy / wall_ms):.1f} %)")
     for e in events:
@@ -373,6 +393,7 @@ def stage_profile(eng, args) -> None:
                 f"host {e.cpu_time_total / 1e3 / n:.3f} ms/batch")
     for e in sorted(kernels, key=dev_self, reverse=True)[:12]:
         log(f"  kernel {dev_self(e) / n:8.3f} ms/batch x{e.count // n:<4d} {e.key[:110]}")
+    return busy / n
 
 
 def main() -> int:

@@ -190,7 +190,8 @@ class RAGConfig:
     # fused_topk_auto_bytes of score transient) rests on a TPU measurement and
     # does not apply here: in the port None resolves to the kernel on a CUDA
     # device and to the bucketed matmul path on the CPU. False forces the
-    # bucketed path (torch.matmul + ops/topk.bucketed_masked_top_k_batch).
+    # bucketed path (a bf16 GEMM with f32 output, then
+    # ops/topk.bucketed_masked_top_k_batch).
     # Both paths are exact, so the choice changes no result.
     use_fused_topk: Optional[bool] = None
     fused_topk_auto_bytes: int = 1_500_000_000  # reference-only (TPU auto rule)

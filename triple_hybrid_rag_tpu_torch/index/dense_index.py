@@ -6,8 +6,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.fused_topk import dense_scores_blocked
-
 
 def truncate_matryoshka(vectors: np.ndarray, dim: int) -> np.ndarray:
     """Prefix-truncate + re-L2-normalize (host numpy, as the reference does)."""
@@ -17,8 +15,15 @@ def truncate_matryoshka(vectors: np.ndarray, dim: int) -> np.ndarray:
 
 
 def dense_scores_batch(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> torch.Tensor:
-    """Batched scores f32[B, N]: queries cast to the row dtype, f32 sums."""
-    return dense_scores_blocked(embeddings, query_vecs)
+    """Batched scores f32[B, N] = q . e, queries cast to the row dtype.
+
+    The reference's dot with ``preferred_element_type=f32``: on CUDA a bf16 GEMM
+    with f32 output. The CPU has no such GEMM, so there the rows widen to f32
+    first, which gives the same exact products summed in f32."""
+    q = query_vecs.to(embeddings.dtype)
+    if embeddings.device.type == "cuda" and embeddings.dtype == torch.bfloat16:
+        return torch.mm(q, embeddings.T, out_dtype=torch.float32)
+    return q.float() @ embeddings.float().T
 
 
 def zero_query_guard(

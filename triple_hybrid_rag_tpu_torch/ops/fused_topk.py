@@ -7,7 +7,7 @@ The port of the JAX package's ``ops/pallas/fused_topk.py`` (bf16/f32 rows):
    sums, validity and per-query collection masks, and the max over each bucket of
    16 adjacent rows. Only f32[B, ceil(N/16)] is written.
 2. the top-k buckets per query (ties to the lowest bucket id);
-3. an exact rescore of the k * bucket member rows and the (score desc, id asc)
+3. an exact rescore of the k * 16 member rows and the (score desc, id asc)
    selection.
 
 Exactness: any bucket holding a top-k element has a maximum >= the k-th score, so
@@ -21,11 +21,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..index.dense_index import dense_scores_batch
 from .topk import NEG_INF, lax_top_k, sort_topk_desc
 
-KERNEL_BUCKET = 16  # rows per bucket in the CUDA kernel
-DEFAULT_BUCKET = 16
-_PLAIN_BLOCK = 1 << 17  # rows per f32 matmul block in the plain version
+BUCKET = 16  # rows per bucket, fixed by the CUDA kernel's 16-row MMA tiles
+INVALID_SCORE_FLOOR = -2.0  # below any unit-vector score: marks masked members
 _RESCORE_QUERIES = 16  # queries per member-rescore block
 
 
@@ -48,21 +48,6 @@ def _check_rows(embeddings: torch.Tensor) -> None:
         raise TypeError(f"unsupported row dtype {embeddings.dtype}")
 
 
-def dense_scores_blocked(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> torch.Tensor:
-    """f32[B, N] = q . e with f32 sums of the products of the row dtype's values.
-
-    Queries round to the row dtype first (the reference casts them), then each
-    block of rows widens to f32, so every product is exact and only the order of
-    the f32 sums differs from the reference's."""
-    q = query_vecs.to(embeddings.dtype).float()
-    n = embeddings.shape[0]
-    out = torch.empty((q.shape[0], n), dtype=torch.float32, device=embeddings.device)
-    for lo in range(0, n, _PLAIN_BLOCK):
-        hi = min(n, lo + _PLAIN_BLOCK)
-        out[:, lo:hi] = q @ embeddings[lo:hi].float().T
-    return out
-
-
 def _row_mask(
     valid: torch.Tensor,
     collection_of: Optional[torch.Tensor],
@@ -82,17 +67,16 @@ def bucket_maxima_plain(
     valid: torch.Tensor,
     collection_of: Optional[torch.Tensor] = None,
     coll_cid: Optional[torch.Tensor] = None,
-    bucket: int = KERNEL_BUCKET,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: f32[B, ceil(N/bucket)] bucket maxima."""
+    """Plain PyTorch version of the kernel: f32[B, ceil(N/16)] bucket maxima."""
     _check_rows(embeddings)
     n = embeddings.shape[0]
-    s = dense_scores_blocked(embeddings, query_vecs)
+    s = dense_scores_batch(embeddings, query_vecs)
     s = s.masked_fill(~_row_mask(valid, collection_of, coll_cid), NEG_INF)
-    n_pad = -(-n // bucket) * bucket
+    n_pad = -(-n // BUCKET) * BUCKET
     if n_pad != n:
         s = torch.cat([s, s.new_full((s.shape[0], n_pad - n), NEG_INF)], 1)
-    return s.reshape(s.shape[0], n_pad // bucket, bucket).amax(dim=2)
+    return s.reshape(s.shape[0], n_pad // BUCKET, BUCKET).amax(dim=2)
 
 
 def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid):
@@ -113,7 +97,7 @@ def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid
             raise ValueError("all inputs must be on the rows' device")
     if emb.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("rows and queries must be 16-byte aligned")
-    out = torch.empty((b, -(-n // KERNEL_BUCKET)), dtype=torch.float32, device=emb.device)
+    out = torch.empty((b, -(-n // BUCKET)), dtype=torch.float32, device=emb.device)
     fn = "fused_bucket_maxima_bf16" if emb.dtype == torch.bfloat16 else "fused_bucket_maxima_f32"
     err = getattr(load("fused_topk"), fn)(
         emb.data_ptr(), q.data_ptr(), val.data_ptr(),
@@ -131,29 +115,15 @@ def bucket_maxima(
     valid: torch.Tensor,  # bool[N]
     collection_of: Optional[torch.Tensor] = None,  # i32[N]
     coll_cid: Optional[torch.Tensor] = None,  # i32[B]: -1 unscoped, -2 nothing
-    bucket: int = DEFAULT_BUCKET,
 ) -> torch.Tensor:
-    """f32[B, ceil(N/bucket)] per-bucket maxima of the masked scores.
+    """f32[B, ceil(N/16)] per-bucket maxima of the masked scores.
 
-    On a CUDA tensor this launches ``csrc/fused_topk.cu`` (16-row buckets, folded
-    here into larger multiples of 16) or raises; on a CPU tensor it runs
-    :func:`bucket_maxima_plain`."""
+    On a CUDA tensor this launches ``csrc/fused_topk.cu`` or raises; on a CPU
+    tensor it runs :func:`bucket_maxima_plain`."""
     _check_rows(embeddings)
     if embeddings.device.type != "cuda":
-        return bucket_maxima_plain(
-            embeddings, query_vecs, valid, collection_of, coll_cid, bucket
-        )
-    if bucket % KERNEL_BUCKET:
-        raise ValueError(f"the CUDA kernel needs a bucket that is a multiple of {KERNEL_BUCKET}")
-    bmax = _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid)
-    fold = bucket // KERNEL_BUCKET
-    if fold > 1:
-        nb = bmax.shape[1]
-        pad = -(-nb // fold) * fold - nb
-        if pad:
-            bmax = torch.cat([bmax, bmax.new_full((bmax.shape[0], pad), NEG_INF)], 1)
-        bmax = bmax.reshape(bmax.shape[0], -1, fold).amax(dim=2)
-    return bmax
+        return bucket_maxima_plain(embeddings, query_vecs, valid, collection_of, coll_cid)
+    return _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid)
 
 
 bucket_maxima.launches = 0  # kernel launches (CUDA tensors only)
@@ -166,25 +136,22 @@ def fused_dense_topk(
     k: int,
     collection_of: Optional[torch.Tensor] = None,
     coll_cid: Optional[torch.Tensor] = None,
-    *,
-    invalid_score_floor: float = -2.0,
-    bucket: int = DEFAULT_BUCKET,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact batched dense top-k: (ids i64[B, k], scores f32[B, k]), -1 / -inf
     invalid slots. Equal to the bucketed matmul path up to f32 summation order."""
     n = embeddings.shape[0]
     b = query_vecs.shape[0]
-    bmax = bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid, bucket)
+    bmax = bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid)
 
     # ---- stage 2: exact top-k buckets (ties -> lowest bucket id) ----
     kk = min(k, bmax.shape[1])
     _, bucket_ids = lax_top_k(bmax, kk)
 
-    # ---- stage 3: rescore the k * bucket member rows, exact final selection ----
+    # ---- stage 3: rescore the k * 16 member rows, exact final selection ----
     member = (
-        bucket_ids[:, :, None] * bucket
-        + torch.arange(bucket, device=bmax.device)[None, None, :]
-    ).reshape(b, kk * bucket)
+        bucket_ids[:, :, None] * BUCKET
+        + torch.arange(BUCKET, device=bmax.device)[None, None, :]
+    ).reshape(b, kk * BUCKET)
     rows = member.clamp(max=n - 1)
     cand_valid = valid.bool()[rows] & (member < n)
     if collection_of is not None and coll_cid is not None:
@@ -197,6 +164,6 @@ def fused_dense_topk(
         cand = embeddings[rows[lo:hi]].float()
         cand_scores[lo:hi] = torch.bmm(cand, q[lo:hi, :, None])[..., 0]
     masked = cand_scores.masked_fill(
-        ~(cand_valid & (cand_scores > invalid_score_floor)), NEG_INF
+        ~(cand_valid & (cand_scores > INVALID_SCORE_FLOOR)), NEG_INF
     )
     return sort_topk_desc(masked, member, k)
