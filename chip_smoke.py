@@ -5,14 +5,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 1. prints the card and its power limit, and builds the CUDA kernels
    (``triple_hybrid_rag_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in parallel);
 2. holds each kernel against its plain PyTorch version at the serving shapes
-   (fused dense bucket maxima: N = 1,000,448 rows of width 1024 in bf16, B = 128;
+   (fused dense bucket maxima: N = 1,000,448 rows of width 1024 in bf16, int8 and
+   packed int4, B = 128, scoped and unscoped; dense scores on the same rows;
    MaxSim: B = 128 x K = 50 candidates, 32 doc tokens of width 64, 16 query
-   tokens) and times both;
+   tokens; term-table BM25: a 1,000,448 x 128 table, 128 queries of 16 slots) and
+   times kernel, plain version and, where one exists, the library call;
 3. drives the port's main path: the batched three-channel query program over a
    synthetic 1M-chunk corpus built on the card (the construction of ``bench.py``),
    through ``Engine.search_arrays`` and ``Engine.retrieve_batch``; checks
    self-retrieval, that both kernels were launched, the B=1 programs, and the
-   bucketed matmul path against the kernel path.
+   bucketed matmul path against the kernel path. Then, on the same corpus, the
+   further configurations: int8 rows and packed-int4 rows (quantized on the card;
+   kernel path and unfused path must return equal ids), the term-table lexical
+   backend, and a dense channel through the dense-scores kernel. Each must
+   self-retrieve and must have launched its kernel.
 
 Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches, error and times; the last line is
@@ -20,6 +26,7 @@ each kernel's launches, error and times; the last line is
 any result.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -28,7 +35,8 @@ import time
 import numpy as np
 import torch
 
-N_ROWS = 1_000_000  # chunks; capacity rounds to 1,000,448 rows
+N_ROWS = 1_000_000  # chunks
+N_PAD = 1_000_448  # N_ROWS after capacity rounding: the rows of every kernel check
 DIM = 1024
 BATCH = 128
 N_ENTITIES = 20_000
@@ -38,8 +46,14 @@ RERANK_K = 50  # rerank_top_k: MaxSim candidates per query
 MAXSIM_TOKENS, MAXSIM_DIM, QUERY_TOKENS = 32, 64, 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
+INT8_OPS = 1979e12  # dense int8 tensor-core peak, same source
+F32_FLOPS = 67e12  # f32 outside the tensor cores, same source
 FUSED_ATOL = 1e-4  # unit rows, f32 sums in another order than the plain matmul
 MAXSIM_ATOL = 1e-5
+TERM_ATOL = 1e-5  # f32 sums of at most 16 weights below 1, in another slot order
+LEXICAL_ATOL = 1e-4  # BM25 sums of up to 16 weights of ~10, in another order
+TABLE_WIDTH, QUERY_TERMS = 128, 16  # doc_term_capacity, max_query_terms
+T_START = time.time()
 
 
 def log(msg: str) -> None:
@@ -80,9 +94,10 @@ def time_ms(fn, iters: int = 10, warmup: int = 2, cold_l2: bool = False) -> floa
     return float(np.median(times))
 
 
-def bound(bytes_: float, flops: float):
+def bound(bytes_: float, ops: float, peak: float = BF16_FLOPS):
+    """Least ms for the work: bytes at the memory rate against ``ops`` at ``peak``."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -110,7 +125,28 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # ---------------------------------------------------------------- phase 2
 
 
-def check_fused(dev, gen):
+class DenseInputs:
+    """Rows, queries and masks of the dense-channel checks, at the serving shape."""
+
+    def __init__(self, dev, gen):
+        n = self.n = N_PAD
+        emb = torch.randn((n, DIM), generator=gen, device=dev)
+        self.emb = (emb / emb.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+        q = torch.randn((BATCH, DIM), generator=gen, device=dev)
+        self.q = q / q.norm(dim=1, keepdim=True)
+        self.valid = torch.rand(n, generator=gen, device=dev) > 0.01
+        self.coll = torch.randint(0, 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+        self.cid = torch.tensor([-1, 0, 1, 2, -2], dtype=torch.int32, device=dev).repeat(
+            BATCH // 5 + 1)[:BATCH]
+
+    def row_mask(self, scoped: bool) -> torch.Tensor:
+        if not scoped:
+            return self.valid[None, :]
+        k = self.cid[:, None]
+        return self.valid[None, :] & ((k == -1) | (self.coll[None, :] == k))
+
+
+def check_fused(data):
     from triple_hybrid_rag_tpu_torch.index.dense_index import dense_scores_batch
     from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
     from triple_hybrid_rag_tpu_torch.ops.topk import bucketed_masked_top_k_batch
@@ -119,14 +155,7 @@ def check_fused(dev, gen):
         return bucketed_masked_top_k_batch(dense_scores_batch(emb, q), 100, valid=m,
                                            invalid_score_floor=-2.0)
 
-    n = 1_000_448
-    emb = torch.randn((n, DIM), generator=gen, device=dev)
-    emb = (emb / emb.norm(dim=1, keepdim=True)).to(torch.bfloat16)
-    q = torch.randn((BATCH, DIM), generator=gen, device=dev)
-    q = q / q.norm(dim=1, keepdim=True)
-    valid = torch.rand(n, generator=gen, device=dev) > 0.01
-    coll = torch.randint(0, 3, (n,), generator=gen, device=dev, dtype=torch.int32)
-    cid = torch.tensor([-1, 0, 1, 2, -2], dtype=torch.int32, device=dev).repeat(BATCH // 5 + 1)[:BATCH]
+    n, emb, q, valid, coll, cid = data.n, data.emb, data.q, data.valid, data.coll, data.cid
 
     err = 0.0
     for scoped in (False, True):
@@ -141,8 +170,7 @@ def check_fused(dev, gen):
         err = max(err, e)
         # ids of the fused top-k vs the bucketed matmul path, up to near ties
         ids_k, _ = ft.fused_dense_topk(emb, valid, q, 100, c, k)
-        m = valid[None, :] if not scoped else valid[None, :] & ((k[:, None] == -1) | (coll[None, :] == k[:, None]))
-        ids_p, s_p = bucketed_topk(m)
+        ids_p, s_p = bucketed_topk(data.row_mask(scoped))
         n_diff = near_ties_only(ids_k, ids_p, s_p, FUSED_ATOL)
         if n_diff < 0:
             fail("fused_dense_topk ids differ from the bucketed matmul path beyond near ties")
@@ -170,8 +198,6 @@ def check_fused(dev, gen):
     bucketed_ms = time_ms(lambda: bucketed_topk(valid[None, :]))
     log(f"dense top-100 N={n} B={BATCH}: fused kernel path {topk_ms:.4f} ms, "
         f"bucketed GEMM path {bucketed_ms:.4f} ms")
-    del emb, valid, coll
-    torch.cuda.empty_cache()
     return {
         "name": "fused_bucket_maxima", "route": "cuda",
         "source": "triple_hybrid_rag_tpu_torch/csrc/fused_topk.cu",
@@ -179,6 +205,161 @@ def check_fused(dev, gen):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "matmul_ms": matmul_ms,
         "topk_ms": topk_ms, "bucketed_topk_ms": bucketed_ms,
+    }
+
+
+def check_int(data, kind: str):
+    """The int8 or packed-int4 bucket maxima: the kernel must equal its plain version
+    bit for bit (exact int32 sums, the same two multiplies in the same order)."""
+    from triple_hybrid_rag_tpu_torch.index import dense_index as di
+    from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
+    from triple_hybrid_rag_tpu_torch.ops.topk import bucketed_masked_top_k_batch
+
+    n, q, valid = data.n, data.q, data.valid
+    quantize = di.quantize_rows_int8 if kind == "int8" else di.quantize_rows_int4
+    rows, scales = quantize(data.emb)
+    q_i8, q_scale = di.quantize_queries_int8(q)
+
+    def unfused_topk(scoped):  # the use_fused_topk=False path of this row type
+        if kind == "int4":
+            c, k = (data.coll, data.cid) if scoped else (None, None)
+            return di.int4_topk_blocked(rows, scales, valid, q, 100, c, k)
+        return bucketed_masked_top_k_batch(
+            di.dense_scores_int8_batch(rows, scales, q), 100, valid=data.row_mask(scoped),
+            invalid_score_floor=-2.0)
+
+    name = f"fused_bucket_maxima_{kind}"
+    for scoped in (False, True):
+        c, k = (data.coll, data.cid) if scoped else (None, None)
+        got = ft.bucket_maxima(rows, q_i8, valid, c, k, scales, q_scale)
+        want = ft.bucket_maxima_plain(rows, q_i8, valid, c, k, scales, q_scale)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        log(f"{name} {'scoped' if scoped else 'unscoped'}: max |kernel - plain| = {e:.3g}")
+        if e != 0.0:
+            fail(f"{name} differs from its plain version ({e}); it must be bit-equal")
+        del got, want
+        ids_k, s_k = ft.fused_dense_topk(rows, valid, q, 100, c, k, scales=scales)
+        ids_p, s_p = unfused_topk(scoped)
+        if not (torch.equal(ids_k, ids_p) and torch.equal(s_k, s_p)):
+            fail(f"fused_dense_topk ({kind} rows) differs from the unfused path")
+        log(f"fused_dense_topk ({kind} rows) ids and scores equal the unfused path "
+            f"({ids_k.numel()} slots)")
+
+    ms = time_ms(lambda: ft.bucket_maxima(rows, q_i8, valid, None, None, scales, q_scale))
+    plain_ms = time_ms(
+        lambda: ft.bucket_maxima_plain(rows, q_i8, valid, None, None, scales, q_scale),
+        iters=3, warmup=1)
+    # the library's int8 GEMM alone (no unpack, no dequantization, no mask, no max):
+    # for int4 rows over the unpacked int8 codes, twice the bytes the kernel reads
+    codes = rows if kind == "int8" else torch.cat(di.unpack_int4(rows), 1)
+    matmul_ms = time_ms(lambda: torch._int_mm(q_i8, codes.T))
+    del codes
+    nb = -(-n // 16)
+    b_ms, b_by = bound(rows.numel() + n * 4 + BATCH * (DIM + 4) + n + BATCH * nb * 4,
+                       2.0 * BATCH * n * DIM, INT8_OPS)
+    ops_ms = 2.0 * BATCH * n * DIM / INT8_OPS * 1e3
+    log(f"{name} N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, int8 GEMM "
+        f"(torch._int_mm) alone {matmul_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; operations alone "
+        f"{ops_ms:.4f} ms)")
+    topk_ms = time_ms(lambda: ft.fused_dense_topk(rows, valid, q, 100, scales=scales))
+    unfused_ms = time_ms(lambda: unfused_topk(False), iters=5)
+    log(f"dense top-100 ({kind} rows) N={n} B={BATCH}: fused kernel path {topk_ms:.4f} ms, "
+        f"unfused path {unfused_ms:.4f} ms")
+    del rows, scales
+    torch.cuda.empty_cache()
+    return {
+        "name": name, "route": "cuda",
+        "source": "triple_hybrid_rag_tpu_torch/csrc/fused_topk.cu",
+        "replaces": "triple_hybrid_rag_tpu/ops/pallas/fused_topk.py:"
+                    + ("89" if kind == "int8" else "132"),
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "matmul_ms": matmul_ms,
+        "topk_ms": topk_ms, "unfused_topk_ms": unfused_ms,
+    }
+
+
+def check_dense(data):
+    from triple_hybrid_rag_tpu_torch.ops import dense_kernel as dk
+
+    n, emb, q = data.n, data.emb, data.q
+    got = dk.dense_scores(emb, q)
+    want = dk.dense_scores_plain(emb, q)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    log(f"dense_scores: max |kernel - plain| = {err:.3g}")
+    if not err <= FUSED_ATOL:
+        fail(f"dense_scores disagrees with its plain version ({err})")
+    del got, want
+    e32 = emb[:65536].float()
+    e = max_err(dk.dense_scores(e32, q), dk.dense_scores_plain(e32, q))
+    log(f"dense_scores f32 rows (N=65536): max |kernel - plain| = {e:.3g}")
+    if not e <= FUSED_ATOL:
+        fail(f"dense_scores (f32 rows) disagrees with its plain version ({e})")
+    del e32
+    ms = time_ms(lambda: dk.dense_scores(emb, q))
+    plain_ms = time_ms(lambda: dk.dense_scores_plain(emb, q))
+    q16 = q.to(torch.bfloat16)
+    library_ms = time_ms(lambda: torch.mm(q16, emb.T, out_dtype=torch.float32))
+    b_ms, b_by = bound(n * DIM * 2 + BATCH * DIM * 4 + BATCH * n * 4, 2.0 * BATCH * n * DIM)
+    log(f"dense_scores N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bf16 GEMM with f32 out (torch.mm) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "dense_scores", "route": "cuda",
+        "source": "triple_hybrid_rag_tpu_torch/csrc/dense_scores.cu",
+        "replaces": "triple_hybrid_rag_tpu/ops/pallas/dense_kernel.py:47",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": library_ms,
+    }
+
+
+def check_termtable(dev, gen):
+    from triple_hybrid_rag_tpu_torch.ops import bm25
+
+    n, live_slots, live_terms, vocab = N_PAD, 64, 8, 4096
+    ids = torch.randint(0, vocab, (n, TABLE_WIDTH), generator=gen, device=dev, dtype=torch.int32)
+    ids[:, live_slots:] = bm25.DOC_PAD  # half of each row is empty, as in the synthetic corpus
+    ids[::1001, 3] = bm25.QUERY_PAD  # rows padded with -1 match a query's empty slots
+    w = torch.rand((n, TABLE_WIDTH), generator=gen, device=dev)
+    queries = torch.randint(0, vocab, (BATCH, QUERY_TERMS), generator=gen, device=dev,
+                            dtype=torch.int32)
+    queries[:, live_terms:] = bm25.QUERY_PAD
+    queries[1] = bm25.QUERY_PAD  # an empty query
+    queries[2, 2] = bm25.QUERY_PAD  # a pad between live terms
+    queries[3] = torch.randint(0, vocab, (QUERY_TERMS,), generator=gen, device=dev)  # no pad
+
+    got = bm25.score_termtable_batch(ids, w, queries)
+    torch.cuda.synchronize()
+    want = bm25.score_termtable_batch_plain(ids, w, queries)
+    err = max_err(got, want)
+    log(f"termtable_scores: max |kernel - plain| = {err:.3g} "
+        f"({int((want > 0).sum())} of {want.numel()} scores non-zero)")
+    if not err <= TERM_ATOL or not bool((want > 0).any()):
+        fail(f"termtable_scores disagrees with its plain version ({err})")
+    del got, want
+    wb = w[:65536].to(torch.bfloat16)
+    e = max_err(bm25.score_termtable_batch(ids[:65536], wb, queries),
+                bm25.score_termtable_batch_plain(ids[:65536], wb, queries))
+    log(f"termtable_scores bf16 weights (N=65536): max |kernel - plain| = {e:.3g}")
+    if not e <= TERM_ATOL:
+        fail(f"termtable_scores (bf16 weights) disagrees with its plain version ({e})")
+    ms = time_ms(lambda: bm25.score_termtable_batch(ids, w, queries), iters=5, warmup=1)
+    plain_ms = time_ms(lambda: bm25.score_termtable_batch_plain(ids, w, queries), iters=1, warmup=0)
+    # one membership test and one add per (row, live slot, query), at the f32 ALU rate
+    b_ms, b_by = bound(n * TABLE_WIDTH * 8 + BATCH * QUERY_TERMS * 4 + BATCH * n * 4,
+                       2.0 * n * live_slots * BATCH, F32_FLOPS)
+    compares = float(n) * live_slots * BATCH * live_terms
+    log(f"termtable_scores N={n} L={TABLE_WIDTH} ({live_slots} live) Q={QUERY_TERMS} ({live_terms} "
+        f"live) B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); the kernel makes {compares:.3g} compares, {compares / ms / 1e6:.1f} G/s")
+    del ids, w
+    torch.cuda.empty_cache()
+    return {
+        "name": "termtable_scores", "route": "cuda",
+        "source": "triple_hybrid_rag_tpu_torch/csrc/termtable.cu",
+        "replaces": "triple_hybrid_rag_tpu/ops/pallas/lexical_kernel.py:55",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
     }
 
 
@@ -265,7 +446,7 @@ def main_path(dev, card):
     torch.cuda.synchronize()
 
     # ---- the main path: counts set to 0 just before, read just after ----
-    bucket_maxima.launches = 0
+    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
     maxsim_scores.launches = 0
     hits = n_plain = n_graph = 0
     for lo in range(0, 2 * BATCH, BATCH):
@@ -280,7 +461,8 @@ def main_path(dev, card):
                 hits += int(rows[lo + i] in ids[i].tolist())
     res = eng.retrieve_batch(texts[2 * BATCH:3 * BATCH])
     torch.cuda.synchronize()
-    launches = {"fused_bucket_maxima": bucket_maxima.launches, "maxsim_scores": maxsim_scores.launches}
+    launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
+                "maxsim_scores": maxsim_scores.launches}
     frac = hits / max(n_plain, 1)
     log(f"self-retrieval: {hits}/{n_plain} plain queries have their row in the final "
         f"top-{cfg.final_top_k} ({frac:.4f}); {n_graph} of {2 * BATCH} queries used the graph")
@@ -346,7 +528,177 @@ def main_path(dev, card):
     busy_x = stage_profile(eng_x, args, "bucketed matmul path")
     log(f"device busy ms/query (profiler): {busy / BATCH:.4f} kernel dense path, "
         f"{busy_x / BATCH:.4f} bucketed matmul path")
+    del eng_x, args
+
+    # ---- the further configurations, on the same corpus ----
+    run = Drive(syn, texts, rows, is_graph, dev)
+    launches["dense_scores"] = dense_kernel_path(run, eng)
+    launches["termtable_scores"] = termtable_path(run, eng, cfg)
+    for kind in ("int8", "int4"):
+        launches[f"fused_bucket_maxima_{kind}"] = quantized_path(run, cfg, kind)
+    log(f"peak device memory over the whole run {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches
+
+
+class Drive:
+    """The synthetic corpus and its query texts, shared by the configurations."""
+
+    def __init__(self, syn, texts, rows, is_graph, dev):
+        self.syn, self.texts, self.rows, self.is_graph, self.dev = syn, texts, rows, is_graph, dev
+
+    def engine(self, state, cfg):
+        from triple_hybrid_rag_tpu_torch.engine import Engine
+
+        return Engine(dataclasses.replace(state, config=cfg), embedder=self.syn.embedder,
+                      device=self.dev)
+
+    def self_retrieval(self, eng, label: str):
+        """One B=128 batch and a few B=1 programs through ``search_arrays``; fails
+        below 0.95. Returns the batch's device outputs."""
+        texts, rows, is_graph = self.texts, self.rows, self.is_graph
+        _, out = eng.search_arrays(texts[:BATCH])
+        if not bool(torch.isfinite(out[1]).all()):
+            fail(f"{label}: non-finite final scores")
+        ids = out[0].cpu().numpy()
+        plain = [i for i in range(BATCH) if not is_graph[i]]
+        frac = sum(int(rows[i] in ids[i].tolist()) for i in plain) / len(plain)
+        ones = [i for i in range(len(texts)) if not is_graph[i]][:3] + \
+               [i for i in range(len(texts)) if is_graph[i]][:2]
+        one_hits = 0
+        for i in ones:
+            one_ids = eng.search_arrays([texts[i]])[1][0].cpu().numpy()[0]
+            one_hits += int(rows[i] in one_ids.tolist()) if not is_graph[i] else 0
+        log(f"{label}: self-retrieval {frac:.4f} of {len(plain)} plain queries at B={BATCH}; "
+            f"B=1: {one_hits}/3 plain self-retrieved, 2 graph queries ran")
+        if frac < 0.95 or one_hits < 2:
+            fail(f"{label}: self-retrieval {frac} at B={BATCH}, {one_hits}/3 at B=1")
+        return out
+
+    def timing(self, engines, label: str):
+        """Program wall on prepared args and the device-busy split under the profiler,
+        for each engine over the same two batches."""
+        batches = [self.texts[i * BATCH:(i + 1) * BATCH] for i in range(2, 4)]
+        walls, busy = [], []
+        for name, eng in engines:
+            args = [eng.prepare_queries(tb)[1] for tb in batches]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a in args:
+                eng.run(a)
+            torch.cuda.synchronize()
+            walls.append(f"{(time.perf_counter() - t0) / (len(args) * BATCH) * 1e3:.4f} {name}")
+            busy.append(f"{stage_profile(eng, args, f'{label}, {name}') / BATCH:.4f} {name}")
+        log(f"{label}: program wall ms/query (prepared args, host dispatch included) "
+            + ", ".join(walls) + "; device busy ms/query (profiler) " + ", ".join(busy))
+
+
+def dense_kernel_path(run, eng) -> int:
+    """A dense channel through the dense-scores kernel: kernel scores -> bucketed
+    top-k, its ids held against the engine's dense channel by the near-tie rule."""
+    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
+    from triple_hybrid_rag_tpu_torch.ops.topk import bucketed_masked_top_k_batch
+
+    st = eng.state
+    args = eng.prepare_queries(run.texts[:BATCH])[1]
+    dense_scores.launches = 0
+    scores = dense_scores(st.embeddings, args.q_vec.float())
+    ids, _ = bucketed_masked_top_k_batch(scores, eng.config.semantic_top_k, valid=st.valid[None, :],
+                                         invalid_score_floor=-2.0)
+    torch.cuda.synchronize()
+    launches = dense_scores.launches
+    ids_e, vals_e = eng._dense(args, None, False)
+    n_diff = near_ties_only(ids, ids_e, vals_e, FUSED_ATOL)
+    if n_diff < 0:
+        fail("the dense-scores kernel's top-k differs from the engine's dense channel beyond near ties")
+    plain = [i for i in range(BATCH) if not run.is_graph[i]]
+    found = ids.cpu().numpy()
+    hits = sum(int(run.rows[i] in found[i]) for i in plain)
+    log(f"dense channel through dense_scores: {n_diff} of {ids.numel()} slots differ from the "
+        f"engine's dense channel, all at near ties (atol {FUSED_ATOL}); {hits}/{len(plain)} plain "
+        f"queries have their row in the dense top-{ids.shape[1]}; launches {launches}")
+    if launches < 1 or hits < 0.95 * len(plain):
+        fail("dense-scores path: kernel not launched or rows not retrieved")
+    return launches
+
+
+def termtable_path(run, eng_sorted, cfg) -> int:
+    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.synthetic import build_term_table, term_str
+
+    syn, st, dev = run.syn, run.syn.state, run.dev
+    cfg_t = cfg.replace(lexical_backend="termtable")
+    t0 = time.time()
+    table_ids, table_w = build_term_table(
+        torch.from_numpy(syn.term_ids).to(dev), syn.n, torch.from_numpy(st.idf).to(dev), cfg_t)
+    torch.cuda.synchronize()
+    st_t = dataclasses.replace(
+        st, lexical_mode="termtable", term_ids=table_ids, term_weights=table_w,
+        lex_offsets=None, lex_lengths=None, lex_pd=None, lex_pt=None, lex_l_max=1)
+    eng = run.engine(st_t, cfg_t)
+    log(f"term table {tuple(table_ids.shape)} built on the card in {time.time() - t0:.1f} s; "
+        f"device GB {round(st_t.nbytes()['term_table'] / 1e9, 3)}")
+    score_termtable_batch.launches = 0
+    run.self_retrieval(eng, "termtable lexical backend")
+    torch.cuda.synchronize()
+    launches = score_termtable_batch.launches
+    log(f"termtable lexical backend: kernel launches {launches}")
+    if launches < 1:
+        fail("the term-table kernel was not launched")
+
+    # the lexical channel against the sorted postings. The postings are cut at
+    # bm25_df_cap and their large tier keeps bm25_large_slots terms; the table keeps
+    # everything. So compare on queries of that many terms, none of them cut.
+    uncut = st.stored_df < DF_CAP
+    texts = []
+    for r in run.rows[:BATCH]:
+        terms = [int(t) for t in dict.fromkeys(syn.term_ids[r].tolist()) if uncut[t]]
+        texts.append(" ".join(term_str(t) for t in terms[:cfg.bm25_large_slots]))
+    ids_s, vals_s = eng_sorted._lexical(eng_sorted.prepare_queries(texts)[1], None)
+    ids_t, vals_t = eng._lexical(eng.prepare_queries(texts)[1], None)
+    n_diff = near_ties_only(ids_t, ids_s, vals_s, LEXICAL_ATOL)
+    gap = max_err(vals_t, vals_s)
+    log(f"termtable vs sorted lexical channel on {BATCH} queries of uncut terms: {n_diff} of "
+        f"{ids_t.numel()} slots differ (near ties, atol {LEXICAL_ATOL}); max score gap {gap:.3g}")
+    if n_diff < 0 or not gap <= LEXICAL_ATOL:
+        fail("the term-table lexical channel differs from the sorted postings")
+    run.timing([("termtable", eng), ("sorted postings", eng_sorted)], "termtable lexical backend")
+    return launches
+
+
+def quantized_path(run, cfg, kind: str) -> int:
+    from triple_hybrid_rag_tpu_torch.index import dense_index as di
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+
+    st = run.syn.state
+    quantize = di.quantize_rows_int8 if kind == "int8" else di.quantize_rows_int4
+    t0 = time.time()
+    rows_q, scales = quantize(st.embeddings)
+    torch.cuda.synchronize()
+    st_q = dataclasses.replace(st, embeddings=rows_q, dense_scales=scales)
+    cfg_q = cfg.replace(embedding_dtype=kind)
+    eng = run.engine(st_q, cfg_q)  # use_fused_topk=None: the kernel
+    eng_x = run.engine(st_q, cfg_q.replace(use_fused_topk=False))
+    log(f"{kind} rows {tuple(rows_q.shape)} quantized on the card in {time.time() - t0:.1f} s; "
+        f"device GB {round(st_q.nbytes()['embeddings'] / 1e9, 3)}")
+    if not eng.use_fused() or eng_x.use_fused():
+        fail("use_fused_topk=None must resolve to the kernel on CUDA, False to the unfused path")
+    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    out_k = run.self_retrieval(eng, f"{kind} rows, kernel path")
+    torch.cuda.synchronize()
+    by_rows = dict(bucket_maxima.launches_by_rows)
+    log(f"{kind} rows: kernel launches by row type {by_rows}")
+    if by_rows[kind] < 1 or sum(by_rows.values()) != by_rows[kind]:
+        fail(f"the {kind} kernel was not the one launched: {by_rows}")
+    out_x = run.self_retrieval(eng_x, f"{kind} rows, use_fused_topk=False")
+    if bucket_maxima.launches_by_rows != by_rows:
+        fail("the use_fused_topk=False path launched the fused kernel")
+    # both dense paths give the same bits, so the whole program's ids must be equal
+    if not torch.equal(out_k[0], out_x[0]):
+        fail(f"{kind} rows: final ids of the kernel path and the unfused path differ")
+    log(f"{kind} rows: final ids equal on both dense paths ({out_k[0].numel()} slots); max "
+        f"final-score gap {float((out_k[1] - out_x[1]).abs().max()):.3g}")
+    run.timing([("kernel dense path", eng), ("unfused dense path", eng_x)], f"{kind} rows")
+    return by_rows[kind]
 
 
 def stage_profile(eng, args, label: str) -> float:
@@ -417,10 +769,16 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    kernels = [check_fused(dev, gen), check_maxsim(dev, gen)]
+    data = DenseInputs(dev, gen)
+    kernels = [check_fused(data), check_int(data, "int8"), check_int(data, "int4")]
+    dense = check_dense(data)
+    del data
+    torch.cuda.empty_cache()
+    kernels += [check_maxsim(dev, gen), check_termtable(dev, gen), dense]
     launches = main_path(dev, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    log(f"total wall time {time.time() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ The JAX Retriever is built on the sharded-engine fixture and its index arrays ar
 carried over with ``IndexState.from_numpy``, so both programs run on identical
 indexes. Chunk ids and refusals must be equal; final scores agree within 1e-5
 (f32 summation order of the dense and MaxSim products), with bf16 rows (the
-serving dtype) and f32 rows; the BM25 channel's scores are bit-identical.
+serving dtype), f32 rows and quantized int8 / packed-int4 rows (whose dense scores
+are bit-equal to the reference's); the sorted BM25 channel's scores are
+bit-identical, the term-table channel's agree within 1e-5 (its f32 sum over the
+table's slots runs in another order than XLA's reduce).
 """
 
 import hashlib
@@ -15,6 +18,8 @@ import pytest
 import torch
 
 from triple_hybrid_rag_tpu.index.dense_index import dense_scores_batch as ref_dense_scores
+from triple_hybrid_rag_tpu.index.dense_index import dense_scores_int4_batch as ref_int4_scores
+from triple_hybrid_rag_tpu.index.dense_index import dense_scores_int8_batch as ref_int8_scores
 from triple_hybrid_rag_tpu.parallel import ShardedEngine, single_device_mesh
 from triple_hybrid_rag_tpu.retrieval import Retriever
 from triple_hybrid_rag_tpu.types import Document
@@ -22,7 +27,11 @@ from triple_hybrid_rag_tpu.types import Document
 from test_sharded import build_fixture
 from torch_port_helpers import state_from_retriever, torch_config
 from triple_hybrid_rag_tpu_torch.engine import Engine
-from triple_hybrid_rag_tpu_torch.index.dense_index import dense_scores_batch
+from triple_hybrid_rag_tpu_torch.index.dense_index import (
+    dense_scores_batch,
+    int_scores,
+    quantize_queries_int8,
+)
 
 QUERIES = [
     "invoice payment settlement",
@@ -51,7 +60,7 @@ def _retriever(cfg, with_graph):
     return Retriever(corpus, cfg, graph_index=gidx)
 
 
-def _compare(ref, got, atol=1e-5):
+def _compare(ref, got, atol=1e-5, lexical_atol=None):
     assert len(ref) == len(got)
     for r, g in zip(ref, got):
         assert [x.chunk_id for x in r.results] == [x.chunk_id for x in g.results], r.query
@@ -60,8 +69,11 @@ def _compare(ref, got, atol=1e-5):
             [x.final_score for x in g.results], [x.final_score for x in r.results], atol=atol
         )
         np.testing.assert_allclose(g.max_score, r.max_score, atol=atol)
-        # the lexical channel is bit-identical
-        assert [x.lexical_score for x in g.results] == [x.lexical_score for x in r.results]
+        lex_ref, lex_got = ([x.lexical_score for x in res.results] for res in (r, g))
+        if lexical_atol is None:  # the sorted lexical channel is bit-identical
+            assert lex_got == lex_ref
+        else:
+            np.testing.assert_allclose(lex_got, lex_ref, atol=lexical_atol, rtol=0)
 
 
 def _near_tie_evidence(ret, eng, q, coll):
@@ -83,7 +95,7 @@ def _near_tie_evidence(ret, eng, q, coll):
     return float(sem.max() - sem.min()), float(rrf.max() - rrf.min())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8", "int4"])
 @pytest.mark.parametrize("with_graph", [True, False])
 @pytest.mark.parametrize("fused", [True, False])
 def test_engine_matches_sharded_engine(cfg, with_graph, fused, dtype):
@@ -100,6 +112,16 @@ def test_engine_matches_sharded_engine(cfg, with_graph, fused, dtype):
     if with_graph:
         assert eng.state.graph_mode == ref_eng.graph_mode == "dense"
         assert eng.state.graph_small_sparse and ref_eng.graph_small_sparse
+    if dtype in ("int8", "int4"):
+        assert (ref_eng._use_int8, ref_eng._use_int4) == (dtype == "int8", dtype == "int4")
+        rows = eng.state.embeddings
+        assert rows.dtype == (torch.int8 if dtype == "int8" else torch.uint8)
+        assert eng.state.dim == c.embedding_dim == rows.shape[1] * (2 if dtype == "int4" else 1)
+        q_vec = eng.prepare_queries(QUERIES)[1].q_vec.float()
+        score = ref_int8_scores if dtype == "int8" else ref_int4_scores
+        want = score(ret.dense_index.embeddings, ret.dense_index.scales, jnp.asarray(q_vec.numpy()))
+        got = int_scores(rows, eng.state.dense_scales, *quantize_queries_int8(q_vec))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))  # bit-equal dense scores
 
     # B > graph_sparse_max_batch: the large-batch (dense graph) program
     assert len(QUERIES) > c.graph_sparse_max_batch
@@ -135,6 +157,36 @@ def test_engine_matches_sharded_engine(cfg, with_graph, fused, dtype):
     )
 
 
+@pytest.mark.parametrize("backend", ["termtable", "postings"])
+@pytest.mark.parametrize("with_graph", [True, False])
+def test_engine_termtable_matches_sharded_engine(cfg, with_graph, backend):
+    """The doc-major term-table lexical backend ("postings" selects it too, as in
+    the reference): ids and refusals equal, lexical and final scores within 1e-5."""
+    c = cfg.replace(lexical_backend=backend, graph_enabled=with_graph, embedding_dtype="bfloat16")
+    ret = _retriever(c, with_graph)
+    ref_eng = ShardedEngine(ret, single_device_mesh())
+    st = state_from_retriever(ret)
+    eng = Engine(st, device="cpu")
+    assert st.lexical_mode == ref_eng.lexical_mode == "termtable"
+    assert st.lex_offsets is None and st.term_ids.shape == (st.n_pad, c.doc_term_capacity)
+    assert st.term_weights.dtype == torch.float32 and st.nbytes()["term_table"] > 0
+    check = dict(lexical_atol=1e-5)
+    _compare(ref_eng.retrieve_batch(QUERIES), eng.retrieve_batch(QUERIES), **check)
+    colls = ["a", "b", None, "nope", "a", "b"]
+    _compare(
+        ref_eng.retrieve_batch(QUERIES, collections=colls),
+        eng.retrieve_batch(QUERIES, collections=colls), **check,
+    )
+    for q in QUERIES:
+        _compare(ref_eng.retrieve_batch([q]), eng.retrieve_batch([q]), **check)
+        _compare(
+            ref_eng.retrieve_batch([q], collection="b"), eng.retrieve_batch([q], collection="b"),
+            **check,
+        )
+    # the lexical channel really contributed
+    assert any(x.lexical_score > 0 for r in eng.retrieve_batch(QUERIES) for x in r.results)
+
+
 def test_engine_graph_modes(cfg):
     """The port reproduces the reference's graph-backend policy: exact sparse at
     every width on this small graph, and the dense scan when forced."""
@@ -163,7 +215,6 @@ def test_engine_refresh_and_unported_options(cfg):
     assert eng.refresh(state_from_retriever(ret))
     for bad in (
         {"semantic_backend": "ivf"},
-        {"lexical_backend": "termtable"},
         {"rerank_backend": "dot"},
         {"mesh_shape": (2,)},
     ):

@@ -1,5 +1,6 @@
 """The port's fused dense top-k (plain path of ``csrc/fused_topk.cu``) against the
-JAX Pallas kernel in interpret mode, for f32 and bf16 rows.
+JAX Pallas kernel in interpret mode, for f32 and bf16 rows (int8 and packed-int4
+rows: ``tests/test_torch_quantized.py``).
 
 ids must be equal; scores agree within 1e-5 (f32 sums of the same exact products
 in another order). The CUDA kernel itself is held against the plain version on the
@@ -115,8 +116,16 @@ def test_k_exceeds_buckets_and_all_invalid(rng):
 
 
 def test_int_rows_are_not_ported():
+    """Keeps its name from before quantized rows were ported: int8 rows now run
+    (``tests/test_torch_quantized.py`` holds them to the reference), and what still
+    raises is a call that leaves out their scales."""
     rows = torch.zeros((16, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        port.fused_dense_topk(rows, torch.ones(16, dtype=torch.bool), torch.zeros((1, 8)), 4)
+    valid = torch.ones(16, dtype=torch.bool)
+    with pytest.raises(ValueError):
+        port.fused_dense_topk(rows, valid, torch.zeros((1, 8)), 4)
+    ids, vals = port.fused_dense_topk(rows, valid, torch.ones((1, 8)), 4, scales=torch.ones(16))
+    assert ids.tolist() == [[0, 1, 2, 3]] and not vals.any()
+    with pytest.raises(TypeError):
+        port.fused_dense_topk(rows.to(torch.int16), valid, torch.zeros((1, 8)), 4)
     q_i8, q_scale = port.quantize_queries_int8(torch.tensor([[0.5, -1.0, 0.25]]))
     assert q_i8.tolist() == [[64, -127, 32]] and q_scale.shape == (1, 1)

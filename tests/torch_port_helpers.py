@@ -47,12 +47,15 @@ def state_from_retriever(ret, config=None, device="cpu") -> IndexState:
             bm25_offsets=np.asarray(offs), bm25_lengths=np.asarray(lens),
             bm25_postings_doc=np.asarray(pd), bm25_postings_weight=np.asarray(bm.host_weights),
             bm25_idf=np.asarray(bm.idf),
+            bm25_term_ids=np.asarray(bm.term_ids), bm25_term_weights=np.asarray(bm.term_weights),
         )
         host["vocab"] = bm.vocab.to_list()
         host["n_rows"] = int(bm.term_ids.shape[0])
     dx = ret.dense_index
     if dx is not None:
         arrays.update(embeddings=np.asarray(dx.embeddings), valid=np.asarray(dx.valid))
+        if dx.scales is not None:
+            arrays["dense_scales"] = np.asarray(dx.scales)
     gx = ret.graph_index
     if gx is not None:
         arrays.update(nbr=np.asarray(gx.nbr), chunk_entities=np.asarray(gx.host_chunk_entities))

@@ -92,7 +92,7 @@ class RAGConfig:
     embedder_backend: str = "auto"
     embedding_dim_full: int = 2048
     embedding_dim: int = 1024  # Matryoshka prefix-truncated + re-L2-normalized
-    embedding_dtype: str = "bfloat16"  # float32 | bfloat16 (int8 | int4 not ported)
+    embedding_dtype: str = "bfloat16"  # float32 | bfloat16 | int8 | int4 (packed nibbles)
     encoder_anchor_pool_w2: Optional[float] = 0.65
     encoder_params_path: Optional[str] = None
     embedding_batch_size: int = 20
@@ -107,7 +107,8 @@ class RAGConfig:
     bm25_b: float = 0.75
     max_query_terms: int = 16  # static query-term slots (padded/masked)
     doc_term_capacity: int = 128
-    lexical_backend: str = "auto"  # "sorted" | "auto" (termtable/postings not ported)
+    # "sorted" | "auto" (= sorted): CSR postings; "termtable" | "postings": the doc-major table
+    lexical_backend: str = "auto"
     bm25_df_cap: int = 0  # 0 = uncapped; else a term keeps its top-tf postings
     lexical_tiering: bool = True  # rare terms use small gather windows
     bm25_small_window: int = 128  # window for terms with stored df <= this

@@ -4,7 +4,8 @@ The port of the JAX ``ShardedEngine`` (``parallel/engine.py``) at one shard. A b
 of query texts is prepared on the host (plan, analyze, embed, seed, scope) and then
 runs as one program on the device:
 
-    BM25 top-k over sorted postings  ->\\
+    BM25 top-k (sorted postings,     ->\\
+      or the term-table kernel)
     dense top-k (fused kernel)          -> merge -> weighted RRF -> parent expand
     k-hop graph walk + chunk top-k   ->/          -> MaxSim rerank (kernel) -> safety gate
 
@@ -15,8 +16,9 @@ graph-shaped query skip the graph channel. PyTorch runs eagerly, so a variant is
 branch of :meth:`Engine.run`, not a compiled program.
 
 On a CUDA device the dense channel goes through the hand-written fused kernel when
-``use_fused_topk`` is None or True (``ops/fused_topk.py``), and the rerank always
-through the MaxSim kernel (``ops/maxsim.py``).
+``use_fused_topk`` is None or True (``ops/fused_topk.py``; bf16, f32, int8 and packed
+int4 rows), the term-table lexical backend through the term-table kernel
+(``ops/bm25.py``), and the rerank always through the MaxSim kernel (``ops/maxsim.py``).
 """
 
 from __future__ import annotations
@@ -32,11 +34,21 @@ from torch.profiler import record_function
 from .analyzer import Analyzer
 from .config import RAGConfig
 from .device import resolve_device
-from .index.dense_index import dense_scores_batch, truncate_matryoshka, zero_query_guard
+from .index.dense_index import (
+    dense_scores_batch,
+    dense_scores_int8_batch,
+    int4_topk_blocked,
+    truncate_matryoshka,
+    zero_query_guard,
+)
 from .index.state import IndexState
 from .models.embedder import get_default_embedder
 from .models.planner import get_planner
-from .ops.bm25 import score_postings_topk_pre, score_postings_topk_tiered
+from .ops.bm25 import (
+    score_postings_topk_pre,
+    score_postings_topk_tiered,
+    score_termtable_batch,
+)
 from .ops.fused_topk import fused_dense_topk
 from .ops.fusion import (
     FusedCandidates,
@@ -47,9 +59,12 @@ from .ops.fusion import (
 )
 from .ops.graph import graph_sparse_topk, graph_topk_batch, khop_distances, seed_vectors
 from .ops.maxsim import calibrate_maxsim, maxsim_scores
-from .ops.topk import bucketed_masked_top_k_batch, lax_top_k, merge_topk
+from .ops.topk import bucketed_masked_top_k_batch, lax_top_k, masked_top_k, merge_topk
 from .retrieval import decode_results, maxsim_query_weights
 from .types import QueryPlan, RetrievalResult
+
+# term-table scores held at once, in elements: the f32[Bq, n_pad] block of one kernel call
+_TERMTABLE_SCORE_ELEMS = 1 << 27
 
 
 class QueryArgs(NamedTuple):
@@ -94,10 +109,6 @@ class Engine:
             )
         if cfg.semantic_backend == "ivf":
             raise NotImplementedError("semantic_backend='ivf' is not ported (ROADMAP.md, Queue 1)")
-        if cfg.lexical_backend not in ("sorted", "auto"):
-            raise NotImplementedError(
-                f"lexical_backend={cfg.lexical_backend!r} is not ported (ROADMAP.md, Queue 1)"
-            )
         if cfg.rerank_enabled and cfg.rerank_backend == "dot":
             raise NotImplementedError("rerank_backend='dot' is not ported (ROADMAP.md, Queue 1)")
         self.state = state
@@ -161,7 +172,7 @@ class Engine:
         if st.vocab is not None:
             for i, plan in enumerate(plans):
                 q_terms[i] = st.encode_query(plan.keywords)
-                if cfg.lexical_tiering:
+                if cfg.lexical_tiering and st.lexical_mode == "sorted":
                     qs_terms[i], qs_slots[i], ql_terms[i], ql_slots[i] = (
                         st.encode_query_tiered(plan.keywords)
                     )
@@ -244,7 +255,8 @@ class Engine:
 
     def use_fused(self) -> bool:
         """Dense channel through the fused kernel: ``use_fused_topk`` None resolves
-        to the kernel on a CUDA device (the reference's TPU auto rule does not apply)."""
+        to the kernel on a CUDA device, for every row dtype (the reference's TPU auto
+        rule, and its exception for int4 rows, do not apply)."""
         flag = self.config.use_fused_topk
         return self.device.type == "cuda" if flag is None else bool(flag)
 
@@ -281,8 +293,21 @@ class Engine:
 
     def _lexical(self, args: QueryArgs, row_mask):
         st, cfg = self.state, self.config
-        if st.lexical_mode != "sorted" or not cfg.lexical_enabled:
+        if st.lexical_mode == "none" or not cfg.lexical_enabled:
             return self._empty(args.q_vec.shape[0])
+        if st.lexical_mode == "termtable":
+            # one pass of the table per block of queries, then the top-k of the block
+            batch = args.q_terms.shape[0]
+            step = max(1, _TERMTABLE_SCORE_ELEMS // st.n_pad)
+            found = []
+            for lo in range(0, batch, step):
+                scores = score_termtable_batch(
+                    st.term_ids, st.term_weights, args.q_terms[lo:lo + step]
+                )
+                mask = None if row_mask is None else row_mask[lo:lo + step]
+                found.append(masked_top_k(scores, cfg.lexical_top_k, valid=mask))
+            ids, vals = (torch.cat(x, 0) for x in zip(*found))
+            return self._merge(ids, vals, cfg.lexical_top_k)
         csr = (st.lex_offsets, st.lex_lengths, st.lex_pd, st.lex_pt)
         if cfg.lexical_tiering:
             ids, vals = score_postings_topk_tiered(
@@ -303,14 +328,23 @@ class Engine:
         if not (st.has_dense and cfg.semantic_enabled):
             return self._empty(q_vec.shape[0])
         k = cfg.semantic_top_k
-        if self.use_fused():
+        scope = dict(
+            collection_of=st.collection_of if scoped else None,
+            coll_cid=args.coll_cid if scoped else None,
+        )
+        if self.use_fused():  # every row dtype
             ids, vals = fused_dense_topk(
-                st.embeddings, st.valid, q_vec, k,
-                collection_of=st.collection_of if scoped else None,
-                coll_cid=args.coll_cid if scoped else None,
+                st.embeddings, st.valid, q_vec, k, scales=st.dense_scales, **scope
+            )
+        elif st.embeddings.dtype == torch.uint8:  # packed int4: blocked unpack
+            ids, vals = int4_topk_blocked(
+                st.embeddings, st.dense_scales, st.valid, q_vec, k, **scope
             )
         else:
-            scores = dense_scores_batch(st.embeddings, q_vec)
+            if st.embeddings.dtype == torch.int8:
+                scores = dense_scores_int8_batch(st.embeddings, st.dense_scales, q_vec)
+            else:
+                scores = dense_scores_batch(st.embeddings, q_vec)
             valid = st.valid[None, :] if row_mask is None else st.valid[None, :] & row_mask
             ids, vals = bucketed_masked_top_k_batch(scores, k, valid=valid, invalid_score_floor=-2.0)
         ids, vals = self._merge(ids, vals, k)

@@ -1,10 +1,25 @@
-"""Dense channel, query side: Matryoshka truncation, batched scores, the zero-vector
-guard. The port of the query half of the JAX package's ``index/dense_index.py``."""
+"""Dense channel: Matryoshka truncation, row quantizers, batched scores (bf16/f32,
+int8, packed int4), the blocked int4 top-k, the zero-vector guard. The port of the
+quantizers and the query half of the JAX package's ``index/dense_index.py``.
+
+Quantized scores are exact and in one order everywhere (here, the fused kernel and
+its rescore): the int32 dot of the int8 row codes and the int8-quantized query,
+then ``(float(acc) * row_scale) * q_scale`` in f32, so every path gives the same
+bits. PyTorch has no integer matmul on CUDA, so :func:`int_dot` goes through
+``torch._int_mm`` there and through the int32 matmul on the CPU.
+"""
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
+
+from ..ops.topk import NEG_INF, lax_top_k, sort_topk_desc
+
+_QUANT_ROWS = 1 << 16  # rows per quantizer block (bounds the f32 transients)
+RESCORE_QUERIES = 16  # queries per member-rescore block
 
 
 def truncate_matryoshka(vectors: np.ndarray, dim: int) -> np.ndarray:
@@ -12,6 +27,72 @@ def truncate_matryoshka(vectors: np.ndarray, dim: int) -> np.ndarray:
     v = np.asarray(vectors, dtype=np.float32)[..., :dim]
     norms = np.linalg.norm(v, axis=-1, keepdims=True)
     return v / np.maximum(norms, 1e-12)
+
+
+# ---------------------------------------------------------------- quantizers
+
+
+def _quantize_codes(mat: torch.Tensor, levels: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row absmax codes in [-levels, levels] (int8) and f32 scales.
+    ``torch.round`` rounds half to even, as the reference's ``np.rint`` does."""
+    m = mat.float()
+    absmax = m.abs().amax(dim=1)
+    scale = torch.where(absmax > 0, absmax / levels, torch.ones_like(absmax))
+    codes = torch.clamp(torch.round(m / scale[:, None]), -levels, levels).to(torch.int8)
+    return codes, scale
+
+
+def _in_row_blocks(mat: torch.Tensor, width: int, dtype: torch.dtype, fn):
+    """Apply ``fn(block) -> (rows, scales)`` to blocks of rows on ``mat``'s device."""
+    n = mat.shape[0]
+    rows = torch.empty((n, width), dtype=dtype, device=mat.device)
+    scales = torch.empty((n,), dtype=torch.float32, device=mat.device)
+    for lo in range(0, n, _QUANT_ROWS):
+        rows[lo:lo + _QUANT_ROWS], scales[lo:lo + _QUANT_ROWS] = fn(mat[lo:lo + _QUANT_ROWS])
+    return rows, scales
+
+
+def quantize_rows_int8(mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row absmax int8: (codes i8[N, D], scales f32[N]); an all-zero
+    row gets scale 1. Works in row blocks on the tensor's device."""
+    return _in_row_blocks(mat, mat.shape[1], torch.int8, lambda m: _quantize_codes(m, 127.0))
+
+
+def quantize_rows_int4(mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row absmax int4: codes in [-7, 7], the column pair (j, j + D/2)
+    packed into one byte with column j in the low nibble. Returns (packed
+    u8[N, D/2], scales f32[N]). Low nibbles are columns [0, D/2), high nibbles
+    columns [D/2, D), so unpacking splits into two half-width products."""
+    d = mat.shape[1]
+    if d % 2:
+        raise ValueError(f"int4 packing needs an even dim, got {d}")
+
+    def pack(m):
+        v, scale = _quantize_codes(m, 7.0)
+        nib = v.view(torch.uint8) & 0xF
+        return nib[:, : d // 2] | (nib[:, d // 2:] << 4), scale
+
+    return _in_row_blocks(mat, d // 2, torch.uint8, pack)
+
+
+def unpack_int4(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(low i8[..., D/2], high i8[..., D/2]): the sign-extended nibbles of packed
+    rows. Column j of ``low`` is original column j, of ``high`` column j + D/2."""
+    low = ((packed & 0xF) ^ 8).view(torch.int8) - 8
+    high = ((packed >> 4) ^ 8).view(torch.int8) - 8
+    return low, high
+
+
+def quantize_queries_int8(query_vecs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query symmetric absmax int8: (q i8[B, D], q_scale f32[B, 1])."""
+    q = query_vecs.float()
+    q_absmax = torch.clamp(q.abs().amax(dim=1, keepdim=True), min=1e-12)
+    q_scale = q_absmax / 127.0  # [B, 1]
+    q_i8 = torch.clamp(torch.round(q / q_scale), -127, 127).to(torch.int8)
+    return q_i8, q_scale
+
+
+# ---------------------------------------------------------------- scores
 
 
 def dense_scores_batch(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> torch.Tensor:
@@ -26,14 +107,151 @@ def dense_scores_batch(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> to
     return q.float() @ embeddings.float().T
 
 
+def _pad_axis(t: torch.Tensor, axis: int, size: int) -> torch.Tensor:
+    if t.shape[axis] == size:
+        return t
+    shape = list(t.shape)
+    shape[axis] = size - t.shape[axis]
+    return torch.cat([t, t.new_zeros(shape)], axis)
+
+
+def int_dot(q_i8: torch.Tensor, rows_i8: torch.Tensor) -> torch.Tensor:
+    """Exact int32[B, N] = q_i8[B, D] . rows_i8[N, D] (int8 operands).
+
+    On CUDA through ``torch._int_mm``, which wants more than 16 rows on the left
+    and D, N multiples of 8: narrower operands are zero-padded and the result cut."""
+    if q_i8.device.type != "cuda":
+        return q_i8.int() @ rows_i8.int().T
+    b, d = q_i8.shape
+    n = rows_i8.shape[0]
+    d8, n8 = -(-d // 8) * 8, -(-n // 8) * 8
+    q = _pad_axis(_pad_axis(q_i8, 1, d8), 0, max(b, 32)).contiguous()
+    rows = _pad_axis(_pad_axis(rows_i8, 1, d8), 0, n8).contiguous()
+    return torch._int_mm(q, rows.T)[:b, :n]
+
+
+def int_scores(
+    rows: torch.Tensor,  # i8[N, D], or packed u8[N, D/2]
+    scales: torch.Tensor,  # f32[N]
+    q_i8: torch.Tensor,  # i8[B, D]
+    q_scale: torch.Tensor,  # f32[B, 1]
+) -> torch.Tensor:
+    """f32[B, N] dequantized scores of quantized rows against quantized queries:
+    ``(float(acc) * scales) * q_scale``, in that order."""
+    if rows.dtype == torch.uint8:
+        low, high = unpack_int4(rows)
+        d2 = rows.shape[1]
+        acc = int_dot(q_i8[:, :d2], low) + int_dot(q_i8[:, d2:], high)
+    else:
+        acc = int_dot(q_i8, rows)
+    return acc.float() * scales[None, :] * q_scale
+
+
+def dense_scores_int8_batch(
+    values: torch.Tensor, scales: torch.Tensor, query_vecs: torch.Tensor
+) -> torch.Tensor:
+    """Batched int8 scoring f32[B, N]."""
+    return int_scores(values, scales, *quantize_queries_int8(query_vecs))
+
+
+def dense_scores_int4_batch(
+    packed: torch.Tensor, scales: torch.Tensor, query_vecs: torch.Tensor
+) -> torch.Tensor:
+    """Batched int4 scoring f32[B, N] via a full unpack: it holds both unpacked
+    int8 halves, so it is the small-corpus path; :func:`int4_topk_blocked` bounds
+    the unpack to one row block."""
+    return int_scores(packed, scales, *quantize_queries_int8(query_vecs))
+
+
+def int_member_scores(
+    rows: torch.Tensor,  # i8[N, D], or packed u8[N, D/2]
+    scales: torch.Tensor,  # f32[N]
+    member_rows: torch.Tensor,  # i64[B, C] row of each candidate
+    q_i8: torch.Tensor,
+    q_scale: torch.Tensor,
+) -> torch.Tensor:
+    """f32[B, C] scores of each query's own candidate rows, the same bits as
+    :func:`int_scores`: a blocked elementwise int32 multiply-and-sum (there is no
+    batched integer matmul)."""
+    b, c = member_rows.shape
+    acc = torch.empty((b, c), dtype=torch.int32, device=rows.device)
+    for lo in range(0, b, RESCORE_QUERIES):  # bounds the [b, C, D] int32 products
+        hi = min(b, lo + RESCORE_QUERIES)
+        cand = rows[member_rows[lo:hi]]
+        q = q_i8[lo:hi, None, :].int()
+        if rows.dtype == torch.uint8:
+            low, high = unpack_int4(cand)
+            d2 = rows.shape[1]
+            acc[lo:hi] = (low.int() * q[..., :d2]).sum(-1, dtype=torch.int32) + (
+                high.int() * q[..., d2:]
+            ).sum(-1, dtype=torch.int32)
+        else:
+            acc[lo:hi] = (cand.int() * q).sum(-1, dtype=torch.int32)
+    return acc.float() * scales[member_rows] * q_scale
+
+
+def int4_topk_blocked(
+    packed: torch.Tensor,  # u8[N, D/2] packed nibble rows
+    scales: torch.Tensor,  # f32[N]
+    valid: torch.Tensor,  # bool[N]
+    query_vecs: torch.Tensor,  # f32[B, D]
+    k: int,
+    collection_of: Optional[torch.Tensor] = None,  # i32[N]
+    coll_cid: Optional[torch.Tensor] = None,  # i32[B]
+    *,
+    invalid_score_floor: float = -2.0,
+    bucket: int = 16,
+    block: int = 1 << 18,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact batched int4 top-k without the fused kernel: unpack and score one row
+    block at a time, keep per-bucket maxima (masked rows and scores at or below
+    the floor count as -inf before the max), then rescore the members of the k
+    best buckets. ids equal :func:`dense_scores_int4_batch` + ``masked_top_k``."""
+    n = packed.shape[0]
+    b = query_vecs.shape[0]
+    q_i8, q_scale = quantize_queries_int8(query_vecs)
+    scoped = collection_of is not None and coll_cid is not None
+    cid = coll_cid.long()[:, None] if scoped else None
+    block = max(bucket, block // bucket * bucket)
+    nb = -(-n // bucket)
+    bmax = torch.empty((b, nb), dtype=torch.float32, device=packed.device)
+    for lo in range(0, n, block):
+        hi = min(n, lo + block)
+        s = int_scores(packed[lo:hi], scales[lo:hi], q_i8, q_scale)  # [B, rows]
+        bad = ~valid.bool()[None, lo:hi] | (s <= invalid_score_floor)
+        if scoped:
+            bad = bad | ((cid != -1) & (collection_of.long()[None, lo:hi] != cid))
+        s = s.masked_fill(bad, NEG_INF)
+        width = -(-(hi - lo) // bucket) * bucket
+        if width != hi - lo:  # the ragged end of the last block
+            s = torch.cat([s, s.new_full((b, width - (hi - lo)), NEG_INF)], 1)
+        bmax[:, lo // bucket: lo // bucket + width // bucket] = s.reshape(
+            b, width // bucket, bucket
+        ).amax(dim=2)
+
+    kk = min(k, nb)
+    _, bucket_ids = lax_top_k(bmax, kk)
+    member = (
+        bucket_ids[:, :, None] * bucket
+        + torch.arange(bucket, device=bmax.device)[None, None, :]
+    ).reshape(b, kk * bucket)
+    rows = member.clamp(max=n - 1)
+    cand = int_member_scores(packed, scales, rows, q_i8, q_scale)
+    ok = valid.bool()[rows] & (member < n) & (cand > invalid_score_floor)
+    if scoped:
+        ok = ok & ((cid == -1) | (collection_of.long()[rows] == cid))
+    return sort_topk_desc(cand.masked_fill(~ok, NEG_INF), member, k)
+
+
 def zero_query_guard(
     q_vec: torch.Tensor, ids: torch.Tensor, scores: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Silence the dense channel for all-zero query vectors (a failed embed).
 
-    A zero vector scores every row exactly 0.0 and would return rows 0..k-1 by the
-    id tie-break; the guard empties the list instead (ids -1, scores 0), so fusion
-    degrades to the lexical and graph channels."""
+    A zero vector scores every row exactly 0.0 (with quantized rows too: it
+    quantizes to zero codes) and would return rows 0..k-1 by the id tie-break;
+    the guard empties the list instead (ids -1, scores 0), so fusion degrades to
+    the lexical and graph channels."""
     q_ok = (q_vec != 0.0).any(dim=-1, keepdim=True)
     return (
         torch.where(q_ok, ids, torch.full_like(ids, -1)),

@@ -23,10 +23,9 @@ import torch
 from ..analyzer import Vocabulary
 from ..config import RAGConfig
 from ..models.entity_extractor import EntityStore
+from ..ops.bm25 import DOC_PAD, QUERY_PAD
 from ..ops.maxsim import dequantize_tokens
 from ..types import Entity
-
-QUERY_PAD = -1
 
 
 def _csr_layout(offsets, lengths, postings_doc, postings_weight):
@@ -92,11 +91,13 @@ def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def _pad_rows(t: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Pad the leading axis to ``n_rows`` (-1 for integers, 0/False otherwise)."""
+def _pad_rows(t: torch.Tensor, n_rows: int, fill=None) -> torch.Tensor:
+    """Pad the leading axis to ``n_rows`` with ``fill`` (default: -1 for integers,
+    0/False otherwise)."""
     if t.shape[0] == n_rows:
         return t
-    fill = -1 if not t.is_floating_point() and t.dtype != torch.bool else 0
+    if fill is None:
+        fill = -1 if not t.is_floating_point() and t.dtype != torch.bool else 0
     pad = t.new_full((n_rows - t.shape[0],) + tuple(t.shape[1:]), fill)
     return torch.cat([t, pad], 0)
 
@@ -109,18 +110,21 @@ class IndexState:
     config: RAGConfig
     device: torch.device
     n_pad: int
-    # lexical (sorted CSR of precomputed BM25 weights)
-    lexical_mode: str  # "sorted" | "none"
+    # lexical: sorted CSR of precomputed BM25 weights, or the doc-major term table
+    lexical_mode: str  # "sorted" | "termtable" | "none"
     lex_offsets: Optional[torch.Tensor]
     lex_lengths: Optional[torch.Tensor]
     lex_pd: Optional[torch.Tensor]
     lex_pt: Optional[torch.Tensor]
     lex_l_max: int
+    term_ids: Optional[torch.Tensor]  # i32[n_pad, L], DOC_PAD in empty slots
+    term_weights: Optional[torch.Tensor]  # f32[n_pad, L]
     vocab: Optional[Vocabulary]
     stored_df: Optional[np.ndarray]
     idf: Optional[np.ndarray]
     # dense
-    embeddings: Optional[torch.Tensor]
+    embeddings: Optional[torch.Tensor]  # bf16|f32|i8[n_pad, D], or packed int4 u8[n_pad, D/2]
+    dense_scales: Optional[torch.Tensor]  # f32[n_pad] row scales of quantized rows (1 on padding)
     valid: Optional[torch.Tensor]
     dim: int
     # graph
@@ -169,7 +173,10 @@ class IndexState:
         ``arrays`` (numpy; every channel optional except ``parent_of``):
         ``parent_of`` i32[N]; ``bm25_offsets`` i32[V+1], ``bm25_lengths`` i32[V],
         ``bm25_postings_doc`` i32[W], ``bm25_postings_weight`` f32[W] (precomputed
-        per-posting contributions), ``bm25_idf`` f32[V]; ``embeddings`` f32/bf16[N, D],
+        per-posting contributions), ``bm25_idf`` f32[V], ``bm25_term_ids`` i32[N, L] and
+        ``bm25_term_weights`` f32/bf16[N, L] (the doc-major term table, placed when
+        ``lexical_backend`` is "termtable" or "postings"); ``embeddings`` f32/bf16[N, D],
+        int8[N, D] or packed int4 uint8[N, D/2] with ``dense_scales`` f32[N],
         ``valid`` bool[N]; ``nbr`` i32[E, Dg], ``chunk_entities`` i32[N, M];
         ``collection_of`` i32[N]; ``maxsim_tokens`` bf16/int8[P, Td, Dm],
         ``maxsim_mask`` bool[P, Td].
@@ -190,8 +197,8 @@ class IndexState:
                      bm25_postings_weight=pw)
             h.update(bm25_l_max=l_max, stored_df=np.asarray(arrays["bm25_lengths"]),
                      idf=np.asarray(arrays["bm25_idf"], np.float32))
-        for key in ("parent_of", "embeddings", "valid", "nbr", "collection_of",
-                    "maxsim_tokens", "maxsim_mask"):
+        for key in ("parent_of", "embeddings", "dense_scales", "valid", "nbr", "collection_of",
+                    "maxsim_tokens", "maxsim_mask", "bm25_term_ids", "bm25_term_weights"):
             if key in arrays and arrays[key] is not None:
                 t[key] = arrays[key]
         if "chunk_entities" in arrays:
@@ -210,46 +217,51 @@ class IndexState:
     ) -> "IndexState":
         """Place tensors already in the engine's layout (keys as in
         :meth:`from_numpy`, the CSR already reshaped; ``host`` adds ``bm25_l_max``,
-        ``stored_df``, ``idf`` and ``chunk_entities_host``)."""
+        ``stored_df``, ``idf`` and ``chunk_entities_host``). ``config.lexical_backend``
+        picks the lexical layout that is placed: the sorted CSR for "sorted"/"auto",
+        the term table otherwise."""
         cfg = config
         dev = torch.device(device)
         tt = {k: v.to(dev) for k, v in tensors.items()}
         n_rows = [tt["parent_of"].shape[0], int(host.get("n_rows", 0))]
-        if "embeddings" in tt:
-            n_rows.append(tt["embeddings"].shape[0])
+        n_rows += [tt[k].shape[0] for k in ("embeddings", "bm25_term_ids") if k in tt]
         n_pad = max(n_rows)
 
         # ---- lexical ----
         lexical_mode = "none"
         lex = [None] * 4
         l_max = 1
+        term_ids = term_weights = None
         vocab = stored_df = idf = None
-        if "bm25_offsets" in tt and cfg.lexical_enabled:
-            if cfg.lexical_backend not in ("sorted", "auto"):
-                raise NotImplementedError(
-                    f"lexical_backend={cfg.lexical_backend!r} is not ported "
-                    "(ROADMAP.md, Queue 1); use 'sorted' or 'auto'"
-                )
-            lexical_mode = "sorted"
-            lex = [tt["bm25_offsets"].int(), tt["bm25_lengths"].int(),
-                   tt["bm25_postings_doc"].int(), tt["bm25_postings_weight"].float()]
-            l_max = int(host["bm25_l_max"])
+        sorted_backend = cfg.lexical_backend in ("sorted", "auto")
+        if cfg.lexical_enabled and ("bm25_offsets" if sorted_backend else "bm25_term_ids") in tt:
+            if sorted_backend:
+                lexical_mode = "sorted"
+                lex = [tt["bm25_offsets"].int(), tt["bm25_lengths"].int(),
+                       tt["bm25_postings_doc"].int(), tt["bm25_postings_weight"].float()]
+                l_max = int(host["bm25_l_max"])
+                stored_df = np.asarray(host["stored_df"])
+                idf = np.asarray(host["idf"], np.float32)
+            else:  # "termtable" / "postings": the doc-major table, weights in f32
+                lexical_mode = "termtable"
+                term_ids = _pad_rows(tt["bm25_term_ids"].int(), n_pad, fill=DOC_PAD).contiguous()
+                term_weights = _pad_rows(tt["bm25_term_weights"].float(), n_pad).contiguous()
             terms = host["vocab"]
             vocab = terms if isinstance(terms, Vocabulary) else Vocabulary.from_list(terms)
-            stored_df = np.asarray(host["stored_df"])
-            idf = np.asarray(host["idf"], np.float32)
 
         # ---- dense ----
-        embeddings = valid = None
+        embeddings = dense_scales = valid = None
         dim = 8
         if "embeddings" in tt:
-            embeddings = _pad_rows(tt["embeddings"], n_pad)
-            if embeddings.dtype in (torch.int8, torch.uint8):
-                raise NotImplementedError(
-                    "int8/int4 dense rows are not ported yet (ROADMAP.md, Queue 2)"
-                )
+            embeddings = _pad_rows(tt["embeddings"], n_pad, fill=0)
             valid = _pad_rows(tt["valid"].bool(), n_pad)
             dim = embeddings.shape[1]
+            if embeddings.dtype in (torch.int8, torch.uint8):
+                if "dense_scales" not in tt:
+                    raise ValueError("int8/int4 dense rows need their dense_scales")
+                dense_scales = _pad_rows(tt["dense_scales"].float(), n_pad, fill=1.0)
+                if embeddings.dtype == torch.uint8:
+                    dim *= 2  # two columns per packed byte
 
         # ---- graph: the reference's backend policy (parallel/engine.py) ----
         graph_mode = "none"
@@ -305,8 +317,9 @@ class IndexState:
             config=cfg, device=dev, n_pad=n_pad,
             lexical_mode=lexical_mode, lex_offsets=lex[0], lex_lengths=lex[1],
             lex_pd=lex[2], lex_pt=lex[3], lex_l_max=l_max,
+            term_ids=term_ids, term_weights=term_weights,
             vocab=vocab, stored_df=stored_df, idf=idf,
-            embeddings=embeddings, valid=valid, dim=dim,
+            embeddings=embeddings, dense_scales=dense_scales, valid=valid, dim=dim,
             graph_mode=graph_mode, graph_small_sparse=graph_small_sparse,
             graph_active=graph_active, graph_m=graph_m, nbr=nbr,
             chunk_entities=chunk_entities, g_offsets=g_csr[0], g_lengths=g_csr[1],
@@ -381,8 +394,9 @@ class IndexState:
     def nbytes(self) -> Dict[str, int]:
         """Device bytes per placed component (for reporting)."""
         parts = {
-            "embeddings": [self.embeddings, self.valid],
+            "embeddings": [self.embeddings, self.dense_scales, self.valid],
             "postings": [self.lex_offsets, self.lex_lengths, self.lex_pd, self.lex_pt],
+            "term_table": [self.term_ids, self.term_weights],
             "maxsim": [self.maxsim_tokens, self.maxsim_mask],
             "graph": [self.nbr, self.chunk_entities, self.g_offsets, self.g_lengths, self.g_docs],
             "tables": [self.parent_of, self.collection_of],

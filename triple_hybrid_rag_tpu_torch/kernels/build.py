@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with a plain
 C interface under ``build/kernels/`` at the root of the checkout, and is loaded
-with ``ctypes``. The library's file name carries a hash of its source, so an edited
-kernel is rebuilt and a stale build is never loaded. A failed build raises with
+with ``ctypes``. The library's file name carries a hash of its source and of the
+shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale build
+is never loaded. A failed build raises with
 the compiler's output. Nothing here runs at import time.
 """
 
@@ -31,9 +32,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "fused_topk": {
         "fused_bucket_maxima_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "fused_bucket_maxima_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "fused_bucket_maxima_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "fused_bucket_maxima_int4": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "maxsim": {
         "maxsim_scores_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "termtable": {
+        "termtable_scores_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "termtable_scores_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "dense_scores": {
+        "dense_scores_bf16": [_P, _P, _P, _I, _I, _I, _P],
+        "dense_scores_f32": [_P, _P, _P, _I, _I, _I, _P],
     },
 }
 
@@ -53,7 +64,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

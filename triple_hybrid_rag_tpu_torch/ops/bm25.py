@@ -1,7 +1,17 @@
-"""Sort-based sparse BM25 top-k over CSR postings: the lexical channel.
+"""BM25 on the device: the lexical channel's two layouts.
 
 The port of the JAX package's ``ops/bm25.py`` query ops, batched over a leading query
-axis. Work is O(matched postings), independent of corpus size:
+axis.
+
+**Doc-major term table** (:func:`score_termtable_batch`): each document row holds its
+unique terms ``term_ids[N, L]`` and their precomputed BM25 contributions
+``term_weights[N, L]``; a query is a membership test,
+``score[b, n] = sum_l w[n, l] * [ids[n, l] in query[b]]``. On a CUDA tensor this is the
+hand-written kernel ``csrc/termtable.cu`` (the port of the Pallas kernel
+``ops/pallas/lexical_kernel.py``), on a CPU tensor :func:`score_termtable_batch_plain`.
+
+**Sorted CSR postings** (:func:`score_postings_topk_pre`, ``_tiered``): work is
+O(matched postings), independent of corpus size:
 
 1. gather each query term's postings window (contiguous slices of precomputed
    per-posting BM25 weights),
@@ -24,6 +34,9 @@ import torch
 from .topk import NEG_INF, lax_top_k
 
 QUERY_PAD = -1  # query slot sentinel (also the OOV term id)
+DOC_PAD = -2  # term-table pad sentinel; distinct from QUERY_PAD so pads never match
+_MAX_TABLE_WIDTH = 768  # the kernel stages 8 rows of ids and f32 weights in 48 KB
+_MAX_QUERY_TERMS = 32  # query slots the kernel keeps in registers
 
 
 def bm25_idf(n_docs, df: torch.Tensor) -> torch.Tensor:
@@ -36,6 +49,82 @@ def bm25_denom_k1(
 ) -> torch.Tensor:
     """Per-document ``k1 * (1 - b + b * dl / avgdl)``."""
     return k1 * (1.0 - b + b * doc_lengths / torch.clamp(avgdl, min=1e-6))
+
+
+def score_termtable_batch_plain(
+    term_ids: torch.Tensor,  # i32[N, L] unique terms per doc (DOC_PAD = empty slot)
+    term_weights: torch.Tensor,  # f32|bf16[N, L] precomputed contribution per (doc, term)
+    query_terms: torch.Tensor,  # i32[B, Q] padded query term ids (QUERY_PAD = empty slot)
+) -> torch.Tensor:
+    """Plain PyTorch version of the term-table kernel: f32[B, N] BM25 scores."""
+    w = term_weights.float()
+    zero = torch.zeros((), dtype=torch.float32, device=w.device)
+    out = torch.empty(
+        (query_terms.shape[0], term_ids.shape[0]), dtype=torch.float32, device=w.device
+    )
+    for i, q in enumerate(query_terms.to(term_ids.dtype)):
+        match = torch.zeros_like(term_ids, dtype=torch.bool)
+        for t in q:  # one [N, L] compare per query slot: no [N, L, Q] intermediate
+            match |= term_ids == t
+        out[i] = torch.where(match, w, zero).sum(dim=1)
+    return out
+
+
+def _launch_termtable(term_ids, term_weights, query_terms):
+    from ..kernels.build import check, load
+
+    n, width = term_ids.shape
+    b, q = query_terms.shape
+    if term_weights.shape != (n, width):
+        raise ValueError("term_weights must have the term table's shape")
+    if term_weights.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported weight dtype {term_weights.dtype}")
+    if not 0 < width <= _MAX_TABLE_WIDTH or q > _MAX_QUERY_TERMS:
+        raise ValueError(
+            f"the kernel takes tables up to {_MAX_TABLE_WIDTH} wide and queries up to "
+            f"{_MAX_QUERY_TERMS} terms, got {width} and {q}"
+        )
+    dev = term_ids.device
+    ids = term_ids.to(torch.int32).contiguous()
+    w = term_weights.contiguous()
+    qt = query_terms.to(torch.int32).contiguous()
+    if w.device != dev or qt.device != dev:
+        raise ValueError("all inputs must be on the term table's device")
+    out = torch.empty((b, n), dtype=torch.float32, device=dev)
+    if b * n * q == 0:
+        return out.zero_()
+    fn = "termtable_scores_bf16" if w.dtype == torch.bfloat16 else "termtable_scores_f32"
+    err = getattr(load("termtable"), fn)(
+        ids.data_ptr(), w.data_ptr(), qt.data_ptr(), out.data_ptr(), n, width, b, q,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, fn)
+    score_termtable_batch.launches += 1
+    return out
+
+
+def score_termtable_batch(
+    term_ids: torch.Tensor,  # i32[N, L]
+    term_weights: torch.Tensor,  # f32|bf16[N, L]
+    query_terms: torch.Tensor,  # i32[B, Q]
+) -> torch.Tensor:
+    """Doc-major membership scoring, f32[B, N]: the CUDA kernel on a CUDA tensor (or
+    raise), the plain version on a CPU tensor. The table is read once per 128
+    queries. Sums run over the table's slots in another order than the reference's
+    reduce, so scores agree to rounding, not bit for bit."""
+    if term_ids.device.type == "cuda":
+        return _launch_termtable(term_ids, term_weights, query_terms)
+    return score_termtable_batch_plain(term_ids, term_weights, query_terms)
+
+
+score_termtable_batch.launches = 0  # kernel launches (CUDA tensors only)
+
+
+def score_termtable(
+    term_ids: torch.Tensor, term_weights: torch.Tensor, query_terms: torch.Tensor  # i32[Q]
+) -> torch.Tensor:
+    """One query against the term table: f32[N]."""
+    return score_termtable_batch(term_ids, term_weights, query_terms[None, :])[0]
 
 
 def gather_windows(

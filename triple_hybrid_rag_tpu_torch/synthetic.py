@@ -9,6 +9,10 @@ uses); parent p holds the MaxSim token vectors of chunk 5p's first terms; the
 graph has ``n_entities`` entities with random adjacency of mean degree deg/2 and
 two mentions per chunk. Self-retrieval (a document's own terms as the query) is
 therefore a real end-to-end check.
+
+The configuration picks the layouts: ``embedding_dtype`` "int8" / "int4" quantizes
+the bf16 rows on the device, and ``lexical_backend`` "termtable" / "postings"
+places the doc-major term table (:func:`build_term_table`) instead of the postings.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ from .analyzer import Vocabulary
 from .config import RAGConfig
 from .corpus import SyntheticCorpusView
 from .device import resolve_device
+from .index.dense_index import quantize_rows_int4, quantize_rows_int8
 from .index.state import IndexState
 from .models.embedder import BowHashEmbedder
 from .models.entity_extractor import canonical_key
+from .ops.bm25 import DOC_PAD
 from .types import Entity
 
 L_DOC = 64  # terms per document
@@ -49,6 +55,50 @@ class SyntheticCorpus(NamedTuple):
     n_entities: int
 
 
+def posting_weight(idf: torch.Tensor, config: RAGConfig) -> torch.Tensor:
+    """BM25 contribution of one occurrence (tf = 1) of each term, f32[V]. Every
+    synthetic document has the average length, so the length term is 1."""
+    k1, b = config.bm25_k1, config.bm25_b
+    denom = k1 * (1.0 - b + b * 1.0)
+    return (idf * (k1 + 1.0) / (1.0 + denom)).float()
+
+
+def build_term_table(
+    doc_terms: torch.Tensor,  # i[n_pad, L_DOC] the terms of each document, duplicates included
+    n: int,  # live documents; the rows from n on stay empty
+    idf: torch.Tensor,  # f32[V]
+    config: RAGConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The doc-major term table of the synthetic corpus, built on ``doc_terms``'
+    device: (term_ids i32[n_pad, L], term_weights f32[n_pad, L]) with
+    L = ``config.doc_term_capacity``, a document's unique terms in ascending id
+    order and ``DOC_PAD`` in the empty slots.
+
+    A term that occurs c times in a document is merged into one slot weighted
+    c times the one-occurrence contribution of :func:`posting_weight`. That is
+    what the synthetic postings sum to (they hold one tf = 1 posting per
+    occurrence), so the term table and the sorted postings score a document alike
+    wherever ``bm25_df_cap`` cut none of the query's terms; it is not BM25's
+    saturating tf formula."""
+    width = config.doc_term_capacity
+    n_pad, l_doc = doc_terms.shape
+    if width < l_doc:
+        raise ValueError(f"doc_term_capacity {width} is below the {l_doc} terms of a document")
+    dev = doc_terms.device
+    terms = torch.sort(doc_terms.long(), dim=1).values
+    first = torch.ones_like(terms, dtype=torch.bool)
+    first[:, 1:] = terms[:, 1:] != terms[:, :-1]
+    slot = torch.cumsum(first, 1) - 1  # the slot of each occurrence's term
+    term_ids = torch.full((n_pad, width), DOC_PAD, dtype=torch.int32, device=dev)
+    term_ids.scatter_(1, slot, terms.to(torch.int32))
+    counts = torch.zeros((n_pad, width), dtype=torch.float32, device=dev)
+    counts.scatter_add_(1, slot, torch.ones_like(terms, dtype=torch.float32))
+    term_ids[n:] = DOC_PAD
+    live = term_ids >= 0
+    weights = counts * posting_weight(idf, config)[term_ids.clamp(min=0).long()]
+    return term_ids, torch.where(live, weights, torch.zeros_like(weights))
+
+
 def build_synthetic(
     config: RAGConfig,
     n: int,
@@ -59,9 +109,10 @@ def build_synthetic(
 ) -> SyntheticCorpus:
     """Build the synthetic index on ``device`` (CUDA unless ``device="cpu"``).
 
-    ``config`` fixes the capacity rounding, ``bm25_df_cap``, the BM25 constants,
-    the MaxSim token shape and the graph widths; ``dim`` must equal
-    ``config.embedding_dim``."""
+    ``config`` fixes the capacity rounding, the lexical layout (``lexical_backend``;
+    ``bm25_df_cap`` for the postings, ``doc_term_capacity`` for the term table), the
+    BM25 constants, the row dtype (``embedding_dtype``), the MaxSim token shape and
+    the graph widths; ``dim`` must equal ``config.embedding_dim``."""
     dev = resolve_device(device)
     cfg = config
     if dim != cfg.embedding_dim:
@@ -96,13 +147,20 @@ def build_synthetic(
     l_max = int(stored_df.max())
     idf64 = torch.log1p((n - df.double() + 0.5) / (df.double() + 0.5))
     idf = idf64.float()
-    k1, b = cfg.bm25_k1, cfg.bm25_b
-    denom = k1 * (1.0 - b + b * 1.0)  # every document has the average length
     postings_doc = torch.full((nnz + l_max,), -1, dtype=torch.int32, device=dev)
     postings_doc[:nnz] = sd.to(torch.int32)
     postings_weight = torch.zeros(nnz + l_max, dtype=torch.float32, device=dev)
-    postings_weight[:nnz] = (idf[st] * (k1 + 1.0) / (1.0 + denom)).float()
+    postings_weight[:nnz] = posting_weight(idf, cfg)[st]
     del st, sd
+    if cfg.lexical_backend in ("sorted", "auto"):
+        lexical = {
+            "bm25_offsets": offsets.to(torch.int32), "bm25_lengths": stored_df.to(torch.int32),
+            "bm25_postings_doc": postings_doc, "bm25_postings_weight": postings_weight,
+        }
+    else:
+        table_ids, table_weights = build_term_table(term_ids, n, idf, cfg)
+        lexical = {"bm25_term_ids": table_ids, "bm25_term_weights": table_weights}
+    del postings_doc, postings_weight
 
     # ---- dense rows = BowHash of each document's terms ----
     embedder = BowHashEmbedder(dim=dim, config=cfg)
@@ -119,6 +177,11 @@ def build_synthetic(
         emb[lo:lo + _ROW_BLOCK] = acc.to(torch.bfloat16)
     del dirs, acc
     valid = torch.arange(n_pad, device=dev) < n
+    dense = {"embeddings": emb, "valid": valid}
+    if cfg.embedding_dtype in ("int8", "int4"):
+        quantize = quantize_rows_int4 if cfg.embedding_dtype == "int4" else quantize_rows_int8
+        dense["embeddings"], dense["dense_scales"] = quantize(emb)
+    del emb
 
     # ---- MaxSim token store: parent p holds chunk 5p's first terms ----
     m_dim, td = cfg.maxsim_dim, cfg.maxsim_doc_tokens
@@ -153,10 +216,7 @@ def build_synthetic(
 
     state = IndexState.from_tensors(
         {
-            "parent_of": parent_of,
-            "bm25_offsets": offsets.to(torch.int32), "bm25_lengths": stored_df.to(torch.int32),
-            "bm25_postings_doc": postings_doc, "bm25_postings_weight": postings_weight,
-            "embeddings": emb, "valid": valid,
+            "parent_of": parent_of, **lexical, **dense,
             "nbr": nbr, "chunk_entities": chunk_entities,
             "maxsim_tokens": tokens, "maxsim_mask": tok_mask,
         },
