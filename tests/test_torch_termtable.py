@@ -142,3 +142,72 @@ def test_synthetic_term_table_agrees_with_its_postings():
     np.testing.assert_allclose(vals_t.numpy(), vals_s.numpy(), atol=1e-4, rtol=0)
     assert ids_t[:, 0].tolist() == ids_s[:, 0].tolist() == rows.tolist()  # own document first
     assert float((ids_t == ids_s).float().mean()) > 0.9  # the rest up to exact ties' order
+
+
+# Shapes the CUDA kernel has to get right (a membership table per 128 queries, a
+# warp per row over chunks of 32 slots, tiles of 32 rows): (n, table width, b, q).
+EDGE_SHAPES = [
+    (31, 1, 2, 2),  # one slot a row, rows short of a tile
+    (100, 40, 1, 16),  # width not a multiple of 32, one query
+    (333, 128, 130, 16),  # more than one block of 128 queries, n not a multiple of 32
+    (70, 800, 3, 32),  # wider than 768 slots, the most query slots
+    (257, 96, 128, 1),  # a single query slot
+]
+
+
+def _edge_case(rng, n, width, b, q):
+    """A table and queries holding every special case at once: a table id of -1, a
+    term repeated inside a query, one term held by every query, a query of only
+    pads. The vocabulary grows with the width, so a score stays a sum of about ten
+    weights and the tolerance of the file holds."""
+    vocab = max(50, 4 * width)
+    term_ids, weights = _table(rng, n, width, vocab=vocab, pad_frac=0.4)
+    term_ids[::7, 0] = -1
+    queries = rng.integers(0, vocab, size=(b, q)).astype(np.int32)
+    queries[:, q // 2 + 1:] = -1
+    queries[:, 0] = 7
+    if q > 1:
+        queries[0, 1] = queries[0, 0]
+    if b > 1:
+        queries[1, :] = -1
+    return term_ids, weights, queries
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,width,b,q", EDGE_SHAPES)
+def test_score_termtable_batch_edge_shapes(rng, n, width, b, q, dtype):
+    term_ids, weights, queries = _edge_case(rng, n, width, b, q)
+    w_j, w_t = _weights(weights, dtype)
+    got = port.score_termtable_batch(torch.from_numpy(term_ids), w_t, torch.from_numpy(queries))
+    assert got.shape == (b, n) and got.dtype == torch.float32
+    want = ref.score_termtable_batch(jnp.asarray(term_ids), w_j, jnp.asarray(queries))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert float(got.max()) > 0
+    if b > 1:
+        # only pads: exactly the weights of the rows' -1 slots
+        pad_rows = np.zeros(n, np.float32)
+        pad_rows[::7] = w_t.float().numpy()[::7, 0]
+        np.testing.assert_array_equal(got[1].numpy(), pad_rows)
+    if (queries[0] == -1).any():
+        # the repeated term counts once: a pad in its place (the query holds pads
+        # already) leaves every score as it was
+        once = queries[:1].copy()
+        once[0, 1] = -1
+        again = port.score_termtable_batch(torch.from_numpy(term_ids), w_t, torch.from_numpy(once))
+        np.testing.assert_array_equal(again[0].numpy(), got[0].numpy())
+    # the Pallas kernel scores one query per call: the first and the last of the batch
+    for i in sorted({0, b - 1}):
+        kernel = score_termtable_pallas(jnp.asarray(term_ids), w_j, jnp.asarray(queries[i]),
+                                        interpret=True)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(kernel), atol=ATOL, rtol=0)
+
+
+def test_a_term_held_by_every_query_scores_alike(rng):
+    """128 queries of the same single term give 128 equal score rows."""
+    term_ids, weights = _table(rng, 200, 24, vocab=30)
+    queries = np.full((128, 4), -1, np.int32)
+    queries[:, 2] = 11
+    got = port.score_termtable_batch(*(torch.from_numpy(x) for x in (term_ids, weights, queries)))
+    want = ref.score_termtable(jnp.asarray(term_ids), jnp.asarray(weights), jnp.asarray(queries[0]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert bool((got == got[0]).all()) and float(got.max()) > 0

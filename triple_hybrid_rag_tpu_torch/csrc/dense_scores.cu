@@ -8,49 +8,104 @@
 //
 // What bounds it on an H100 at N = 1,000,448, D = 1024, B = 128 with bf16
 // rows: bytes. 2.05 GB of rows read and 0.51 GB of scores written take 0.76 ms
-// at 3.35 TB/s, the 268 GFLOP take 0.27 ms at 989 TFLOP/s. Design: the tile
-// loop of the fused kernel (csrc/tile_common.cuh; 128 rows x 128 queries per
-// block, each row read once) with a store epilogue. Lane (g, t) holds rows g
-// and g+8 for queries 2t and 2t+1 of each n8 tile, so the eight lanes of one t
-// write eight adjacent f32 of one query's score row: a full 32-byte sector.
+// at 3.35 TB/s, the 268 GFLOP take 0.27 ms at 989 TFLOP/s. So the design spends
+// no thread instruction on moving operands and keeps the stores out of the loads'
+// way (csrc/wgmma_common.cuh):
 //
-// The float32 variant keeps full f32 products (plain FMAs) in a 64 x 64 tile.
+// - One persistent block per SM walks output tiles of 128 queries x 256 corpus
+//   rows in a static round-robin. One thread of the producer warpgroup copies
+//   64 values of every row of both tiles per stage with TMA (128-byte swizzle)
+//   into a ring of four 48 KB stages; it runs ahead into the next tile while the
+//   consumers store, so one tile's stores overlap the next tile's loads. The
+//   queries (256 KB in all) come back from L2.
+// - Two consumer warpgroups issue wgmma m64n256k16 (bf16 -> f32) from shared
+//   memory; each owns 64 queries of the tile. `setmaxnreg` gives them the
+//   producer's registers for their 128 accumulators.
+// - Orientation: the queries are the 64-row M operand and the corpus rows the N
+//   operand, because of the store. A thread's accumulator pairs are then two
+//   adjacent corpus rows of one query, 8 contiguous bytes of out[b, :], and the
+//   four lanes of a quad write one full 32-byte sector: no transpose through
+//   shared memory. With the corpus rows as M the tile would have to be
+//   transposed first. The 8-byte stores need an even N; an odd N takes scalar
+//   stores. Rows >= N and queries >= B are zero-filled by TMA and masked in the
+//   store.
+//
+// Sums are f32 in wgmma's order, another than mma.sync's or a library GEMM's:
+// scores agree with the plain version to rounding (1e-4 on unit rows), not bit
+// for bit.
+//
+// The float32 variant keeps full f32 products (plain FMAs) in a 64 x 64 tile of
+// csrc/tile_common.cuh; f32 rows are not a serving format.
 //
 // Interface: plain C, bound with ctypes. Every function launches on the given
-// stream and returns cudaGetLastError() as an int.
+// stream and returns 0, a cudaError_t (cudaGetLastError() after the launch), or
+// hopper::kEncodeFailed plus the encoder's CUresult when a tensor map was refused.
 
 #include "tile_common.cuh"
+#include "wgmma_common.cuh"
 
 namespace {
 
 using namespace tile;
 
-__global__ void __launch_bounds__(kThreads, 2)
-dense_scores_bf16_kernel(const uint8_t* __restrict__ emb,  // [n, d] bf16
-                         const uint8_t* __restrict__ qv,   // [b, d] bf16
-                         float* __restrict__ out,          // [b, n]
-                         int n, int row_bytes, int b) {
-  __shared__ __align__(16) Smem sm;
-  const Lane ln;
-  const int row0 = blockIdx.x * BM;
-  const int q0 = blockIdx.y * BN;
-  float acc[2][8][4];
-  mainloop<MmaBf16>(emb, qv, n, row_bytes, b, row0, q0, sm, ln, acc);
+constexpr int kTileQueries = 128;  // two consumer warpgroups of 64
+constexpr int kTileRows = 256;     // corpus rows: the N of one wgmma
+constexpr int kStages = 4;
+constexpr int kBf16Threads = 384;  // producer warpgroup + two consumer warpgroups
+using Pipe = hopper::Pipeline<kStages, kTileQueries>;
+constexpr int kBf16Smem = sizeof(Pipe) + 1024;  // room to align the ring to 1024 bytes
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+dense_scores_bf16_kernel(const __grid_constant__ CUtensorMap map_q,     // [b, d] bf16
+                         const __grid_constant__ CUtensorMap map_rows,  // [n, d] bf16
+                         float* __restrict__ out,                       // [b, n]
+                         int n, int b, int k_blocks) {
+  extern __shared__ uint8_t smem_raw[];
+  Pipe& pipe = *reinterpret_cast<Pipe*>(
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023));
+  if (threadIdx.x == 0) pipe.init();
+  __syncthreads();
+
+  const int q_tiles = (b + kTileQueries - 1) / kTileQueries;
+  const int n_tiles = ((n + kTileRows - 1) / kTileRows) * q_tiles;
+  const int wg = threadIdx.x >> 7;
+  hopper::Ring<kStages> ring;
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full, across tile boundaries
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
+        pipe.produce(ring, &map_q, &map_rows, (tile % q_tiles) * kTileQueries,
+                     (tile / q_tiles) * kTileRows, k_blocks);
+    }
+  } else {
+    // ---- consumers: 64 queries x 256 rows each
+    hopper::reg_alloc<232>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const bool pairs = (n & 1) == 0;  // 8-byte stores stay aligned in every score row
+    float acc[128];
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      pipe.consume(ring, wg - 1, k_blocks, acc);
+      const int q_lo = (tile % q_tiles) * kTileQueries + (wg - 1) * 64 + warp * 16 + (lane >> 2);
+      const int col0 = (tile / q_tiles) * kTileRows + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r_lo = row0 + ln.warp_m * 32 + i * 16 + ln.g;
-    const int r_hi = r_lo + 8;
+      for (int half = 0; half < 2; ++half) {
+        const int qi = q_lo + 8 * half;
+        if (qi >= b) continue;
+        float* dst = out + (size_t)qi * n;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int qa = q0 + ln.warp_n * 64 + j * 8 + 2 * ln.t;
-      const int qb = qa + 1;
-      if (qa < b) {
-        if (r_lo < n) out[(size_t)qa * n + r_lo] = acc[i][j][0];
-        if (r_hi < n) out[(size_t)qa * n + r_hi] = acc[i][j][2];
-      }
-      if (qb < b) {
-        if (r_lo < n) out[(size_t)qb * n + r_lo] = acc[i][j][1];
-        if (r_hi < n) out[(size_t)qb * n + r_hi] = acc[i][j][3];
+        for (int j = 0; j < 32; ++j) {
+          const int col = col0 + 8 * j;
+          const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+          if (pairs && col + 1 < n) {
+            __stcs(reinterpret_cast<float2*>(dst + col), make_float2(v0, v1));
+          } else {
+            if (col < n) __stcs(dst + col, v0);
+            if (col + 1 < n) __stcs(dst + col + 1, v1);
+          }
+        }
       }
     }
   }
@@ -84,10 +139,30 @@ extern "C" {
 
 int dense_scores_bf16(const void* emb, const void* q, void* out, int n, int d, int b,
                       void* stream) {
-  dim3 grid((n + BM - 1) / BM, (b + BN - 1) / BN);
-  dense_scores_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(emb), static_cast<const uint8_t*>(q),
-      static_cast<float*>(out), n, d * 2, b);
+  static int sm_count = 0;
+  if (sm_count == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dense_scores_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
+    if (err != cudaSuccess) {
+      sm_count = 0;
+      return static_cast<int>(err);
+    }
+  }
+  CUtensorMap map_q, map_rows;
+  int err = hopper::make_tensor_map_bf16(&map_q, q, b, d, kTileQueries);
+  if (err == 0) err = hopper::make_tensor_map_bf16(&map_rows, emb, n, d, kTileRows);
+  if (err != 0) return err;
+  const int q_tiles = (b + kTileQueries - 1) / kTileQueries;
+  const long long n_tiles = (long long)((n + kTileRows - 1) / kTileRows) * q_tiles;
+  const int grid = static_cast<int>(n_tiles < sm_count ? n_tiles : sm_count);
+  dense_scores_bf16_kernel<<<grid, kBf16Threads, kBf16Smem, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_rows, static_cast<float*>(out), n, b,
+      (d + hopper::kStageK - 1) / hopper::kStageK);
   return static_cast<int>(cudaGetLastError());
 }
 

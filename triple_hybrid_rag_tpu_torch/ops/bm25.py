@@ -35,8 +35,9 @@ from .topk import NEG_INF, lax_top_k
 
 QUERY_PAD = -1  # query slot sentinel (also the OOV term id)
 DOC_PAD = -2  # term-table pad sentinel; distinct from QUERY_PAD so pads never match
-_MAX_TABLE_WIDTH = 768  # the kernel stages 8 rows of ids and f32 weights in 48 KB
-_MAX_QUERY_TERMS = 32  # query slots the kernel keeps in registers
+# query slots the kernel takes: its membership table of a block of 128 queries
+# (2 * 128 * Q entries of 20 bytes) must fit the shared memory of one SM
+_MAX_QUERY_TERMS = 32
 
 
 def bm25_idf(n_docs, df: torch.Tensor) -> torch.Tensor:
@@ -79,9 +80,9 @@ def _launch_termtable(term_ids, term_weights, query_terms):
         raise ValueError("term_weights must have the term table's shape")
     if term_weights.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"unsupported weight dtype {term_weights.dtype}")
-    if not 0 < width <= _MAX_TABLE_WIDTH or q > _MAX_QUERY_TERMS:
+    if width < 1 or q > _MAX_QUERY_TERMS:
         raise ValueError(
-            f"the kernel takes tables up to {_MAX_TABLE_WIDTH} wide and queries up to "
+            f"the kernel takes tables at least 1 wide and queries up to "
             f"{_MAX_QUERY_TERMS} terms, got {width} and {q}"
         )
     dev = term_ids.device
@@ -109,9 +110,10 @@ def score_termtable_batch(
     query_terms: torch.Tensor,  # i32[B, Q]
 ) -> torch.Tensor:
     """Doc-major membership scoring, f32[B, N]: the CUDA kernel on a CUDA tensor (or
-    raise), the plain version on a CPU tensor. The table is read once per 128
-    queries. Sums run over the table's slots in another order than the reference's
-    reduce, so scores agree to rounding, not bit for bit."""
+    raise), the plain version on a CPU tensor. The kernel reads the table once per
+    128 queries and looks every slot up once, in a hash of those queries' terms.
+    Sums run over the table's slots in another order than the reference's reduce,
+    so scores agree to rounding, not bit for bit."""
     if term_ids.device.type == "cuda":
         return _launch_termtable(term_ids, term_weights, query_terms)
     return score_termtable_batch_plain(term_ids, term_weights, query_terms)

@@ -28,9 +28,9 @@ def _launch_dense_scores(embeddings, query_vecs):
 
     n, d = embeddings.shape
     b = query_vecs.shape[0]
-    if query_vecs.shape[1] != d or d % 8:
+    if query_vecs.shape[1] != d or d % 8 or d == 0:
         raise ValueError(
-            f"bad shapes: rows {tuple(embeddings.shape)} (width must be a multiple of 8), "
+            f"bad shapes: rows {tuple(embeddings.shape)} (width must be a positive multiple of 8), "
             f"queries {tuple(query_vecs.shape)}"
         )
     emb = embeddings.contiguous()
