@@ -10,8 +10,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    MaxSim: B = 128 x K = 50 candidates, 32 doc tokens of width 64, 16 query
    tokens; term-table BM25: a 1,000,448 x 128 table, 128 queries of 16 slots) and
    times kernel, plain version and, where one exists, the library call; the
-   persistent kernels (dense scores, term table) are also held against their
-   plain versions over a list of small and ragged shapes;
+   persistent kernels (int8 and int4 bucket maxima, dense scores, term table) are
+   also held against their plain versions over a list of small and ragged shapes,
+   the quantized bucket maxima bit for bit;
 3. drives the port's main path: the batched three-channel query program over a
    synthetic 1M-chunk corpus built on the card (the construction of ``bench.py``),
    through ``Engine.search_arrays`` and ``Engine.retrieve_batch``; checks
@@ -60,10 +61,22 @@ DENSE_EDGE_SHAPES = [(1, 64, 1), (77, 64, 3), (127, 64, 1), (999, 1024, 128), (1
 # of a tile; one query, and more than one block of 128 queries; 1 and 32 query slots
 TERM_EDGE_SHAPES = [(31, 1, 2, 2), (64, 8, 4, 4), (999, 40, 1, 16), (333, 128, 130, 16),
                     (70, 800, 3, 32), (2048, 128, 128, 1)]
+# (n, d, b) of the int8 / packed-int4 bucket-maxima edge sweep, each scoped and
+# unscoped, bit-equal: one row, rows short of a bucket, a bucket plus one, short of a
+# 64-row tile, a tile plus one, an odd count of tiles over more pairs than the card
+# has SMs; one query, a few, more than one launch of 128; rows narrower than a
+# 128-byte stage, ragged against it (int4: D/2 = 80), the serving width (queries
+# resident in shared memory) and 4096 (queries streamed through the ring)
+INT_EDGE_SHAPES = [(1, 32, 1), (15, 32, 5), (17, 160, 1), (63, 160, 5), (65, 1024, 130),
+                   (127, 1024, 1), (129, 160, 257), (1000, 1024, 128), (300, 4096, 5),
+                   (2049, 4096, 130), (40000, 160, 5), (20005, 1024, 257)]
 MAXSIM_ATOL = 1e-5
 TERM_ATOL = 1e-5  # f32 sums of at most 16 weights below 1, in another slot order
 LEXICAL_ATOL = 1e-4  # BM25 sums of up to 16 weights of ~10, in another order
 TABLE_WIDTH, QUERY_TERMS = 128, 16  # doc_term_capacity, max_query_terms
+# substrings of the hand-written kernels' names, by the engine stage that launches them
+OWN_KERNELS = {"engine.dense": ("bucket_max",), "engine.lexical": ("termtable_kernel",),
+               "engine.tail": ("maxsim_kernel",)}
 T_START = time.time()
 
 
@@ -84,10 +97,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "nvidia-smi unavailable"
 
 
-def time_ms(fn, iters: int = 10, warmup: int = 2, cold_l2: bool = False) -> float:
+def time_ms(fn, iters: int = 10, warmup: int = 2, cold_l2: bool = False,
+            run_ahead: bool = True) -> float:
     """Median device time of ``fn`` over ``iters`` calls (CUDA events). With
-    ``cold_l2`` a 64 MB buffer is overwritten before each timed call, so the call
-    finds its inputs outside the 50 MB L2 cache, as the serving path does."""
+    ``run_ahead`` the stream is first kept busy for about half a millisecond, so
+    the host has enqueued the call's kernels before the device reaches the first
+    event: the time is the device's. Without it the device waits at the first event
+    for the host, and a call's launch work (Python, tensor-map encoding: tens of
+    microseconds) counts as its time. With ``cold_l2`` a 64 MB buffer is overwritten
+    before each timed call, so the call finds its inputs outside the 50 MB L2 cache,
+    as the serving path does."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold_l2 else None
     for _ in range(warmup):
         fn()
@@ -95,6 +114,8 @@ def time_ms(fn, iters: int = 10, warmup: int = 2, cold_l2: bool = False) -> floa
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        if run_ahead:
+            torch.cuda._sleep(1_000_000)  # device clocks
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -258,6 +279,8 @@ def check_int(data, kind: str):
             f"({ids_k.numel()} slots)")
 
     ms = time_ms(lambda: ft.bucket_maxima(rows, q_i8, valid, None, None, scales, q_scale))
+    launch_ms = time_ms(lambda: ft.bucket_maxima(rows, q_i8, valid, None, None, scales, q_scale),
+                        run_ahead=False)
     plain_ms = time_ms(
         lambda: ft.bucket_maxima_plain(rows, q_i8, valid, None, None, scales, q_scale),
         iters=3, warmup=1)
@@ -270,7 +293,8 @@ def check_int(data, kind: str):
     b_ms, b_by = bound(rows.numel() + n * 4 + BATCH * (DIM + 4) + n + BATCH * nb * 4,
                        2.0 * BATCH * n * DIM, INT8_OPS)
     ops_ms = 2.0 * BATCH * n * DIM / INT8_OPS * 1e3
-    log(f"{name} N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, int8 GEMM "
+    log(f"{name} N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms ({launch_ms:.4f} ms when the device "
+        f"waits for the host to launch each call), plain {plain_ms:.4f} ms, int8 GEMM "
         f"(torch._int_mm) alone {matmul_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; operations alone "
         f"{ops_ms:.4f} ms)")
     topk_ms = time_ms(lambda: ft.fused_dense_topk(rows, valid, q, 100, scales=scales))
@@ -286,8 +310,44 @@ def check_int(data, kind: str):
                     + ("89" if kind == "int8" else "132"),
         "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "matmul_ms": matmul_ms,
-        "topk_ms": topk_ms, "unfused_topk_ms": unfused_ms,
+        "topk_ms": topk_ms, "unfused_topk_ms": unfused_ms, "host_launched_ms": launch_ms,
     }
+
+
+def bucket_maxima_edge_sweep(dev, gen):
+    """The int8 and packed-int4 bucket maxima against their plain versions at
+    INT_EDGE_SHAPES, unscoped and scoped (collection ids -1, 0, 1, 2 and -2, which
+    matches nothing), and once with every row invalid. All must be bit-equal."""
+    from triple_hybrid_rag_tpu_torch.index import dense_index as di
+    from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
+
+    cases = 0
+    for kind, quantize in (("int8", di.quantize_rows_int8), ("int4", di.quantize_rows_int4)):
+        for n, d, b in INT_EDGE_SHAPES:
+            rows, scales = quantize(torch.randn((n, d), generator=gen, device=dev))
+            q_i8, q_scale = di.quantize_queries_int8(torch.randn((b, d), generator=gen, device=dev))
+            valid = torch.rand(n, generator=gen, device=dev) > 0.1
+            coll = torch.randint(0, 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+            cid = torch.tensor([-1, 0, 1, 2, -2], dtype=torch.int32, device=dev).repeat(b // 5 + 1)[:b]
+            masks = [(valid, None, None), (valid, coll, cid)]
+            if (n, d, b) == INT_EDGE_SHAPES[4]:
+                masks.append((torch.zeros_like(valid), coll, cid))
+            for v, c, k in masks:
+                got = ft.bucket_maxima(rows, q_i8, v, c, k, scales, q_scale)
+                torch.cuda.synchronize()
+                want = ft.bucket_maxima_plain(rows, q_i8, v, c, k, scales, q_scale)
+                e = max_err(got, want)
+                if got.shape != (b, -(-n // 16)) or e != 0.0:
+                    fail(f"fused_bucket_maxima_{kind} N={n} D={d} B={b} "
+                         f"{'scoped' if c is not None else 'unscoped'}"
+                         f"{'' if bool(v.any()) else ', all rows invalid'} differs from its plain "
+                         f"version ({e}); it must be bit-equal")
+                if not bool(v.any()) and not bool(torch.isinf(got).all()):
+                    fail(f"fused_bucket_maxima_{kind}: invalid rows must give -inf")
+                cases += 1
+    log(f"fused_bucket_maxima int8 / int4 edge sweep: {len(INT_EDGE_SHAPES)} shapes (N, D, B) "
+        f"{INT_EDGE_SHAPES}, unscoped, scoped and all rows invalid: {cases} cases equal the plain "
+        f"version bit for bit")
 
 
 def check_dense(data):
@@ -811,14 +871,20 @@ def stage_profile(eng, args, label: str) -> float:
     log(f"profile ({label}) over {n} batches of {BATCH}: wall {wall_ms / n:.3f} ms/batch, device busy "
         f"{busy / n:.3f} ms/batch ({100 * busy / wall_ms:.1f} % of wall, idle "
         f"{100 * max(0.0, 1 - busy / wall_ms):.1f} %)")
+    # the profiler attributes to a stage's range the kernels that PyTorch's own ops
+    # launch inside it; a kernel launched through ctypes is in the kernel list but in
+    # no range, so the package's kernels are added to their stage by name
+    own_ms = {stage: sum(dev_self(e) for e in kernels if any(w in e.key for w in words))
+              for stage, words in OWN_KERNELS.items()}
     for e in events:
         if not e.key.startswith("engine."):
             continue
         if e.device_type == DeviceType.CUDA:
             log(f"  stage {e.key}: device span {dev_self(e) / n:.3f} ms/batch")
         else:
-            log(f"  stage {e.key}: kernels {dev_total(e) / n:.3f} ms/batch, "
-                f"host {e.cpu_time_total / 1e3 / n:.3f} ms/batch")
+            ops, mine = dev_total(e) / n, own_ms.get(e.key, 0.0) / n
+            log(f"  stage {e.key}: kernels {ops + mine:.3f} ms/batch ({ops:.3f} of PyTorch's ops + "
+                f"{mine:.3f} hand-written), host {e.cpu_time_total / 1e3 / n:.3f} ms/batch")
     # the twelve longest, and the package's own kernels wherever they stand
     ranked = sorted(kernels, key=dev_self, reverse=True)
     own = [e for e in ranked[12:]
@@ -852,6 +918,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     data = DenseInputs(dev, gen)
+    bucket_maxima_edge_sweep(dev, gen)
     kernels = [check_fused(data), check_int(data, "int8"), check_int(data, "int4")]
     dense = check_dense(data)
     del data

@@ -256,3 +256,151 @@ def test_bucket_maxima_int_rows_match_pallas(rng, kind, scoped):
         assert bool(torch.isinf(got[2]).all())  # cid -2 matches nothing
     with pytest.raises(ValueError):  # quantized rows need scales and int8 queries
         port_fused.bucket_maxima(t_rows, torch.from_numpy(q), t_valid)
+
+
+# (n, d, b): one row, rows short of a bucket, a bucket plus one, short of the kernel's
+# 64-row tile, a tile plus one, n no multiple of 16; one query, a few, more than one
+# launch of 128 (130, 257); widths below and ragged against a 128-byte stage (int4:
+# d/2 = 80), the serving width and one too wide for resident queries
+RAGGED_SHAPES = [(1, 32, 1), (15, 32, 5), (17, 160, 1), (63, 160, 5), (65, 160, 130),
+                 (127, 1024, 1), (129, 64, 257), (1000, 128, 3), (33, 4096, 5)]
+
+
+def _ragged_inputs(rng, kind, n, d, b):
+    rows, scales = REF_QUANTIZE[kind](_unit_rows(rng, n, d))
+    valid = rng.random(n) > 0.1
+    coll = rng.integers(0, 3, n).astype(np.int32)
+    cid = np.resize(np.array([-1, 0, 1, 2, -2], np.int32), b)
+    return rows, scales, valid, coll, cid, _unit_rows(rng, b, d)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("scoped", [True, False])
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bucket_maxima_int_rows_ragged_shapes_match_pallas(rng, kind, scoped, shape):
+    """The reference kernel takes whole blocks only, so its rows are padded to one
+    block of a multiple of 16 rows (pad rows masked with -inf, as its own fused
+    top-k pads them); every bucket of the port must equal it bit for bit."""
+    n, d, b = shape
+    rows, scales, valid, coll, cid, q = _ragged_inputs(rng, kind, n, d, b)
+    n_pad = -(-n // 16) * 16
+    pad = n_pad - n
+    addmask = np.where(np.pad(valid, (0, pad)), 0.0, -np.inf).astype(np.float32)[None, :]
+    q_i8, q_scale = ref_quantize_queries(jnp.asarray(q))
+    scope_j = dict(collection_of=jnp.asarray(np.pad(coll, (0, pad)))[None, :],
+                   coll_cid=jnp.asarray(cid)[None, :])
+    want = bucket_maxima_pallas(
+        jnp.asarray(np.pad(rows, ((0, pad), (0, 0)))), q_i8, jnp.asarray(addmask),
+        scales=jnp.asarray(np.pad(scales, (0, pad), constant_values=1.0))[None, :],
+        q_scale=q_scale.T, block=n_pad, bucket=16, interpret=True, **(scope_j if scoped else {}),
+    )
+    t_q, t_qs = port.quantize_queries_int8(torch.from_numpy(q))
+    t_rows, t_scales, t_valid, t_coll, t_cid = _t(rows, scales, valid, coll, cid)
+    got = port_fused.bucket_maxima(
+        t_rows, t_q, t_valid, t_coll if scoped else None, t_cid if scoped else None,
+        scales=t_scales, q_scale=t_qs,
+    )
+    assert got.shape == (b, n_pad // 16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _numpy_bucket_maxima(kind, rows, scales, q_i8, q_scale, mask):
+    """int64 dot, then the two float32 multiplies in the kernel's order."""
+    if kind == "int4":
+        low = ((rows & 0xF).astype(np.int64) ^ 8) - 8
+        high = ((rows >> 4).astype(np.int64) ^ 8) - 8
+        codes = np.concatenate([low, high], axis=1)
+    else:
+        codes = rows.astype(np.int64)
+    acc = q_i8.astype(np.int64) @ codes.T
+    s = (acc.astype(np.float32) * scales[None, :].astype(np.float32)) * q_scale.reshape(-1, 1)
+    s = np.where(mask, s, -np.inf).astype(np.float32)
+    n = s.shape[1]
+    n_pad = -(-n // 16) * 16
+    s = np.pad(s, ((0, 0), (0, n_pad - n)), constant_values=-np.inf)
+    return s.reshape(s.shape[0], n_pad // 16, 16).max(axis=2)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("case", ["scoped", "unscoped", "all_invalid"])
+@pytest.mark.parametrize("shape", [(17, 160, 1), (129, 64, 257), (33, 4096, 5)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bucket_maxima_plain_matches_numpy(rng, kind, case, shape):
+    n, d, b = shape
+    rows, scales, valid, coll, cid, q = _ragged_inputs(rng, kind, n, d, b)
+    if case == "all_invalid":
+        valid = np.zeros(n, bool)
+    t_q, t_qs = port.quantize_queries_int8(torch.from_numpy(q))
+    mask = np.broadcast_to(valid, (b, n))
+    if case != "unscoped":
+        mask = mask & ((cid[:, None] == -1) | (coll[None, :] == cid[:, None]))
+    want = _numpy_bucket_maxima(kind, rows, scales, t_q.numpy(), t_qs.numpy(), mask)
+    t_rows, t_scales, t_valid, t_coll, t_cid = _t(rows, scales, valid, coll, cid)
+    scope = (None, None) if case == "unscoped" else (t_coll, t_cid)
+    got = port_fused.bucket_maxima_plain(t_rows, t_q, t_valid, *scope, scales=t_scales, q_scale=t_qs)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case == "all_invalid":
+        assert bool(torch.isinf(got).all())
+    if case == "scoped" and b >= 5:
+        assert bool(torch.isinf(got[4]).all())  # cid -2 matches nothing
+
+
+def _int_args(kind, n=32, d=64, b=2):
+    rows = torch.zeros((n, d // 2 if kind == "int4" else d),
+                       dtype=torch.uint8 if kind == "int4" else torch.int8)
+    return rows, torch.zeros((b, d), dtype=torch.int8), torch.ones(n), torch.ones((b, 1))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("fault", ["query_width", "float_queries", "no_scales", "no_q_scale"])
+def test_check_rows_raises(kind, fault):
+    rows, q, scales, q_scale = _int_args(kind)
+    valid = torch.ones(rows.shape[0], dtype=torch.bool)
+    if fault == "query_width":  # int4: queries must be twice the packed width
+        q = q[:, : q.shape[1] // 2].contiguous()
+    elif fault == "float_queries":
+        q = q.float()
+    elif fault == "no_scales":
+        scales = None
+    else:
+        q_scale = None
+    with pytest.raises(ValueError):
+        port_fused.bucket_maxima(rows, q, valid, scales=scales, q_scale=q_scale)
+    with pytest.raises(ValueError):
+        port_fused._check_rows(rows, q, scales, q_scale)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("fault", ["row_bytes", "too_wide", "misaligned_rows", "misaligned_queries",
+                                   "rows_on_other_device_size"])
+def test_launch_checks_raise_before_any_build(monkeypatch, kind, fault):
+    """What the kernels do not take (rows that are no multiple of 16 bytes, which TMA
+    cannot describe; widths past the int32 sums; pointers off a 16-byte boundary; a
+    mask of another length) is refused by the wrapper before a kernel is built."""
+    from triple_hybrid_rag_tpu_torch.kernels import build
+
+    def no_build(*_a, **_k):
+        raise AssertionError("the launch checks must run before the kernels are built")
+
+    monkeypatch.setattr(build, "load", no_build)
+    monkeypatch.setattr(build, "build", no_build)
+    n, d, b = 32, 64, 2
+    if fault == "row_bytes":
+        d = 24 if kind == "int8" else 48  # 24 bytes a row either way
+    elif fault == "too_wide":
+        n, d = 1, 65536 + 32
+    rows, q, scales, q_scale = _int_args(kind, n, d, b)
+    valid = torch.ones(n, dtype=torch.bool)
+    if fault == "misaligned_rows":
+        flat = torch.zeros(rows.numel() + 16, dtype=rows.dtype)
+        rows = flat[1:1 + rows.numel()].view(rows.shape)
+    elif fault == "misaligned_queries":
+        flat = torch.zeros(q.numel() + 16, dtype=q.dtype)
+        q = flat[3:3 + q.numel()].view(q.shape)
+    elif fault == "rows_on_other_device_size":
+        valid = valid[:-1]
+    if fault in ("row_bytes", "too_wide"):
+        with pytest.raises(ValueError):
+            port_fused._check_launch(rows, q)
+    with pytest.raises(ValueError):
+        port_fused._launch_bucket_maxima(rows, q, valid, None, None, scales, q_scale)

@@ -14,7 +14,7 @@
 //
 // - One persistent block per SM walks output tiles of 128 queries x 256 corpus
 //   rows in a static round-robin. One thread of the producer warpgroup copies
-//   64 values of every row of both tiles per stage with TMA (128-byte swizzle)
+//   128 bytes of every row of both tiles per stage with TMA (128-byte swizzle)
 //   into a ring of four 48 KB stages; it runs ahead into the next tile while the
 //   consumers store, so one tile's stores overlap the next tile's loads. The
 //   queries (256 KB in all) come back from L2.
@@ -52,7 +52,7 @@ constexpr int kTileQueries = 128;  // two consumer warpgroups of 64
 constexpr int kTileRows = 256;     // corpus rows: the N of one wgmma
 constexpr int kStages = 4;
 constexpr int kBf16Threads = 384;  // producer warpgroup + two consumer warpgroups
-using Pipe = hopper::Pipeline<kStages, kTileQueries>;
+using Pipe = hopper::Pipeline<kStages, kTileQueries, kTileRows, 8>;  // 8 consumer warps
 constexpr int kBf16Smem = sizeof(Pipe) + 1024;  // room to align the ring to 1024 bytes
 
 __global__ void __launch_bounds__(kBf16Threads, 1)
@@ -75,9 +75,13 @@ dense_scores_bf16_kernel(const __grid_constant__ CUtensorMap map_q,     // [b, d
     // ---- producer: one thread keeps the ring full, across tile boundaries
     hopper::reg_dealloc<40>();
     if (threadIdx.x == 0) {
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x)
-        pipe.produce(ring, &map_q, &map_rows, (tile % q_tiles) * kTileQueries,
-                     (tile / q_tiles) * kTileRows, k_blocks);
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int q0 = (tile % q_tiles) * kTileQueries, row0 = (tile / q_tiles) * kTileRows;
+        pipe.produce(ring, k_blocks, [&](int kb, uint8_t* a, uint8_t* b, uint64_t* bar) {
+          hopper::tma_load_2d(a, &map_q, kb * hopper::kStageRowBytes, q0, bar);
+          hopper::tma_load_2d(b, &map_rows, kb * hopper::kStageRowBytes, row0, bar);
+        });
+      }
     }
   } else {
     // ---- consumers: 64 queries x 256 rows each
@@ -87,7 +91,8 @@ dense_scores_bf16_kernel(const __grid_constant__ CUtensorMap map_q,     // [b, d
     const bool pairs = (n & 1) == 0;  // 8-byte stores stay aligned in every score row
     float acc[128];
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      pipe.consume(ring, wg - 1, k_blocks, acc);
+      pipe.consume<hopper::WgmmaBf16N256>(ring, (wg - 1) * 64, k_blocks, acc,
+                                          [](int, const uint8_t* b) { return b; });
       const int q_lo = (tile % q_tiles) * kTileQueries + (wg - 1) * 64 + warp * 16 + (lane >> 2);
       const int col0 = (tile / q_tiles) * kTileRows + 2 * (lane & 3);
 #pragma unroll
@@ -154,15 +159,16 @@ int dense_scores_bf16(const void* emb, const void* q, void* out, int n, int d, i
     }
   }
   CUtensorMap map_q, map_rows;
-  int err = hopper::make_tensor_map_bf16(&map_q, q, b, d, kTileQueries);
-  if (err == 0) err = hopper::make_tensor_map_bf16(&map_rows, emb, n, d, kTileRows);
+  const int row_bytes = d * 2;
+  int err = hopper::make_tensor_map(&map_q, q, b, row_bytes, row_bytes, kTileQueries);
+  if (err == 0) err = hopper::make_tensor_map(&map_rows, emb, n, row_bytes, row_bytes, kTileRows);
   if (err != 0) return err;
   const int q_tiles = (b + kTileQueries - 1) / kTileQueries;
   const long long n_tiles = (long long)((n + kTileRows - 1) / kTileRows) * q_tiles;
   const int grid = static_cast<int>(n_tiles < sm_count ? n_tiles : sm_count);
   dense_scores_bf16_kernel<<<grid, kBf16Threads, kBf16Smem, static_cast<cudaStream_t>(stream)>>>(
       map_q, map_rows, static_cast<float*>(out), n, b,
-      (d + hopper::kStageK - 1) / hopper::kStageK);
+      (row_bytes + hopper::kStageRowBytes - 1) / hopper::kStageRowBytes);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,15 +1,13 @@
-// Tile loops shared by the dense-channel kernels (fused_topk.cu, dense_scores.cu).
+// Tile loops of the bf16 bucket maxima (fused_topk.cu) and of the float32 bodies
+// (fused_topk.cu, dense_scores.cu). The int8 and packed-int4 bucket maxima and
+// the bf16 dense scores run on csrc/wgmma_common.cuh instead.
 //
-// One block owns 128 corpus rows x 128 queries and walks the row width in
-// stages of 64 BYTES per row: cp.async copies the stage of the rows and of the
+// bf16: one block owns 128 corpus rows x 128 queries and walks the row width in
+// stages of 64 bytes per row: cp.async copies the stage of the rows and of the
 // queries into shared memory (two stages in flight), and the warps feed
-// mma.sync from it. The loop is written in bytes because the operand fragments
-// of mma.m16n8k16 (bf16) and mma.m16n8k32 (s8) have the same byte layout: a
-// k-step is 32 bytes of a row either way, register 0/1 hold bytes 4t..4t+3 of
-// rows g and g+8, register 2/3 the same rows 16 bytes further on. So the bf16
-// and the int8 kernels share this loop and differ only in the mma instruction
-// and the accumulator type. The accumulator layout is the same too: lane
-// (g, t) holds rows g and g+8 for queries 2t and 2t+1 of each n8 tile.
+// mma.sync.m16n8k16 from it. A k-step is 32 bytes of a row: register 0/1 hold
+// bytes 4t..4t+3 of rows g and g+8, register 2/3 the same rows 16 bytes further
+// on. Lane (g, t) holds rows g and g+8 for queries 2t and 2t+1 of each n8 tile.
 //
 // The float32 loop keeps full f32 products (plain FMAs, no TF32) in a 64 x 64
 // tile; it is not on the serving path.
@@ -42,29 +40,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-struct MmaBf16 {  // bf16 x bf16 -> f32
-  using acc_t = float;
-  static __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-struct MmaS8 {  // s8 x s8 -> s32, exact
-  using acc_t = int;
-  static __device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
+// c += a . b for an m16n8k16 tile, bf16 x bf16 -> f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 struct Smem {
   uint8_t a[2][BM][LDB];  // row stages
@@ -86,11 +70,10 @@ struct Lane {
 // acc[i][j][v] = sum over the row width of rows[row0 + ...] . qv[q0 + ...] for
 // the thread's 2 m16 tiles x 8 n8 tiles. `row_bytes` is the width of a row and
 // of a query in bytes, a multiple of 16; rows >= n and queries >= b read as 0.
-template <typename Mma>
 __device__ __forceinline__ void mainloop(const uint8_t* __restrict__ rows,
                                          const uint8_t* __restrict__ qv, int n, int row_bytes,
                                          int b, int row0, int q0, Smem& sm, const Lane& ln,
-                                         typename Mma::acc_t (&acc)[2][8][4]) {
+                                         float (&acc)[2][8][4]) {
   const int tid = threadIdx.x;
   // each stage: 128 rows x 4 chunks of 16 bytes, for rows and for queries
   auto load_stage = [&](int stage, int k0) {
@@ -145,8 +128,8 @@ __device__ __forceinline__ void mainloop(const uint8_t* __restrict__ rows,
         int qn = ln.warp_n * 64 + j * 8 + ln.g;
         uint32_t b0 = *reinterpret_cast<const uint32_t*>(&sm.q[st][qn][kk + 4 * ln.t]);
         uint32_t b1 = *reinterpret_cast<const uint32_t*>(&sm.q[st][qn][kk + 4 * ln.t + 16]);
-        Mma::mma(acc[0][j], a[0], b0, b1);
-        Mma::mma(acc[1][j], a[1], b0, b1);
+        mma_bf16(acc[0][j], a[0], b0, b1);
+        mma_bf16(acc[1][j], a[1], b0, b1);
       }
     }
     __syncthreads();

@@ -100,19 +100,27 @@ def bucket_maxima_plain(
     return s.reshape(s.shape[0], n_pad // BUCKET, BUCKET).amax(dim=2)
 
 
+def _check_launch(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> None:
+    """What the kernels do not take, raised before anything is built: TMA and
+    cp.async copy 16-byte chunks of a row (for packed int4 rows that also keeps the
+    high half of a query's columns, D/2 bytes in, on a 16-byte boundary), and the
+    int32 sums bound the width of quantized rows."""
+    if embeddings.shape[1] * embeddings.element_size() % 16:
+        raise ValueError(f"a row of {tuple(embeddings.shape)} must take a multiple of 16 bytes")
+    if _is_int(embeddings) and query_vecs.shape[1] > _MAX_INT_DIM:
+        raise ValueError(f"quantized rows wider than {_MAX_INT_DIM} are not supported")
+
+
 def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid, scales, q_scale):
+    _check_launch(embeddings, query_vecs)
     from ..kernels.build import check, load
 
     n = embeddings.shape[0]
     b, d = query_vecs.shape
     is_int = _is_int(embeddings)
-    if embeddings.shape[1] * embeddings.element_size() % 16:
-        raise ValueError(f"a row of {tuple(embeddings.shape)} must take a multiple of 16 bytes")
-    if is_int and d > _MAX_INT_DIM:
-        raise ValueError(f"quantized rows wider than {_MAX_INT_DIM} are not supported")
     emb = embeddings.contiguous()
     q = query_vecs.to(torch.int8 if is_int else emb.dtype).contiguous()
-    val = valid.to(torch.uint8).contiguous()
+    val = (valid.view(torch.uint8) if valid.dtype == torch.bool else valid.to(torch.uint8)).contiguous()
     scoped = collection_of is not None and coll_cid is not None
     coll = collection_of.to(torch.int32).contiguous() if scoped else None
     cid = coll_cid.to(torch.int32).contiguous() if scoped else None
@@ -122,7 +130,7 @@ def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid
         if t is not None and (t.device != emb.device or t.shape[0] != size):
             raise ValueError("all inputs must be on the rows' device, one entry per row or query")
     if emb.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError("rows and queries must be 16-byte aligned")
+        raise ValueError("rows and queries must be 16-byte aligned")  # contiguous() keeps a view's offset
     out = torch.empty((b, -(-n // BUCKET)), dtype=torch.float32, device=emb.device)
     kind, fn = _KERNELS[emb.dtype]
     ptr = [emb.data_ptr()] + ([sc.data_ptr()] if is_int else []) + [q.data_ptr()]
