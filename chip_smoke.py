@@ -7,21 +7,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. holds each kernel against its plain PyTorch version at the serving shapes
    (fused dense bucket maxima: N = 1,000,448 rows of width 1024 in bf16, int8 and
    packed int4, B = 128, scoped and unscoped; dense scores on the same rows;
-   MaxSim: B = 128 x K = 50 candidates, 32 doc tokens of width 64, 16 query
-   tokens; term-table BM25: a 1,000,448 x 128 table, 128 queries of 16 slots) and
-   times kernel, plain version and, where one exists, the library call; the
-   persistent kernels (int8 and int4 bucket maxima, dense scores, term table) are
-   also held against their plain versions over a list of small and ragged shapes,
-   the quantized bucket maxima bit for bit;
+   MaxSim, its bf16 and its int8 token-store bodies: B = 128 x K = 50 candidates
+   over 200,704 parents at the smoke run's shape (32 doc tokens of width 64, 16
+   query tokens) and at the default RAGConfig's (64 x 128, 32); term-table BM25:
+   a 1,000,448 x 128 table, 128 queries of 16 slots) and times kernel, plain
+   version and, where one exists, the library call, and times the f32-row bodies
+   of the bucket maxima and of the dense scores (on no engine path); the
+   persistent kernels (int8 and int4 bucket maxima, dense scores, term table) and
+   both MaxSim bodies are also held against their plain versions over a list of
+   small and ragged shapes, the quantized bucket maxima bit for bit;
 3. drives the port's main path: the batched three-channel query program over a
    synthetic 1M-chunk corpus built on the card (the construction of ``bench.py``),
    through ``Engine.search_arrays`` and ``Engine.retrieve_batch``; checks
    self-retrieval, that both kernels were launched, the B=1 programs, and the
    bucketed matmul path against the kernel path. Then, on the same corpus, the
-   further configurations: int8 rows and packed-int4 rows (quantized on the card;
-   kernel path and unfused path must return equal ids), the term-table lexical
-   backend, and a dense channel through the dense-scores kernel. Each must
-   self-retrieve and must have launched its kernel.
+   further configurations: int8 rows and packed-int4 rows (quantized on the card,
+   with the int8 MaxSim token store the reference keeps under both; kernel path
+   and unfused path must return equal ids), the term-table lexical backend, and a
+   dense channel through the dense-scores kernel. Each must self-retrieve, must
+   have launched its kernel and only its configuration's MaxSim body, and prints
+   its MaxSim store's device GB.
 
 Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches, error and times; the last line is
@@ -47,6 +52,10 @@ DF_CAP = 2048
 GRAPH_FRAC = 0.3
 RERANK_K = 50  # rerank_top_k: MaxSim candidates per query
 MAXSIM_TOKENS, MAXSIM_DIM, QUERY_TOKENS = 32, 64, 16
+N_PARENTS = 200_704  # the synthetic corpus's parents (N_ROWS / 5, capacity-rounded)
+# (Td, D, Tq) of the MaxSim checks: the smoke run's corpus (bench.py's reduced
+# shape) and the default RAGConfig (maxsim_doc_tokens, maxsim_dim, maxsim_query_tokens)
+MAXSIM_SHAPES = {"smoke": (MAXSIM_TOKENS, MAXSIM_DIM, QUERY_TOKENS), "default": (64, 128, 32)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, same source
@@ -71,6 +80,16 @@ INT_EDGE_SHAPES = [(1, 32, 1), (15, 32, 5), (17, 160, 1), (63, 160, 5), (65, 102
                    (127, 1024, 1), (129, 160, 257), (1000, 1024, 128), (300, 4096, 5),
                    (2049, 4096, 130), (40000, 160, 5), (20005, 1024, 257)]
 MAXSIM_ATOL = 1e-5
+# (B, K, parents, Td, D, Tq) of the MaxSim edge sweep: one query and one candidate
+# (every candidate invalid), Td of one token, one past a 32-token stage, past 128
+# and 4096 (128 stages streamed through a warp's ring); D of 32 (the 8M
+# configuration), 40 and 36 (not a multiple of 32; int8 rows TMA cannot address),
+# 33 (odd), 128, and 520 (a padded row wider than a TMA box: plain loads); Tq of 1,
+# 17, 32 and 128
+MAXSIM_EDGE_SHAPES = [(1, 1, 7, 1, 32, 1), (1, 50, 64, 33, 40, 32), (3, 1, 50, 130, 128, 128),
+                      (2, 5, 9, 4096, 32, 32), (128, 50, 1000, 33, 128, 1),
+                      (5, 7, 20, 130, 40, 128), (2, 9, 30, 40, 33, 16), (4, 6, 25, 65, 36, 17),
+                      (1, 50, 100, 64, 128, 32), (2, 3, 10, 5, 520, 1)]
 TERM_ATOL = 1e-5  # f32 sums of at most 16 weights below 1, in another slot order
 LEXICAL_ATOL = 1e-4  # BM25 sums of up to 16 weights of ~10, in another order
 TABLE_WIDTH, QUERY_TERMS = 128, 16  # doc_term_capacity, max_query_terms
@@ -104,16 +123,17 @@ def time_ms(fn, iters: int = 10, warmup: int = 2, cold_l2: bool = False,
     the host has enqueued the call's kernels before the device reaches the first
     event: the time is the device's. Without it the device waits at the first event
     for the host, and a call's launch work (Python, tensor-map encoding: tens of
-    microseconds) counts as its time. With ``cold_l2`` a 64 MB buffer is overwritten
-    before each timed call, so the call finds its inputs outside the 50 MB L2 cache,
-    as the serving path does."""
+    microseconds) counts as its time. With ``cold_l2`` a 64 MB buffer is read before
+    each timed call, so the call finds its inputs outside the 50 MB L2 cache, as the
+    serving path does. (Overwriting the buffer instead leaves up to 50 MB of dirty
+    lines that the timed call pays to write back: 10 us at MaxSim's default shape.)"""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") if cold_l2 else None
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
-            flush.zero_()
+            flush.sum(dtype=torch.int64)
         if run_ahead:
             torch.cuda._sleep(1_000_000)  # device clocks
         a = torch.cuda.Event(enable_timing=True)
@@ -499,51 +519,134 @@ def check_termtable(dev, gen):
     }
 
 
-def check_maxsim(dev, gen):
+def maxsim_inputs(dev, gen, b, k, p_rows, td, d, tq):
+    """Unit bf16 tokens with random mask holes, parents with no token, f16-wire
+    queries with zero and fractional weights; candidate parents at random, with
+    invalid ones (-1) and one past the store (clamped to its last row)."""
+    tokens = torch.randn((p_rows, td, d), generator=gen, device=dev)
+    tokens = (tokens / tokens.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    tok_mask = torch.rand((p_rows, td), generator=gen, device=dev) > 0.2
+    tok_mask[::97] = False  # parents without any token score 0
+    parent = torch.randint(0, p_rows, (b, k), generator=gen, device=dev)
+    flat = parent.view(-1)
+    flat[0] = p_rows + 3  # past the store
+    if flat.numel() > 2:
+        flat[1] = 0  # parent 0 has no token
+    if k // 10:
+        parent[:, -(k // 10):] = -1  # invalid candidates
+    elif flat.numel() > 2:
+        flat[2] = -1
+    q = torch.randn((b, tq, d), generator=gen, device=dev)
+    q = (q / q.norm(dim=-1, keepdim=True)).half().float()  # the f16 query wire
+    w = torch.ones((b, tq), device=dev)
+    w[:, tq * 5 // 8:tq * 3 // 4] = 0.25
+    w[:, tq * 3 // 4:] = 0.0
+    return tokens, tok_mask, parent, q, w
+
+
+def maxsim_edge_sweep(dev, gen):
+    """Both MaxSim bodies against the plain version at MAXSIM_EDGE_SHAPES, and once
+    with every candidate invalid, within MAXSIM_ATOL."""
     from triple_hybrid_rag_tpu_torch.ops import maxsim as mx
 
-    p_rows = 200_704
-    tokens = torch.randn((p_rows, MAXSIM_TOKENS, MAXSIM_DIM), generator=gen, device=dev)
-    tokens = (tokens / tokens.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
-    tok_mask = torch.rand((p_rows, MAXSIM_TOKENS), generator=gen, device=dev) > 0.2
-    tok_mask[::97] = False  # parents without any token score 0
-    parent = torch.randint(0, p_rows, (BATCH, RERANK_K), generator=gen, device=dev)
-    parent[:, -5:] = -1  # invalid candidates
-    q = torch.randn((BATCH, QUERY_TOKENS, MAXSIM_DIM), generator=gen, device=dev)
-    q = (q / q.norm(dim=-1, keepdim=True)).half().float()  # the f16 query wire
-    w = torch.ones((BATCH, QUERY_TOKENS), device=dev)
-    w[:, 10:12] = 0.25
-    w[:, 12:] = 0.0
+    worst, cases = 0.0, 0
+    for i, (b, k, p_rows, td, d, tq) in enumerate(MAXSIM_EDGE_SHAPES):
+        tokens, tok_mask, parent, q, w = maxsim_inputs(dev, gen, b, k, p_rows, td, d, tq)
+        if i == 0:
+            parent[:] = -1  # all candidates invalid
+        for store in (tokens, mx.quantize_tokens(tokens)):
+            got = mx.maxsim_scores(store, tok_mask, parent, q, w)
+            torch.cuda.synchronize()
+            e = max_err(got, mx.maxsim_scores_plain(store, tok_mask, parent, q, w))
+            if got.shape != (b, k) or not e <= MAXSIM_ATOL:
+                fail(f"maxsim_scores {store.dtype} B={b} K={k} P={p_rows} Td={td} D={d} Tq={tq} "
+                     f"disagrees with its plain version ({e})")
+            if i == 0 and bool((got != 0).any()):
+                fail("maxsim_scores: invalid candidates must score 0")
+            worst, cases = max(worst, e), cases + 1
+    log(f"maxsim_scores edge sweep: {len(MAXSIM_EDGE_SHAPES)} shapes (B, K, P, Td, D, Tq) "
+        f"{MAXSIM_EDGE_SHAPES}, bf16 and int8 stores, one with every candidate invalid: {cases} "
+        f"cases agree with the plain version within {MAXSIM_ATOL} (worst {worst:.3g})")
 
-    got = mx.maxsim_scores(tokens, tok_mask, parent, q, w)
-    want = mx.maxsim_scores_plain(tokens, tok_mask, parent, q, w)
-    torch.cuda.synchronize()
-    err = max_err(got, want)
-    log(f"maxsim_scores: max |kernel - plain| = {err:.3g}")
-    if not err <= MAXSIM_ATOL:
-        fail(f"maxsim_scores disagrees with its plain version ({err})")
-    ms = time_ms(lambda: mx.maxsim_scores(tokens, tok_mask, parent, q, w), iters=50, cold_l2=True)
-    plain_ms = time_ms(lambda: mx.maxsim_scores_plain(tokens, tok_mask, parent, q, w), iters=20,
-                       cold_l2=True)
-    ok = parent >= 0
-    n_valid = int(ok.sum())
-    live_tokens = int(tok_mask[parent.clamp(min=0)][ok].sum())
-    b_ms, b_by = bound(
-        n_valid * MAXSIM_TOKENS * (MAXSIM_DIM * 2 + 1) + BATCH * RERANK_K * (8 + 4)
-        + BATCH * QUERY_TOKENS * (MAXSIM_DIM + 1) * 4,
-        2.0 * live_tokens * QUERY_TOKENS * MAXSIM_DIM,
-    )
-    log(f"maxsim_scores B={BATCH} K={RERANK_K} Td={MAXSIM_TOKENS} D={MAXSIM_DIM} Tq={QUERY_TOKENS}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    del tokens, tok_mask
-    torch.cuda.empty_cache()
-    return {
-        "name": "maxsim_scores", "route": "cuda",
+
+def check_maxsim(dev, gen):
+    """Both bodies (bf16 and int8 token stores) at the smoke shape and at the
+    default RAGConfig shape, 1M chunks' parents, cold L2. Returns one kernels-line
+    entry per body; the smoke shape's numbers are its main ones."""
+    from triple_hybrid_rag_tpu_torch.ops import maxsim as mx
+
+    maxsim_edge_sweep(dev, gen)
+    entries = {body: {
+        "name": "maxsim_scores" if body == "bf16" else "maxsim_scores_int8", "route": "cuda",
         "source": "triple_hybrid_rag_tpu_torch/csrc/maxsim.cu",
-        "replaces": "triple_hybrid_rag_tpu/ops/pallas/maxsim_kernel.py:67",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
-    }
+        "replaces": "triple_hybrid_rag_tpu/ops/pallas/maxsim_kernel.py:67", "library_ms": None,
+        "max_abs_err": 0.0} for body in ("bf16", "int8")}
+    for label, (td, d, tq) in MAXSIM_SHAPES.items():
+        tokens, tok_mask, parent, q, w = maxsim_inputs(dev, gen, BATCH, RERANK_K, N_PARENTS, td, d, tq)
+        ok = parent >= 0
+        n_valid = int(ok.sum())
+        live_tokens = int(tok_mask[parent.clamp(0, N_PARENTS - 1)][ok].sum())
+        for store in (tokens, mx.quantize_tokens(tokens)):
+            body = "int8" if store.dtype == torch.int8 else "bf16"
+            got = mx.maxsim_scores(store, tok_mask, parent, q, w)
+            want = mx.maxsim_scores_plain(store, tok_mask, parent, q, w)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            if not err <= MAXSIM_ATOL:
+                fail(f"maxsim_scores ({body} tokens, {label} shape) disagrees with its plain "
+                     f"version ({err})")
+            ms = time_ms(lambda: mx.maxsim_scores(store, tok_mask, parent, q, w), iters=50,
+                         cold_l2=True)
+            plain_ms = time_ms(lambda: mx.maxsim_scores_plain(store, tok_mask, parent, q, w),
+                               iters=20, cold_l2=True)
+            # each valid candidate's token block and mask once, the candidates' ids and
+            # scores, the queries and weights; one product per live doc token and query token
+            b_ms, b_by = bound(
+                n_valid * td * (d * store.element_size() + 1) + BATCH * RERANK_K * (8 + 4)
+                + BATCH * tq * (d + 1) * 4,
+                2.0 * live_tokens * tq * d,
+            )
+            log(f"maxsim_scores {body} tokens, {label} shape B={BATCH} K={RERANK_K} Td={td} D={d} "
+                f"Tq={tq}: max |kernel - plain| = {err:.3g}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            e = entries[body]
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            keys = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            e.update(keys if label == "smoke" else {f"{key}_{label}": v for key, v in keys.items()})
+            del store, got, want
+        del tokens, tok_mask
+        torch.cuda.empty_cache()
+    return list(entries.values())
+
+
+def time_f32_bodies(data):
+    """The f32-row bodies of the bucket maxima and of the dense scores (on no engine
+    path) timed at the serving shape; the f32 copy of the rows is freed at once."""
+    from triple_hybrid_rag_tpu_torch.ops import dense_kernel as dk
+    from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
+
+    n, q = data.n, data.q
+    e32 = data.emb.float()
+    nb = -(-n // 16)
+    ops = 2.0 * BATCH * n * DIM
+    out = {}
+    for name, fn, plain, out_bytes in (
+        ("fused_bucket_maxima", lambda: ft.bucket_maxima(e32, q, data.valid),
+         lambda: ft.bucket_maxima_plain(e32, q, data.valid), n + BATCH * nb * 4),
+        ("dense_scores", lambda: dk.dense_scores(e32, q), lambda: dk.dense_scores_plain(e32, q),
+         BATCH * n * 4),
+    ):
+        ms = time_ms(fn, iters=5, warmup=1)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        b_ms, b_by = bound(n * DIM * 4 + BATCH * DIM * 4 + out_bytes, ops, F32_FLOPS)
+        log(f"{name} f32 rows N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; bytes alone "
+            f"{(n * DIM * 4 + BATCH * DIM * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        out[name] = {"f32_rows_ms": ms, "f32_rows_plain_ms": plain_ms, "f32_rows_bound_ms": b_ms,
+                     "f32_rows_bound_by": b_by}
+    del e32
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -553,7 +656,6 @@ def main_path(dev, card):
     from triple_hybrid_rag_tpu_torch.config import RAGConfig
     from triple_hybrid_rag_tpu_torch.engine import Engine
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
     from triple_hybrid_rag_tpu_torch.synthetic import build_synthetic, make_query_texts
 
     cfg = RAGConfig(
@@ -583,7 +685,7 @@ def main_path(dev, card):
 
     # ---- the main path: counts set to 0 just before, read just after ----
     bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_scores.launches = 0
+    maxsim_counts_reset()
     hits = n_plain = n_graph = 0
     for lo in range(0, 2 * BATCH, BATCH):
         plans, out = eng.search_arrays(texts[lo:lo + BATCH])
@@ -598,7 +700,7 @@ def main_path(dev, card):
     res = eng.retrieve_batch(texts[2 * BATCH:3 * BATCH])
     torch.cuda.synchronize()
     launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
-                "maxsim_scores": maxsim_scores.launches}
+                "maxsim_scores": maxsim_body_launches("bf16", "bf16 rows", st)}
     frac = hits / max(n_plain, 1)
     log(f"self-retrieval: {hits}/{n_plain} plain queries have their row in the final "
         f"top-{cfg.final_top_k} ({frac:.4f}); {n_graph} of {2 * BATCH} queries used the graph")
@@ -670,8 +772,10 @@ def main_path(dev, card):
     run = Drive(syn, texts, rows, is_graph, dev)
     launches["dense_scores"] = dense_kernel_path(run, eng)
     launches["termtable_scores"] = termtable_path(run, eng, cfg)
+    launches["maxsim_scores_int8"] = 0
     for kind in ("int8", "int4"):
-        launches[f"fused_bucket_maxima_{kind}"] = quantized_path(run, cfg, kind)
+        launches[f"fused_bucket_maxima_{kind}"], n_int8 = quantized_path(run, cfg, kind)
+        launches["maxsim_scores_int8"] += n_int8
     log(f"peak device memory over the whole run {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches
 
@@ -774,9 +878,11 @@ def termtable_path(run, eng_sorted, cfg) -> int:
     log(f"term table {tuple(table_ids.shape)} built on the card in {time.time() - t0:.1f} s; "
         f"device GB {round(st_t.nbytes()['term_table'] / 1e9, 3)}")
     score_termtable_batch.launches = 0
+    maxsim_counts_reset()
     run.self_retrieval(eng, "termtable lexical backend")
     torch.cuda.synchronize()
     launches = score_termtable_batch.launches
+    maxsim_body_launches("bf16", "termtable lexical backend", st_t)
     log(f"termtable lexical backend: kernel launches {launches}")
     if launches < 1:
         fail("the term-table kernel was not launched")
@@ -801,16 +907,21 @@ def termtable_path(run, eng_sorted, cfg) -> int:
     return launches
 
 
-def quantized_path(run, cfg, kind: str) -> int:
+def quantized_path(run, cfg, kind: str):
+    """The int8 or packed-int4 rows with the int8 MaxSim token store, as the reference
+    stores it under both dtypes. Returns the launches of the bucket-maxima body and
+    of the int8 MaxSim body over this path."""
     from triple_hybrid_rag_tpu_torch.index import dense_index as di
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import quantize_tokens
 
     st = run.syn.state
     quantize = di.quantize_rows_int8 if kind == "int8" else di.quantize_rows_int4
     t0 = time.time()
     rows_q, scales = quantize(st.embeddings)
+    tokens_q = quantize_tokens(st.maxsim_tokens)
     torch.cuda.synchronize()
-    st_q = dataclasses.replace(st, embeddings=rows_q, dense_scales=scales)
+    st_q = dataclasses.replace(st, embeddings=rows_q, dense_scales=scales, maxsim_tokens=tokens_q)
     cfg_q = cfg.replace(embedding_dtype=kind)
     eng = run.engine(st_q, cfg_q)  # use_fused_topk=None: the kernel
     eng_x = run.engine(st_q, cfg_q.replace(use_fused_topk=False))
@@ -819,13 +930,17 @@ def quantized_path(run, cfg, kind: str) -> int:
     if not eng.use_fused() or eng_x.use_fused():
         fail("use_fused_topk=None must resolve to the kernel on CUDA, False to the unfused path")
     bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    maxsim_counts_reset()
     out_k = run.self_retrieval(eng, f"{kind} rows, kernel path")
     torch.cuda.synchronize()
     by_rows = dict(bucket_maxima.launches_by_rows)
+    n_int8 = maxsim_body_launches("int8", f"{kind} rows, kernel path", st_q)
     log(f"{kind} rows: kernel launches by row type {by_rows}")
     if by_rows[kind] < 1 or sum(by_rows.values()) != by_rows[kind]:
         fail(f"the {kind} kernel was not the one launched: {by_rows}")
+    maxsim_counts_reset()
     out_x = run.self_retrieval(eng_x, f"{kind} rows, use_fused_topk=False")
+    n_int8 += maxsim_body_launches("int8", f"{kind} rows, use_fused_topk=False", st_q)
     if bucket_maxima.launches_by_rows != by_rows:
         fail("the use_fused_topk=False path launched the fused kernel")
     # both dense paths give the same bits, so the whole program's ids must be equal
@@ -834,7 +949,27 @@ def quantized_path(run, cfg, kind: str) -> int:
     log(f"{kind} rows: final ids equal on both dense paths ({out_k[0].numel()} slots); max "
         f"final-score gap {float((out_k[1] - out_x[1]).abs().max()):.3g}")
     run.timing([("kernel dense path", eng), ("unfused dense path", eng_x)], f"{kind} rows")
-    return by_rows[kind]
+    return by_rows[kind], n_int8
+
+
+def maxsim_counts_reset() -> None:
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+
+    maxsim_scores.launches_by_tokens = dict.fromkeys(maxsim_scores.launches_by_tokens, 0)
+
+
+def maxsim_body_launches(body: str, label: str, state) -> int:
+    """The MaxSim launches by token dtype since the last reset: the configuration's
+    body must have run, and no other. Prints the token store's device GB."""
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+
+    by_tokens = dict(maxsim_scores.launches_by_tokens)
+    log(f"{label}: MaxSim launches by token store {by_tokens}; store {state.maxsim_tokens.dtype} "
+        f"{tuple(state.maxsim_tokens.shape)}, device GB {state.nbytes()['maxsim'] / 1e9:.4f} "
+        f"with the mask")
+    if by_tokens[body] < 1 or sum(by_tokens.values()) != by_tokens[body]:
+        fail(f"{label}: the {body} MaxSim body was not the one launched: {by_tokens}")
+    return by_tokens[body]
 
 
 def stage_profile(eng, args, label: str) -> float:
@@ -921,9 +1056,12 @@ def main() -> int:
     bucket_maxima_edge_sweep(dev, gen)
     kernels = [check_fused(data), check_int(data, "int8"), check_int(data, "int4")]
     dense = check_dense(data)
+    f32_bodies = time_f32_bodies(data)
     del data
     torch.cuda.empty_cache()
-    kernels += [check_maxsim(dev, gen), check_termtable(dev, gen), dense]
+    kernels += [*check_maxsim(dev, gen), check_termtable(dev, gen), dense]
+    for k in kernels:
+        k.update(f32_bodies.get(k["name"], {}))
     launches = main_path(dev, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -122,6 +122,7 @@ def test_engine_matches_sharded_engine(cfg, with_graph, fused, dtype):
         want = score(ret.dense_index.embeddings, ret.dense_index.scales, jnp.asarray(q_vec.numpy()))
         got = int_scores(rows, eng.state.dense_scales, *quantize_queries_int8(q_vec))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))  # bit-equal dense scores
+        assert eng.state.maxsim_tokens.dtype == torch.int8  # the reference's token store
 
     # B > graph_sparse_max_batch: the large-batch (dense graph) program
     assert len(QUERIES) > c.graph_sparse_max_batch
@@ -155,6 +156,28 @@ def test_engine_matches_sharded_engine(cfg, with_graph, fused, dtype):
         ref_eng.retrieve_batch([q], collection="a"), eng.retrieve_batch([q], collection="a"),
         atol=atol,
     )
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4", "bfloat16"])
+def test_maxsim_store_keeps_the_reference_dtype(cfg, dtype):
+    """The MaxSim token store arrives on the device in the reference's storage dtype:
+    int8 under int8 and int4 dense rows (never widened to bf16), bf16 otherwise, with
+    the reference's byte count; ids and refusals stay equal to ShardedEngine's."""
+    c = cfg.replace(embedding_dtype=dtype, graph_enabled=False)
+    ret = _retriever(c, False)
+    ref_tokens = np.asarray(ret.maxsim_index.tokens)
+    st = state_from_retriever(ret)
+    assert ref_tokens.dtype == (np.int8 if dtype != "bfloat16" else jnp.bfloat16)
+    assert st.maxsim_tokens.dtype == (torch.int8 if dtype != "bfloat16" else torch.bfloat16)
+    assert st.maxsim_tokens.shape == ref_tokens.shape
+    assert st.nbytes()["maxsim"] == ref_tokens.nbytes + np.asarray(ret.maxsim_index.mask).nbytes
+    if dtype != "bfloat16":
+        np.testing.assert_array_equal(st.maxsim_tokens.numpy(), ref_tokens)
+    ref_eng = ShardedEngine(ret, single_device_mesh())
+    eng = Engine(st, device="cpu")
+    _compare(ref_eng.retrieve_batch(QUERIES), eng.retrieve_batch(QUERIES))
+    for q in QUERIES[:3]:
+        _compare(ref_eng.retrieve_batch([q]), eng.retrieve_batch([q]))
 
 
 @pytest.mark.parametrize("backend", ["termtable", "postings"])

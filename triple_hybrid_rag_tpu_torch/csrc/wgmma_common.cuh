@@ -47,6 +47,27 @@ constexpr int kEncodeFailed = 100000;    // added to a CUresult of the tensor-ma
 
 // ------------------------------------------------------------------ host side
 
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched from libcuda once. Returns 0 or a cudaError_t.
+inline int tensor_map_encoder(TensorMapEncode* out) {
+  static TensorMapEncode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    encode = reinterpret_cast<TensorMapEncode>(fn);
+  }
+  *out = encode;
+  return 0;
+}
+
 // Tensor map of a K-major matrix of `rows` rows, `row_bytes` wide and `pitch_bytes`
 // apart (a multiple of 16, base 16-byte aligned), cut into boxes of `box_rows` rows
 // x 128 bytes with the 128-byte swizzle. Rows and bytes outside the matrix read as
@@ -55,20 +76,9 @@ constexpr int kEncodeFailed = 100000;    // added to a CUresult of the tensor-ma
 // kEncodeFailed + the encoder's CUresult.
 inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t row_bytes,
                            uint64_t pitch_bytes, uint32_t box_rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    encode = reinterpret_cast<Encode>(fn);
-  }
+  TensorMapEncode encode;
+  const int err = tensor_map_encoder(&encode);
+  if (err != 0) return err;
   const cuuint64_t dims[2] = {row_bytes, rows};  // innermost first
   const cuuint64_t strides[1] = {pitch_bytes};   // bytes between rows
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(kStageRowBytes), box_rows};

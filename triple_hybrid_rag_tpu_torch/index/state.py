@@ -24,7 +24,6 @@ from ..analyzer import Vocabulary
 from ..config import RAGConfig
 from ..models.entity_extractor import EntityStore
 from ..ops.bm25 import DOC_PAD, QUERY_PAD
-from ..ops.maxsim import dequantize_tokens
 from ..types import Entity
 
 
@@ -145,7 +144,7 @@ class IndexState:
     collection_of: torch.Tensor
     collection_ids: Dict[str, int]
     parent_of: torch.Tensor
-    maxsim_tokens: Optional[torch.Tensor]
+    maxsim_tokens: Optional[torch.Tensor]  # bf16|i8[P, Td, Dm]
     maxsim_mask: Optional[torch.Tensor]
     maxsim_calibration: float
     corpus: Any = None  # view with child_by_row / parent (decode)
@@ -311,7 +310,12 @@ class IndexState:
         )
         tokens = mask = None
         if "maxsim_tokens" in tt:
-            tokens = dequantize_tokens(tt["maxsim_tokens"]).to(torch.bfloat16).contiguous()
+            # an int8 store stays int8, as in the reference (the kernel dequantizes the
+            # gathered rows); float stores are scored in bf16
+            tokens = tt["maxsim_tokens"]
+            if tokens.dtype != torch.int8:
+                tokens = tokens.to(torch.bfloat16)
+            tokens = tokens.contiguous()
             mask = tt["maxsim_mask"].bool()
         return cls(
             config=cfg, device=dev, n_pad=n_pad,

@@ -7,9 +7,11 @@ The port of the JAX package's ``ops/maxsim.py`` and of its Pallas kernel
 
 over the unmasked doc tokens ``t`` of the candidate's parent, with both operands
 rounded to bf16 and f32 sums. Invalid candidates and parents without tokens score
-0. :func:`maxsim_scores` launches the hand-written kernel ``csrc/maxsim.cu`` on a
-CUDA tensor (it gathers the parents' token rows itself) and runs
-:func:`maxsim_scores_plain` on a CPU tensor.
+0. The token store is bf16 or int8 (``quantize_tokens``, the reference's
+``index/maxsim_index._pack_tokens`` rule), and int8 tokens are dequantized only
+as they are scored. :func:`maxsim_scores` launches the hand-written kernel
+``csrc/maxsim.cu`` on a CUDA tensor (it gathers the parents' token rows itself,
+with a bf16 and an int8 body) and runs :func:`maxsim_scores_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ from __future__ import annotations
 import torch
 
 INT8_TOKEN_SCALE = 127.0
-_MAX_QUERY_TOKENS = 128  # the kernel's block width
+_MAX_QUERY_TOKENS = 128  # the kernel's query tile
+_BODIES = {torch.bfloat16: "bf16", torch.int8: "int8"}  # token dtype -> kernel body
 
 
 def calibrate_maxsim(scores: torch.Tensor, calibration: float) -> torch.Tensor:
@@ -26,6 +29,13 @@ def calibrate_maxsim(scores: torch.Tensor, calibration: float) -> torch.Tensor:
     if calibration >= 1.0 or calibration <= 0.0:
         return scores
     return torch.clamp(scores * (1.0 / calibration), 0.0, 1.0)
+
+
+def quantize_tokens(tokens: torch.Tensor) -> torch.Tensor:
+    """Unit-vector token rows -> int8 ``clip(round(x * 127), -127, 127)`` (the
+    reference's int8 token store; the scale is static, no per-row scales)."""
+    x = torch.round(tokens.float() * INT8_TOKEN_SCALE)
+    return torch.clamp(x, -INT8_TOKEN_SCALE, INT8_TOKEN_SCALE).to(torch.int8)
 
 
 def dequantize_tokens(tokens: torch.Tensor) -> torch.Tensor:
@@ -63,8 +73,9 @@ def maxsim_scores_plain(
 def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
     from ..kernels.build import check, load
 
-    if tokens.dtype != torch.bfloat16:
-        raise TypeError("the MaxSim kernel takes a bf16 token store (dequantize int8 first)")
+    body = _BODIES.get(tokens.dtype)
+    if body is None:
+        raise TypeError(f"the MaxSim kernel takes a bf16 or int8 token store, not {tokens.dtype}")
     p_rows, td, d = tokens.shape
     b, k = parent_ids.shape
     tq = q_tokens.shape[1]
@@ -74,7 +85,10 @@ def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
         raise ValueError(f"at most {_MAX_QUERY_TOKENS} query tokens")
     dev = tokens.device
     tok = tokens.contiguous()
-    msk = tok_mask.to(torch.uint8).contiguous()
+    msk = tok_mask.contiguous()
+    msk = msk.view(torch.uint8) if msk.dtype == torch.bool else msk.to(torch.uint8)
+    if msk.data_ptr() % 4:  # the kernel copies the mask as aligned words
+        msk = msk.clone()
     pid = parent_ids.to(torch.int64).contiguous()
     q = q_tokens.float().contiguous()
     w = q_weights.float().contiguous()
@@ -84,13 +98,18 @@ def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b * k == 0:
         return out
-    err = load("maxsim").maxsim_scores_bf16(
+    # TMA takes rows of 16-byte multiples from a 16-byte aligned store; else plain loads
+    tma_rows = int((d * tok.element_size()) % 16 == 0 and tok.data_ptr() % 16 == 0)
+    fn = f"maxsim_scores_{body}"
+    err = getattr(load("maxsim"), fn)(
         tok.data_ptr(), msk.data_ptr(), pid.data_ptr(), q.data_ptr(), w.data_ptr(),
-        out.data_ptr(), p_rows, td, d, tq, b * k, k,
+        out.data_ptr(), p_rows, td, d, tq, b, k, tma_rows,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    check(err, "maxsim_scores_bf16")
-    maxsim_scores.launches += 1
+    if err == -1:
+        raise ValueError(f"MaxSim shape Tq={tq} D={d} does not fit the kernel's shared memory")
+    check(err, fn)
+    maxsim_scores.launches_by_tokens[body] += 1
     return out
 
 
@@ -108,4 +127,5 @@ def maxsim_scores(
     return maxsim_scores_plain(tokens, tok_mask, parent_ids, q_tokens, q_weights)
 
 
-maxsim_scores.launches = 0  # kernel launches (CUDA tensors only)
+# kernel launches by token dtype (CUDA tensors only)
+maxsim_scores.launches_by_tokens = dict.fromkeys(_BODIES.values(), 0)

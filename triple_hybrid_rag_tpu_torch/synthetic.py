@@ -11,7 +11,8 @@ two mentions per chunk. Self-retrieval (a document's own terms as the query) is
 therefore a real end-to-end check.
 
 The configuration picks the layouts: ``embedding_dtype`` "int8" / "int4" quantizes
-the bf16 rows on the device, and ``lexical_backend`` "termtable" / "postings"
+the bf16 rows on the device and stores the MaxSim tokens as int8 (as ``bench.py``
+does), and ``lexical_backend`` "termtable" / "postings"
 places the doc-major term table (:func:`build_term_table`) instead of the postings.
 """
 
@@ -31,6 +32,7 @@ from .index.state import IndexState
 from .models.embedder import BowHashEmbedder
 from .models.entity_extractor import canonical_key
 from .ops.bm25 import DOC_PAD
+from .ops.maxsim import quantize_tokens
 from .types import Entity
 
 L_DOC = 64  # terms per document
@@ -191,7 +193,11 @@ def build_synthetic(
     p_pad = cfg.round_capacity(n_parents)
     parent_terms = torch.zeros((p_pad, td), dtype=torch.long, device=dev)
     parent_terms[:n_parents] = term_ids[: CHILDREN_PER_PARENT * n_parents : CHILDREN_PER_PARENT, :td].long()
-    tokens = mdirs[parent_terms].to(torch.bfloat16)
+    tokens = mdirs[parent_terms]
+    if cfg.embedding_dtype in ("int8", "int4"):  # MaxSim tokens stay int8 under int4 dense
+        tokens = quantize_tokens(tokens)
+    else:
+        tokens = tokens.to(torch.bfloat16)
     tok_mask = (torch.arange(p_pad, device=dev) < n_parents)[:, None].expand(p_pad, td).contiguous()
     del parent_terms, mdirs
     parent_of = (torch.arange(n_pad, device=dev) // CHILDREN_PER_PARENT).to(torch.int32)
