@@ -6,27 +6,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``triple_hybrid_rag_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in parallel);
 2. holds each kernel against its plain PyTorch version at the serving shapes
    (fused dense bucket maxima: N = 1,000,448 rows of width 1024 in bf16, int8 and
-   packed int4, B = 128, scoped and unscoped; dense scores on the same rows;
-   MaxSim, its bf16 and its int8 token-store bodies: B = 128 x K = 50 candidates
-   over 200,704 parents at the smoke run's shape (32 doc tokens of width 64, 16
-   query tokens) and at the default RAGConfig's (64 x 128, 32); term-table BM25:
-   a 1,000,448 x 128 table, 128 queries of 16 slots) and times kernel, plain
-   version and, where one exists, the library call, and times the f32-row bodies
-   of the bucket maxima and of the dense scores (on no engine path); the
-   persistent kernels (int8 and int4 bucket maxima, dense scores, term table) and
-   both MaxSim bodies are also held against their plain versions over a list of
-   small and ragged shapes, the quantized bucket maxima bit for bit;
+   packed int4, B = 128, scoped and unscoped; dense scores on the same rows; both
+   f32-row bodies (bucket maxima and dense scores) on random f32 unit rows of the
+   same shape, at B = 128 and B = 1; MaxSim, its bf16 and its int8 token-store
+   bodies: B = 128 x K = 50 candidates over 200,704 parents at the smoke run's
+   shape (32 doc tokens of width 64, 16 query tokens) and at the default
+   RAGConfig's (64 x 128, 32); term-table BM25: a 1,000,448 x 128 table, 128
+   queries of 16 slots) and times kernel, plain version and, where one exists, the
+   library call; every kernel body but the bf16 bucket maxima is also held against
+   its plain version over a list of small and ragged shapes, the quantized bucket
+   maxima bit for bit;
 3. drives the port's main path: the batched three-channel query program over a
    synthetic 1M-chunk corpus built on the card (the construction of ``bench.py``),
    through ``Engine.search_arrays`` and ``Engine.retrieve_batch``; checks
    self-retrieval, that both kernels were launched, the B=1 programs, and the
    bucketed matmul path against the kernel path. Then, on the same corpus, the
-   further configurations: int8 rows and packed-int4 rows (quantized on the card,
-   with the int8 MaxSim token store the reference keeps under both; kernel path
-   and unfused path must return equal ids), the term-table lexical backend, and a
-   dense channel through the dense-scores kernel. Each must self-retrieve, must
-   have launched its kernel and only its configuration's MaxSim body, and prints
-   its MaxSim store's device GB.
+   further configurations: float32 rows (the documents' rows unrounded; kernel
+   path and unfused path must return equal ids up to near ties, and a dense
+   channel through the f32 dense scores), int8 rows and packed-int4 rows
+   (quantized on the card, with the int8 MaxSim token store the reference keeps
+   under both; kernel path and unfused path must return equal ids), the term-table
+   lexical backend, and a dense channel through the dense-scores kernel. Each must
+   self-retrieve, must have launched its kernel and only its configuration's
+   bucket-maxima and MaxSim bodies, and prints its MaxSim store's device GB.
 
 Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches, error and times; the last line is
@@ -61,6 +63,16 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, same source
 F32_FLOPS = 67e12  # f32 outside the tensor cores, same source
 FUSED_ATOL = 1e-4  # unit rows, f32 sums in another order than the plain matmul
+# f32 rows: f32 sums of D products of unit vectors in another order than the plain
+# f32 matmul's, a few 1e-6 at D = 1024; held to FUSED_ATOL as well
+F32_ATOL = FUSED_ATOL
+# (n, d, b) of the f32-row edge sweep (bucket maxima scoped and unscoped, dense
+# scores): one row, rows short of a bucket, short of a 256-row tile, odd n, more
+# tiles than the card has SMs; one query, 5, 16 (the 16-query tile), 17, 128, 129
+# and 257 (the 128-query tile, one and more tiles of 128); widths of 8, 72, 1024
+# and 1028 (not a multiple of the 16-column stage)
+F32_EDGE_SHAPES = [(1, 8, 1), (15, 72, 5), (255, 1028, 16), (257, 1024, 17), (999, 72, 128),
+                   (4097, 1024, 129), (40001, 8, 257), (20005, 1028, 1), (70000, 1024, 5)]
 # (n, d, b) of the dense-scores edge sweep: rows and queries short of a tile, odd n
 # (scalar stores), more than one query tile, widths short of and across a stage
 DENSE_EDGE_SHAPES = [(1, 64, 1), (77, 64, 3), (127, 64, 1), (999, 1024, 128), (1000, 1024, 130),
@@ -229,15 +241,6 @@ def check_fused(data):
         log(f"fused_dense_topk ids vs bucketed matmul path: {n_diff} of {ids_k.numel()} "
             f"slots differ, all at near ties (atol {FUSED_ATOL})")
 
-    # the float32-row variant (not on the serving path), on a slice of the rows
-    e32 = emb[:65536].float()
-    e = max_err(ft.bucket_maxima(e32, q, valid[:65536], coll[:65536], cid),
-                ft.bucket_maxima_plain(e32, q, valid[:65536], coll[:65536], cid))
-    log(f"fused_bucket_maxima f32 rows (N=65536, scoped): max |kernel - plain| = {e:.3g}")
-    if not e <= FUSED_ATOL:
-        fail(f"fused_bucket_maxima (f32 rows) disagrees with its plain version ({e})")
-    del e32
-
     ms = time_ms(lambda: ft.bucket_maxima(emb, q, valid))
     plain_ms = time_ms(lambda: ft.bucket_maxima_plain(emb, q, valid), iters=3, warmup=1)
     matmul_ms = time_ms(lambda: dense_scores_batch(emb, q))
@@ -399,12 +402,6 @@ def check_dense(data):
     if not err <= FUSED_ATOL:
         fail(f"dense_scores disagrees with its plain version ({err})")
     del got, want
-    e32 = emb[:65536].float()
-    e = max_err(dk.dense_scores(e32, q), dk.dense_scores_plain(e32, q))
-    log(f"dense_scores f32 rows (N=65536): max |kernel - plain| = {e:.3g}")
-    if not e <= FUSED_ATOL:
-        fail(f"dense_scores (f32 rows) disagrees with its plain version ({e})")
-    del e32
     ms = time_ms(lambda: dk.dense_scores(emb, q))
     plain_ms = time_ms(lambda: dk.dense_scores_plain(emb, q))
     q16 = q.to(torch.bfloat16)
@@ -619,34 +616,110 @@ def check_maxsim(dev, gen):
     return list(entries.values())
 
 
-def time_f32_bodies(data):
-    """The f32-row bodies of the bucket maxima and of the dense scores (on no engine
-    path) timed at the serving shape; the f32 copy of the rows is freed at once."""
+def unit_rows(n: int, d: int, gen, dev, dtype=torch.float32) -> torch.Tensor:
+    """Random unit rows with full f32 mantissas (then cast to ``dtype``)."""
+    x = torch.randn((n, d), generator=gen, device=dev)
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype)
+
+
+def f32_edge_sweep(dev, gen):
+    """Both f32-row bodies against their plain versions at F32_EDGE_SHAPES (the
+    bucket maxima unscoped and scoped, and once with every row invalid)."""
     from triple_hybrid_rag_tpu_torch.ops import dense_kernel as dk
     from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
 
-    n, q = data.n, data.q
-    e32 = data.emb.float()
+    worst, cases = 0.0, 0
+    for n, d, b in F32_EDGE_SHAPES:
+        rows, q = unit_rows(n, d, gen, dev), unit_rows(b, d, gen, dev)
+        valid = torch.rand(n, generator=gen, device=dev) > 0.1
+        coll = torch.randint(0, 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+        cid = torch.tensor([-1, 0, 1, 2, -2], dtype=torch.int32, device=dev).repeat(b // 5 + 1)[:b]
+        masks = [(valid, None, None), (valid, coll, cid)]
+        if (n, d, b) == F32_EDGE_SHAPES[3]:
+            masks.append((torch.zeros_like(valid), coll, cid))
+        for v, c, k in masks:
+            got = ft.bucket_maxima(rows, q, v, c, k)
+            torch.cuda.synchronize()
+            e = max_err(got, ft.bucket_maxima_plain(rows, q, v, c, k))
+            if got.shape != (b, -(-n // 16)) or not e <= F32_ATOL:
+                fail(f"fused_bucket_maxima f32 rows N={n} D={d} B={b} "
+                     f"{'scoped' if c is not None else 'unscoped'} disagrees with its plain "
+                     f"version ({e})")
+            if not bool(v.any()) and not bool(torch.isinf(got).all()):
+                fail("fused_bucket_maxima f32 rows: invalid rows must give -inf")
+            worst, cases = max(worst, e), cases + 1
+        got = dk.dense_scores(rows, q)
+        torch.cuda.synchronize()
+        e = max_err(got, dk.dense_scores_plain(rows, q))
+        if got.shape != (b, n) or not e <= F32_ATOL:
+            fail(f"dense_scores f32 rows N={n} D={d} B={b} disagrees with its plain version ({e})")
+        worst, cases = max(worst, e), cases + 1
+    log(f"f32-row edge sweep: {len(F32_EDGE_SHAPES)} shapes (N, D, B) {F32_EDGE_SHAPES}, bucket "
+        f"maxima unscoped, scoped and all rows invalid, and dense scores: {cases} cases agree "
+        f"with the plain versions within {F32_ATOL} (worst {worst:.3g})")
+
+
+def check_f32(data, dev, gen):
+    """The f32-row bodies of the bucket maxima and of the dense scores on random f32
+    unit rows at N = 1,000,448: held against their plain versions, timed at
+    B = 128 (with the plain version and, for the dense scores, f32 ``torch.mm``) and
+    at B = 1 (the 16-query tile) against their bounds. The rows are freed at once."""
+    from triple_hybrid_rag_tpu_torch.ops import dense_kernel as dk
+    from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
+
+    f32_edge_sweep(dev, gen)
+    n, q, valid = data.n, data.q, data.valid
+    e32 = unit_rows(n, DIM, gen, dev)
     nb = -(-n // 16)
-    ops = 2.0 * BATCH * n * DIM
     out = {}
-    for name, fn, plain, out_bytes in (
-        ("fused_bucket_maxima", lambda: ft.bucket_maxima(e32, q, data.valid),
-         lambda: ft.bucket_maxima_plain(e32, q, data.valid), n + BATCH * nb * 4),
-        ("dense_scores", lambda: dk.dense_scores(e32, q), lambda: dk.dense_scores_plain(e32, q),
-         BATCH * n * 4),
+    for scoped in (False, True):
+        c, k = (data.coll, data.cid) if scoped else (None, None)
+        got = ft.bucket_maxima(e32, q, valid, c, k)
+        torch.cuda.synchronize()
+        e = max_err(got, ft.bucket_maxima_plain(e32, q, valid, c, k))
+        log(f"fused_bucket_maxima f32 rows {'scoped' if scoped else 'unscoped'} N={n}: "
+            f"max |kernel - plain| = {e:.3g}")
+        if not e <= F32_ATOL:
+            fail(f"fused_bucket_maxima (f32 rows) disagrees with its plain version ({e})")
+        out["fused_bucket_maxima"] = max(out.get("fused_bucket_maxima", 0.0), e)
+        del got
+    got = dk.dense_scores(e32, q)
+    torch.cuda.synchronize()
+    e = max_err(got, dk.dense_scores_plain(e32, q))
+    log(f"dense_scores f32 rows N={n}: max |kernel - plain| = {e:.3g}")
+    if not e <= F32_ATOL:
+        fail(f"dense_scores (f32 rows) disagrees with its plain version ({e})")
+    out["dense_scores"] = e
+    del got
+    torch.cuda.empty_cache()
+
+    entries = {}
+    q1 = q[:1]
+    for name, fn, plain, library, out_bytes in (
+        ("fused_bucket_maxima", lambda x: ft.bucket_maxima(e32, x, valid),
+         lambda x: ft.bucket_maxima_plain(e32, x, valid), None, lambda b: n + b * nb * 4),
+        ("dense_scores", lambda x: dk.dense_scores(e32, x), lambda x: dk.dense_scores_plain(e32, x),
+         lambda x: torch.mm(x, e32.T), lambda b: b * n * 4),
     ):
-        ms = time_ms(fn, iters=5, warmup=1)
-        plain_ms = time_ms(plain, iters=3, warmup=1)
-        b_ms, b_by = bound(n * DIM * 4 + BATCH * DIM * 4 + out_bytes, ops, F32_FLOPS)
-        log(f"{name} f32 rows N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}; bytes alone "
-            f"{(n * DIM * 4 + BATCH * DIM * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
-        out[name] = {"f32_rows_ms": ms, "f32_rows_plain_ms": plain_ms, "f32_rows_bound_ms": b_ms,
-                     "f32_rows_bound_by": b_by}
+        ms = time_ms(lambda: fn(q), iters=5, warmup=1)
+        plain_ms = time_ms(lambda: plain(q), iters=3, warmup=1)
+        library_ms = time_ms(lambda: library(q), iters=5, warmup=1) if library else None
+        b1_ms = time_ms(lambda: fn(q1), iters=5, warmup=1)
+        moved = n * DIM * 4 + BATCH * DIM * 4 + out_bytes(BATCH)
+        b_ms, b_by = bound(moved, 2.0 * BATCH * n * DIM, F32_FLOPS)
+        b1_bound, b1_by = bound(n * DIM * 4 + DIM * 4 + out_bytes(1), 2.0 * n * DIM, F32_FLOPS)
+        lib = f", f32 torch.mm {library_ms:.4f} ms" if library else ""
+        log(f"{name} f32 rows N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"{lib}, bound {b_ms:.4f} ms ({b_by}; bytes alone {moved / HBM_BYTES_PER_S * 1e3:.4f} ms,"
+            f" {b_ms / ms:.3f} of the bound); B=1: kernel {b1_ms:.4f} ms, bound {b1_bound:.4f} ms "
+            f"({b1_by}, {b1_bound / b1_ms:.3f} of it)")
+        entries[name] = {"f32_rows_ms": ms, "f32_rows_plain_ms": plain_ms,
+                         "f32_rows_library_ms": library_ms, "f32_rows_bound_ms": b_ms,
+                         "f32_rows_bound_by": b_by, "f32_rows_b1_ms": b1_ms,
+                         "f32_rows_b1_bound_ms": b1_bound, "f32_rows_max_abs_err": out[name]}
     del e32
     torch.cuda.empty_cache()
-    return out
+    return entries
 
 
 # ---------------------------------------------------------------- phase 3
@@ -771,6 +844,7 @@ def main_path(dev, card):
     # ---- the further configurations, on the same corpus ----
     run = Drive(syn, texts, rows, is_graph, dev)
     launches["dense_scores"] = dense_kernel_path(run, eng)
+    launches["f32_rows"] = dict(zip(("fused_bucket_maxima", "dense_scores"), f32_path(run, cfg)))
     launches["termtable_scores"] = termtable_path(run, eng, cfg)
     launches["maxsim_scores_int8"] = 0
     for kind in ("int8", "int4"):
@@ -853,12 +927,63 @@ def dense_kernel_path(run, eng) -> int:
     plain = [i for i in range(BATCH) if not run.is_graph[i]]
     found = ids.cpu().numpy()
     hits = sum(int(run.rows[i] in found[i]) for i in plain)
-    log(f"dense channel through dense_scores: {n_diff} of {ids.numel()} slots differ from the "
+    log(f"dense channel through dense_scores ({str(st.embeddings.dtype)[6:]} rows): {n_diff} of "
+        f"{ids.numel()} slots differ from the "
         f"engine's dense channel, all at near ties (atol {FUSED_ATOL}); {hits}/{len(plain)} plain "
         f"queries have their row in the dense top-{ids.shape[1]}; launches {launches}")
     if launches < 1 or hits < 0.95 * len(plain):
         fail("dense-scores path: kernel not launched or rows not retrieved")
     return launches
+
+
+def f32_path(run, cfg):
+    """The float32 configuration on the same corpus: the documents' rows kept in
+    f32 (synthetic.document_rows, unrounded, as the reference's dense index stores
+    them), served by the f32 bucket maxima (use_fused_topk=None) and by the f32
+    matmul and bucketed top-k (False); then a dense channel through the f32
+    dense-scores body. Returns the launches of both f32 bodies on this path."""
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+    from triple_hybrid_rag_tpu_torch.synthetic import document_rows
+
+    st = run.syn.state
+    t0 = time.time()
+    rows = document_rows(torch.from_numpy(run.syn.term_ids).to(run.dev), run.syn.embedder,
+                         torch.float32)
+    torch.cuda.synchronize()
+    if not torch.equal(rows.to(torch.bfloat16), st.embeddings):
+        fail("the f32 rows do not round to the bf16 configuration's rows")
+    st_f = dataclasses.replace(st, embeddings=rows)
+    cfg_f = cfg.replace(embedding_dtype="float32")
+    eng = run.engine(st_f, cfg_f)  # use_fused_topk=None: the kernel
+    eng_x = run.engine(st_f, cfg_f.replace(use_fused_topk=False))
+    log(f"f32 rows {tuple(rows.shape)} built on the card in {time.time() - t0:.1f} s; device GB "
+        f"{round(st_f.nbytes()['embeddings'] / 1e9, 3)}")
+    if not eng.use_fused() or eng_x.use_fused():
+        fail("use_fused_topk=None must resolve to the kernel on CUDA, False to the unfused path")
+    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    maxsim_counts_reset()
+    out_k = run.self_retrieval(eng, "f32 rows, kernel path")
+    torch.cuda.synchronize()
+    by_rows = dict(bucket_maxima.launches_by_rows)
+    maxsim_body_launches("bf16", "f32 rows, kernel path", st_f)
+    log(f"f32 rows: kernel launches by row type {by_rows}")
+    if by_rows["f32"] < 1 or sum(by_rows.values()) != by_rows["f32"]:
+        fail(f"the f32 kernel was not the one launched: {by_rows}")
+    out_x = run.self_retrieval(eng_x, "f32 rows, use_fused_topk=False")
+    if bucket_maxima.launches_by_rows != by_rows:
+        fail("the use_fused_topk=False path launched the fused kernel")
+    # f32 sums in two orders: the ids may differ only where scores nearly tie
+    n_diff = near_ties_only(out_k[0], out_x[0], out_x[1], F32_ATOL)
+    if n_diff < 0:
+        fail("f32 rows: the kernel path and the unfused path differ beyond near ties")
+    log(f"f32 rows: {n_diff} of {out_k[0].numel()} final slots differ between the dense paths, "
+        f"all at near ties (atol {F32_ATOL}); max final-score gap "
+        f"{float((out_k[1] - out_x[1]).abs().max()):.3g}")
+    run.timing([("kernel dense path", eng), ("unfused dense path", eng_x)], "f32 rows")
+    dense_launches = dense_kernel_path(run, eng)
+    del eng, eng_x, st_f, rows
+    torch.cuda.empty_cache()
+    return by_rows["f32"], dense_launches
 
 
 def termtable_path(run, eng_sorted, cfg) -> int:
@@ -1056,7 +1181,7 @@ def main() -> int:
     bucket_maxima_edge_sweep(dev, gen)
     kernels = [check_fused(data), check_int(data, "int8"), check_int(data, "int4")]
     dense = check_dense(data)
-    f32_bodies = time_f32_bodies(data)
+    f32_bodies = check_f32(data, dev, gen)
     del data
     torch.cuda.empty_cache()
     kernels += [*check_maxsim(dev, gen), check_termtable(dev, gen), dense]
@@ -1065,6 +1190,8 @@ def main() -> int:
     launches = main_path(dev, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in launches["f32_rows"]:
+            k["f32_rows_launches"] = launches["f32_rows"][k["name"]]
     log(f"total wall time {time.time() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -34,19 +34,22 @@
 // scores agree with the plain version to rounding (1e-4 on unit rows), not bit
 // for bit.
 //
-// The float32 variant keeps full f32 products (plain FMAs) in a 64 x 64 tile of
-// csrc/tile_common.cuh; f32 rows are not a serving format.
+// f32 rows (embedding_dtype "float32", which the reference stores unrounded):
+// `dense_scores_f32_kernel` on csrc/simt_f32.cuh, full f32 FMAs. What bounds it
+// at B = 128 is the FMA issue rate (3.91 ms at 67 TFLOP/s against 1.38 ms of
+// bytes); at B = 1 the 4.1 GB of rows (1.22 ms). Tiles of 128 rows x 128 queries
+// (16 x 8 sums a thread) or, for B <= 16, 256 rows x 16 queries (4 x 4); the caller picks
+// the width (`q_tile`). Each thread stores its four adjacent rows of one query as
+// one 16-byte piece of out[b, :] (scalar stores where N is not a multiple of 4).
 //
 // Interface: plain C, bound with ctypes. Every function launches on the given
 // stream and returns 0, a cudaError_t (cudaGetLastError() after the launch), or
 // hopper::kEncodeFailed plus the encoder's CUresult when a tensor map was refused.
 
-#include "tile_common.cuh"
+#include "simt_f32.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
-
-using namespace tile;
 
 constexpr int kTileQueries = 128;  // two consumer warpgroups of 64
 constexpr int kTileRows = 256;     // corpus rows: the N of one wgmma
@@ -116,26 +119,55 @@ dense_scores_bf16_kernel(const __grid_constant__ CUtensorMap map_q,     // [b, d
   }
 }
 
-__global__ void __launch_bounds__(kThreadsF32)
+template <int kQ>
+__global__ void __launch_bounds__(simt::Shape<kQ>::kThreads, simt::Shape<kQ>::kMinBlocks)
 dense_scores_f32_kernel(const float* __restrict__ emb, const float* __restrict__ qv,
                         float* __restrict__ out, int n, int d, int b) {
-  __shared__ SmemF32 sm;
-  const int tx = threadIdx.x & 15;  // queries tx*4 .. tx*4+3
-  const int ty = threadIdx.x >> 4;  // rows ty*4 .. ty*4+3
-  const int row0 = blockIdx.x * FM;
-  const int q0 = blockIdx.y * FN;
-  float acc[4][4];
-  mainloop_f32(emb, qv, n, d, b, row0, q0, sm, acc);
+  using T = simt::Tile<kQ>;
+  extern __shared__ float4 f32_smem[];
+  const bool vec = (n & 3) == 0;  // 16-byte stores stay aligned in every score row
+  simt::run<kQ>(emb, qv, n, d, b, reinterpret_cast<float*>(f32_smem),
+                [&](auto& acc, const auto& p, int row0, int q0, float*) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int q = q0 + tx * 4 + j;
-    if (q >= b) continue;
+    for (int c = 0; c < T::kTN; ++c) {
+      const int q = q0 + p.query(c);
+      if (q >= b) continue;
+      float* dst = out + (size_t)q * n;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty * 4 + i;
-      if (r < n) out[(size_t)q * n + r] = acc[i][j];
+      for (int g = 0; g < T::kRowGroups; ++g) {
+        const int r = row0 + p.row(4 * g);
+        const float4 v = make_float4(acc[4 * g][c], acc[4 * g + 1][c], acc[4 * g + 2][c],
+                                     acc[4 * g + 3][c]);
+        if (vec && r < n) {
+          __stcs(reinterpret_cast<float4*>(dst + r), v);
+        } else {
+          if (r < n) __stcs(dst + r, v.x);
+          if (r + 1 < n) __stcs(dst + r + 1, v.y);
+          if (r + 2 < n) __stcs(dst + r + 2, v.z);
+          if (r + 3 < n) __stcs(dst + r + 3, v.w);
+        }
+      }
+    }
+  });
+}
+
+template <int kQ>
+int launch_dense_f32(const void* emb, const void* q, void* out, int n, int d, int b,
+                     cudaStream_t stream) {
+  using T = simt::Tile<kQ>;
+  static int cap = 0;  // resident blocks of this width
+  if (cap == 0) {
+    const cudaError_t err =
+        simt::resident_blocks(dense_scores_f32_kernel<kQ>, T::kThreads, T::kSmemBytes, &cap);
+    if (err != cudaSuccess) {
+      cap = 0;
+      return static_cast<int>(err);
     }
   }
+  dense_scores_f32_kernel<kQ><<<simt::grid_size<kQ>(n, b, cap), T::kThreads, T::kSmemBytes, stream>>>(
+      static_cast<const float*>(emb), static_cast<const float*>(q), static_cast<float*>(out),
+      n, d, b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -172,13 +204,15 @@ int dense_scores_bf16(const void* emb, const void* q, void* out, int n, int d, i
   return static_cast<int>(cudaGetLastError());
 }
 
-int dense_scores_f32(const void* emb, const void* q, void* out, int n, int d, int b,
+// f32 rows [n, d] (d a multiple of 4), f32 queries [b, d]; q_tile (16 or 128) is
+// the query-tile width, which the caller picks from b
+int dense_scores_f32(const void* emb, const void* q, void* out, int n, int d, int b, int q_tile,
                      void* stream) {
-  dim3 grid((n + FM - 1) / FM, (b + FN - 1) / FN);
-  dense_scores_f32_kernel<<<grid, kThreadsF32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(emb), static_cast<const float*>(q), static_cast<float*>(out),
-      n, d, b);
-  return static_cast<int>(cudaGetLastError());
+  if (n <= 0 || b <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_tile == 16) return launch_dense_f32<16>(emb, q, out, n, d, b, s);
+  if (q_tile == 128) return launch_dense_f32<128>(emb, q, out, n, d, b, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

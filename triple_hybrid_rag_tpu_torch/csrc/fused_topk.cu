@@ -75,13 +75,27 @@
 //
 // bf16 rows: one block owns a tile of 128 rows and 128 queries
 // (csrc/tile_common.cuh: cp.async in two stages, mma.sync, f32 sums in registers);
-// the 16-row bucket is one m16 tile of a warp. f32 rows (not a serving format):
-// plain FMAs in a 64 x 64 tile.
+// the 16-row bucket is one m16 tile of a warp.
+//
+// f32 rows (embedding_dtype "float32": the reference keeps its rows unrounded, and
+// Engine serves them through this body): csrc/simt_f32.cuh, full f32 FMAs, no
+// TF32. What bounds it at B = 128 is the FMA issue rate (3.91 ms at 67 TFLOP/s
+// against 1.23 ms of bytes), at B = 1 the 4.1 GB of rows. Tiles of 128 rows x 128
+// queries or, for B <= 16, 256 rows x 16 queries (the caller picks `q_tile`), on a
+// persistent grid. Epilogue in registers: a thread masks its scores (validity and
+// collection, as masked()) and takes the max over its four rows of each bucket;
+// the four threads that share a bucket are lanes kTxLanes and 2 kTxLanes apart,
+// and two half-exchanges leave each with the bucket's maxima of a quarter of its
+// queries (one group of four rows at a time, to keep registers for the main loop).
+// A tile's maxima ([bucket][query], 4 KB at most, in the row stage just consumed)
+// go through shared memory only to leave as 16-byte stores of four buckets of a
+// query.
 //
 // Interface: plain C, bound with ctypes. Every function launches on the given
 // stream and returns 0, a cudaError_t (cudaGetLastError() after the launch), or
 // hopper::kEncodeFailed plus the encoder's CUresult when a tensor map was refused.
 
+#include "simt_f32.cuh"
 #include "tile_common.cuh"
 #include "wgmma_common.cuh"
 
@@ -209,16 +223,16 @@ struct RowMeta {
 };
 
 // v[i] = max(v[i], the partner lane's v[i]) for the half of v[0 .. 2 kHalf) that this
-// lane keeps (the upper half if its bit kHalf is set), handing the other half to
-// the partner, lane ^ kHalf. The kept half ends in v[0 .. kHalf).
-template <int kHalf>
-__device__ __forceinline__ void max_exchange(float (&v)[32], int lane) {
-  const bool upper = (lane & kHalf) != 0;
+// lane keeps (the upper half if its bit kBit is set), handing the other half to
+// the partner, lane ^ kBit. The kept half ends in v[0 .. kHalf).
+template <int kHalf, int kBit = kHalf, int kV>
+__device__ __forceinline__ void max_exchange(float (&v)[kV], int lane) {
+  const bool upper = (lane & kBit) != 0;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
     const float send = upper ? v[i] : v[i + kHalf];
     const float keep = upper ? v[i + kHalf] : v[i];
-    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, kHalf));
+    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, kBit));
   }
 }
 
@@ -403,36 +417,89 @@ bucket_max_int_kernel(const __grid_constant__ CUtensorMap map_rows,  // [n, row 
 }
 
 // ---------------------------------------------------------------- f32 rows
-__global__ void __launch_bounds__(kThreadsF32)
+template <int kQ>
+__global__ void __launch_bounds__(simt::Shape<kQ>::kThreads, simt::Shape<kQ>::kMinBlocks)
 bucket_max_f32_kernel(const float* __restrict__ emb, const float* __restrict__ qv, Masks m,
                       float* __restrict__ out, int n, int d, int b, int nb) {
-  __shared__ SmemF32 sm;
-  __shared__ float S[FM][FN + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // queries tx*4 .. tx*4+3
-  const int ty = tid >> 4;  // rows ty*4 .. ty*4+3
-  const int row0 = blockIdx.x * FM;
-  const int q0 = blockIdx.y * FN;
-
-  float acc[4][4];
-  mainloop_f32(emb, qv, n, d, b, row0, q0, sm, acc);
+  using T = simt::Tile<kQ>;
+  constexpr int kTN = T::kTN;
+  constexpr int kLane0 = T::kTxLanes;  // lane bit of a row quad's bit 0 in a bucket
+  extern __shared__ float4 f32_smem[];
+  const bool vec = (nb & 3) == 0;  // 16-byte stores stay aligned in every output row
+  simt::run<kQ>(emb, qv, n, d, b, reinterpret_cast<float*>(f32_smem),
+                [&](auto& acc, const auto& p, int row0, int q0, float* scratch) {
+    int cid[kTN];  // -1: every collection
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int r = ty * 4 + i, q = tx * 4 + j;
-      S[r][q] = masked(acc[i][j], row0 + r, q0 + q, n, b, m.valid, m.coll, m.cid);
+    for (int c = 0; c < kTN; ++c) {
+      const int q = q0 + p.query(c);
+      cid[c] = (m.coll != nullptr && q < b) ? m.cid[q] : -1;
     }
-  __syncthreads();
-  // 4 buckets x 64 queries: one output per thread
-  const int bk = tid >> 6;
-  const int q = tid & 63;
-  float mx = -INFINITY;
+    // the tile's maxima, [bucket][query], in the row stage every thread has consumed
+    float(&stage)[T::kBuckets][kQ] = *reinterpret_cast<float(*)[T::kBuckets][kQ]>(scratch);
+    __syncthreads();
+    // after the exchanges v[i], i < kTN / 4, is the bucket's maximum for query c = o0 + i
+    const int o0 = ((p.lane & (2 * kLane0)) ? kTN / 2 : 0) + ((p.lane & kLane0) ? kTN / 4 : 0);
 #pragma unroll
-  for (int r = 0; r < kBucket; ++r) mx = fmaxf(mx, S[bk * kBucket + r][q]);
-  const int bucket = row0 / kBucket + bk;
-  if (bucket < nb && q0 + q < b) out[(size_t)(q0 + q) * nb + bucket] = mx;
+    for (int g = 0; g < T::kRowGroups; ++g) {
+      float v[kTN];
+#pragma unroll
+      for (int c = 0; c < kTN; ++c) v[c] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + p.row(4 * g + i);
+        const bool in = r < n && m.valid[r] != 0;
+        const int coll = (in && m.coll != nullptr) ? m.coll[r] : 0;
+#pragma unroll
+        for (int c = 0; c < kTN; ++c) {
+          const bool keep = in && (cid[c] == -1 || coll == cid[c]);
+          v[c] = fmaxf(v[c], keep ? acc[4 * g + i][c] : -INFINITY);
+        }
+      }
+      max_exchange<kTN / 2, 2 * kLane0>(v, p.lane);
+      max_exchange<kTN / 4, kLane0>(v, p.lane);
+#pragma unroll
+      for (int i = 0; i < kTN / 4; ++i)
+        stage[g * (T::kThreadsR / 4) + p.ty / 4][p.query(o0 + i)] = v[i];
+    }
+    __syncthreads();
+    // four buckets of one query per store; the stage is written again only after
+    // the next stage's barrier
+    for (int e = threadIdx.x; e < kQ * T::kBuckets / 4; e += T::kThreads) {
+      const int ql = e % kQ, grp = e / kQ;
+      const int q = q0 + ql, bucket = row0 / 16 + 4 * grp;
+      if (q >= b || bucket >= nb) continue;
+      const float4 r = make_float4(stage[4 * grp][ql], stage[4 * grp + 1][ql],
+                                   stage[4 * grp + 2][ql], stage[4 * grp + 3][ql]);
+      float* dst = out + (size_t)q * nb + bucket;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = r;
+      } else {
+        dst[0] = r.x;
+        if (bucket + 1 < nb) dst[1] = r.y;
+        if (bucket + 2 < nb) dst[2] = r.z;
+        if (bucket + 3 < nb) dst[3] = r.w;
+      }
+    }
+  });
+}
+
+template <int kQ>
+int launch_f32(const void* emb, const void* q, const Masks& m, void* out, int n, int d, int b,
+               cudaStream_t stream) {
+  using T = simt::Tile<kQ>;
+  static int cap = 0;  // resident blocks of this width
+  if (cap == 0) {
+    const cudaError_t err =
+        simt::resident_blocks(bucket_max_f32_kernel<kQ>, T::kThreads, T::kSmemBytes, &cap);
+    if (err != cudaSuccess) {
+      cap = 0;
+      return static_cast<int>(err);
+    }
+  }
+  bucket_max_f32_kernel<kQ><<<simt::grid_size<kQ>(n, b, cap), T::kThreads, T::kSmemBytes, stream>>>(
+      static_cast<const float*>(emb), static_cast<const float*>(q), m, static_cast<float*>(out),
+      n, d, b, (n + kBucket - 1) / kBucket);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Masks masks(const void* valid, const void* coll, const void* cid) {
@@ -530,15 +597,17 @@ int fused_bucket_maxima_int4(const void* emb, const void* scales, const void* q,
   return launch_int<true>(emb, scales, q, q_scale, valid, coll, cid, out, n, d, b, stream);
 }
 
+// f32 rows [n, d] (d a multiple of 4), f32 queries [b, d]; q_tile (16 or 128) is
+// the query-tile width, which the caller picks from b
 int fused_bucket_maxima_f32(const void* emb, const void* q, const void* valid,
                             const void* coll, const void* cid, void* out, int n, int d, int b,
-                            void* stream) {
-  const int nb = (n + kBucket - 1) / kBucket;
-  dim3 grid((n + FM - 1) / FM, (b + FN - 1) / FN);
-  bucket_max_f32_kernel<<<grid, kThreadsF32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(emb), static_cast<const float*>(q), masks(valid, coll, cid),
-      static_cast<float*>(out), n, d, b, nb);
-  return static_cast<int>(cudaGetLastError());
+                            int q_tile, void* stream) {
+  if (n <= 0 || b <= 0) return 0;
+  const Masks m = masks(valid, coll, cid);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_tile == 16) return launch_f32<16>(emb, q, m, out, n, d, b, s);
+  if (q_tile == 128) return launch_f32<128>(emb, q, m, out, n, d, b, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// Tile loops of the bf16 bucket maxima (fused_topk.cu) and of the float32 bodies
-// (fused_topk.cu, dense_scores.cu). The int8 and packed-int4 bucket maxima and
-// the bf16 dense scores run on csrc/wgmma_common.cuh instead.
+// Tile loop of the bf16 bucket maxima (fused_topk.cu). The int8 and packed-int4
+// bucket maxima and the bf16 dense scores run on csrc/wgmma_common.cuh, the
+// float32 bodies of fused_topk.cu and dense_scores.cu on csrc/simt_f32.cuh.
 //
 // bf16: one block owns 128 corpus rows x 128 queries and walks the row width in
 // stages of 64 bytes per row: cp.async copies the stage of the rows and of the
@@ -8,9 +8,6 @@
 // mma.sync.m16n8k16 from it. A k-step is 32 bytes of a row: register 0/1 hold
 // bytes 4t..4t+3 of rows g and g+8, register 2/3 the same rows 16 bytes further
 // on. Lane (g, t) holds rows g and g+8 for queries 2t and 2t+1 of each n8 tile.
-//
-// The float32 loop keeps full f32 products (plain FMAs, no TF32) in a 64 x 64
-// tile; it is not on the serving path.
 
 #pragma once
 
@@ -131,52 +128,6 @@ __device__ __forceinline__ void mainloop(const uint8_t* __restrict__ rows,
         mma_bf16(acc[0][j], a[0], b0, b1);
         mma_bf16(acc[1][j], a[1], b0, b1);
       }
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------- f32 rows
-constexpr int FM = 64;  // rows per block
-constexpr int FN = 64;  // queries per block
-constexpr int FK = 16;  // columns per step
-constexpr int kThreadsF32 = 256;
-
-struct SmemF32 {
-  float a[FK][FM + 4];
-  float q[FK][FN + 4];
-};
-
-// acc[i][j] = rows[row0 + ty*4 + i] . qv[q0 + tx*4 + j], tx = tid & 15, ty = tid >> 4.
-__device__ __forceinline__ void mainloop_f32(const float* __restrict__ emb,
-                                             const float* __restrict__ qv, int n, int d, int b,
-                                             int row0, int q0, SmemF32& sm, float (&acc)[4][4]) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += FK) {
-    for (int e = tid; e < FM * FK; e += kThreadsF32) {
-      int r = e / FK, k = e % FK;
-      int gr = row0 + r, gk = k0 + k;
-      sm.a[k][r] = (gr < n && gk < d) ? emb[(size_t)gr * d + gk] : 0.f;
-      int gq = q0 + r;
-      sm.q[k][r] = (gq < b && gk < d) ? qv[(size_t)gq * d + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      float av[4], qw[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = sm.a[k][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) qw[j] = sm.q[k][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], qw[j], acc[i][j]);
     }
     __syncthreads();
   }

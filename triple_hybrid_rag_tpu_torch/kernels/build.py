@@ -31,7 +31,7 @@ _I = ctypes.c_int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "fused_topk": {
         "fused_bucket_maxima_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "fused_bucket_maxima_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "fused_bucket_maxima_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "fused_bucket_maxima_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "fused_bucket_maxima_int4": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
@@ -45,9 +45,20 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "dense_scores": {
         "dense_scores_bf16": [_P, _P, _P, _I, _I, _I, _P],
-        "dense_scores_f32": [_P, _P, _P, _I, _I, _I, _P],
+        "dense_scores_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
+
+# query-tile widths of the f32-row bodies (csrc/simt_f32.cuh, template kQ)
+F32_QUERY_TILES = (16, 128)
+
+
+def f32_query_tile(b: int) -> int:
+    """Query-tile width of the f32-row bodies for a batch of ``b`` queries: 16 up
+    to 16 queries (the rows' bytes bound the call, and a wider tile would spend
+    its products on absent queries), else 128 (each row read once per 128)."""
+    return F32_QUERY_TILES[0] if b <= F32_QUERY_TILES[0] else F32_QUERY_TILES[1]
+
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}  # source name -> nvcc's output (register / spill report)

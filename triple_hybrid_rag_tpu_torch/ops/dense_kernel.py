@@ -24,14 +24,14 @@ def dense_scores_plain(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> to
 
 
 def _launch_dense_scores(embeddings, query_vecs):
-    from ..kernels.build import check, load
+    from ..kernels.build import check, f32_query_tile, load
 
     n, d = embeddings.shape
     b = query_vecs.shape[0]
-    if query_vecs.shape[1] != d or d % 8 or d == 0:
+    if query_vecs.shape[1] != d or d == 0 or d * embeddings.element_size() % 16:
         raise ValueError(
-            f"bad shapes: rows {tuple(embeddings.shape)} (width must be a positive multiple of 8), "
-            f"queries {tuple(query_vecs.shape)}"
+            f"bad shapes: rows {tuple(embeddings.shape)} (a row must take a positive multiple "
+            f"of 16 bytes), queries {tuple(query_vecs.shape)}"
         )
     emb = embeddings.contiguous()
     q = query_vecs.to(emb.dtype).contiguous()
@@ -42,10 +42,14 @@ def _launch_dense_scores(embeddings, query_vecs):
     out = torch.empty((b, n), dtype=torch.float32, device=emb.device)
     if b * n == 0:
         return out
-    fn = "dense_scores_bf16" if emb.dtype == torch.bfloat16 else "dense_scores_f32"
+    args = [emb.data_ptr(), q.data_ptr(), out.data_ptr(), n, d, b]
+    if emb.dtype == torch.bfloat16:
+        fn = "dense_scores_bf16"
+    else:
+        fn = "dense_scores_f32"
+        args.append(f32_query_tile(b))
     err = getattr(load("dense_scores"), fn)(
-        emb.data_ptr(), q.data_ptr(), out.data_ptr(), n, d, b,
-        torch.cuda.current_stream(emb.device).cuda_stream,
+        *args, torch.cuda.current_stream(emb.device).cuda_stream
     )
     check(err, fn)
     dense_scores.launches += 1

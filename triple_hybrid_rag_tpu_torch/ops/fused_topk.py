@@ -113,7 +113,7 @@ def _check_launch(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> None:
 
 def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid, scales, q_scale):
     _check_launch(embeddings, query_vecs)
-    from ..kernels.build import check, load
+    from ..kernels.build import check, f32_query_tile, load
 
     n = embeddings.shape[0]
     b, d = query_vecs.shape
@@ -138,8 +138,9 @@ def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid
         val.data_ptr(), coll.data_ptr() if scoped else None, cid.data_ptr() if scoped else None,
         out.data_ptr(),
     ]
+    shape = [n, d, b] + ([f32_query_tile(b)] if emb.dtype == torch.float32 else [])
     err = getattr(load("fused_topk"), fn)(
-        *ptr, n, d, b, torch.cuda.current_stream(emb.device).cuda_stream
+        *ptr, *shape, torch.cuda.current_stream(emb.device).cuda_stream
     )
     check(err, fn)
     bucket_maxima.launches += 1

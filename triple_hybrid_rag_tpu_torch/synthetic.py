@@ -10,9 +10,11 @@ graph has ``n_entities`` entities with random adjacency of mean degree deg/2 and
 two mentions per chunk. Self-retrieval (a document's own terms as the query) is
 therefore a real end-to-end check.
 
-The configuration picks the layouts: ``embedding_dtype`` "int8" / "int4" quantizes
-the bf16 rows on the device and stores the MaxSim tokens as int8 (as ``bench.py``
-does), and ``lexical_backend`` "termtable" / "postings"
+The configuration picks the layouts: ``embedding_dtype`` "float32" keeps the rows
+unrounded (as the reference's dense index stores them under that dtype),
+"bfloat16" rounds them, "int8" / "int4" quantizes the bf16 rows on the device and
+stores the MaxSim tokens as int8 (as ``bench.py`` does), and ``lexical_backend``
+"termtable" / "postings"
 places the doc-major term table (:func:`build_term_table`) instead of the postings.
 """
 
@@ -101,6 +103,30 @@ def build_term_table(
     return term_ids, torch.where(live, weights, torch.zeros_like(weights))
 
 
+def document_rows(
+    term_ids: torch.Tensor,  # i[n_pad, L_DOC] the terms of each document
+    embedder: BowHashEmbedder,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The dense rows of the synthetic corpus on ``term_ids``' device: each
+    document's BowHash embedding (the sum of its terms' f16 directions, as the
+    query embedder makes them), normalized in f32 and stored as ``dtype``. The bf16
+    rows are the f32 rows rounded."""
+    dev = term_ids.device
+    dirs = torch.from_numpy(np.stack([embedder._token_vec(term_str(i)) for i in range(VOCAB)]))
+    dirs = dirs.to(torch.float16).to(dev)  # the reference ships the table as f16
+    n_pad, dim = term_ids.shape[0], embedder.dim
+    emb = torch.empty((n_pad, dim), dtype=dtype, device=dev)
+    for lo in range(0, n_pad, _ROW_BLOCK):
+        ids = term_ids[lo:lo + _ROW_BLOCK].long()
+        acc = torch.zeros((ids.shape[0], dim), dtype=torch.float32, device=dev)
+        for g in range(L_DOC):
+            acc += dirs[ids[:, g]].float()
+        acc /= torch.clamp(torch.linalg.vector_norm(acc, dim=1, keepdim=True), min=1e-12)
+        emb[lo:lo + _ROW_BLOCK] = acc.to(dtype)
+    return emb
+
+
 def build_synthetic(
     config: RAGConfig,
     n: int,
@@ -167,17 +193,8 @@ def build_synthetic(
     # ---- dense rows = BowHash of each document's terms ----
     embedder = BowHashEmbedder(dim=dim, config=cfg)
     terms = [term_str(i) for i in range(VOCAB)]
-    dirs = torch.from_numpy(np.stack([embedder._token_vec(t) for t in terms]))
-    dirs = dirs.to(torch.float16).to(dev)  # the reference ships the table as f16
-    emb = torch.empty((n_pad, dim), dtype=torch.bfloat16, device=dev)
-    for lo in range(0, n_pad, _ROW_BLOCK):
-        ids = term_ids[lo:lo + _ROW_BLOCK].long()
-        acc = torch.zeros((ids.shape[0], dim), dtype=torch.float32, device=dev)
-        for g in range(L_DOC):
-            acc += dirs[ids[:, g]].float()
-        acc /= torch.clamp(torch.linalg.vector_norm(acc, dim=1, keepdim=True), min=1e-12)
-        emb[lo:lo + _ROW_BLOCK] = acc.to(torch.bfloat16)
-    del dirs, acc
+    row_dtype = torch.float32 if cfg.embedding_dtype == "float32" else torch.bfloat16
+    emb = document_rows(term_ids, embedder, row_dtype)
     valid = torch.arange(n_pad, device=dev) < n
     dense = {"embeddings": emb, "valid": valid}
     if cfg.embedding_dtype in ("int8", "int4"):
