@@ -28,7 +28,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    under both; kernel path and unfused path must return equal ids), the term-table
    lexical backend, and a dense channel through the dense-scores kernel. Each must
    self-retrieve, must have launched its kernel and only its configuration's
-   bucket-maxima and MaxSim bodies, and prints its MaxSim store's device GB.
+   bucket-maxima and MaxSim bodies, and prints its MaxSim store's device GB;
+4. the trained query encoder: loads the packaged weights onto the card and holds
+   its bf16 forward against the port's own f32 forward on the CPU over 64 texts;
+   then serves the default RAGConfig (``embedder_backend="auto"``, MaxSim 64 x 128
+   with 32 query tokens, the safety gate at 0.6) on the same corpus, with the rows
+   of the queries and their parents' MaxSim tokens re-embedded by the encoder
+   (``synthetic.encode_rows``): self-retrieval at B = 128 and B = 1 with the device
+   encode on and off (both must agree up to near ties), the encoder's device and
+   host ms, program wall, device busy and e2e ms per query; and one batch with
+   ``rerank_backend="dot"`` over the parents' mean embeddings.
 
 Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches, error and times; the last line is
@@ -108,6 +117,10 @@ TABLE_WIDTH, QUERY_TERMS = 128, 16  # doc_term_capacity, max_query_terms
 # substrings of the hand-written kernels' names, by the engine stage that launches them
 OWN_KERNELS = {"engine.dense": ("bucket_max",), "engine.lexical": ("termtable_kernel",),
                "engine.tail": ("maxsim_kernel",)}
+# the encoder's bf16 forward against its f32 forward: unit vectors, two bf16 ulps at
+# 1.0 (the tolerance tests/test_torch_encoder.py states, BF16_VS_F32_ATOL)
+ENCODER_ATOL = 2e-2
+N_ENCODER_TEXTS = 64
 T_START = time.time()
 
 
@@ -850,6 +863,7 @@ def main_path(dev, card):
     for kind in ("int8", "int4"):
         launches[f"fused_bucket_maxima_{kind}"], n_int8 = quantized_path(run, cfg, kind)
         launches["maxsim_scores_int8"] += n_int8
+    launches["default_config"] = encoder_path(run, card)
     log(f"peak device memory over the whole run {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches
 
@@ -1077,6 +1091,252 @@ def quantized_path(run, cfg, kind: str):
     return by_rows[kind], n_int8
 
 
+def encoder_forward_check(texts, dev):
+    """The packaged encoder on the card (bf16) against the port's f32 forward of the
+    same weights on the CPU, over ``texts``. Returns the card's embedder."""
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.models.encoder import EncoderEmbedder, encoder_params_from_flax
+    from triple_hybrid_rag_tpu_torch.models.pretrain import DEFAULT_PARAMS, load_default_encoder
+
+    cfg = RAGConfig()
+    t0 = time.time()
+    card = load_default_encoder(cfg, device=dev)
+    if card is None:
+        fail(f"the packaged encoder weights were not found at {DEFAULT_PARAMS}")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    with np.load(DEFAULT_PARAMS) as npz:
+        flat = {name: npz[name] for name in npz.files if name != "__meta__"}
+    f32 = EncoderEmbedder(dataclasses.replace(card.enc_cfg, dtype="float32"), cfg,
+                          params=encoder_params_from_flax(flat), device="cpu")
+    ids, mask = card.hasher.encode(texts)
+    errs = {}
+    for name, got, want in (
+        ("raw heads", card.forward(ids, mask), f32.forward(ids, mask)),
+        ("embed_texts / token_embeddings", (card.embed_texts(texts), card.token_embeddings(texts)),
+         (f32.embed_texts(texts), f32.token_embeddings(texts))),
+    ):
+        e = max(float((torch.as_tensor(g).cpu() - torch.as_tensor(w)).abs().max())
+                for g, w in zip(got, want))
+        errs[name] = e
+        if not e <= ENCODER_ATOL:
+            fail(f"encoder on the card ({name}) disagrees with its f32 CPU forward ({e})")
+    c = card.enc_cfg
+    n_params = sum(p.numel() for p in card.model.parameters())
+    log(f"encoder {c.n_layers} layers x d {c.d_model}, {c.n_heads} heads, MLP {c.d_mlp}, "
+        f"{c.vocab_buckets} buckets, {c.max_tokens} tokens, heads {c.out_dim} / {c.token_dim} "
+        f"({n_params / 1e6:.1f} M parameters, {c.dtype}), loaded onto the card in {load_s:.1f} s; "
+        f"over {len(texts)} texts max |card bf16 - CPU f32| = {errs} (atol {ENCODER_ATOL})")
+    return card
+
+
+def encoder_path(run, card_name):
+    """The default RAGConfig with the trained encoder on the 1M-chunk corpus, then
+    one batch of the dot rerank. Returns the launches of the bf16 bucket maxima and
+    the bf16 MaxSim body over the default configuration's drive."""
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.engine import Engine
+    from triple_hybrid_rag_tpu_torch.models.encoder import EncoderEmbedder
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+    from triple_hybrid_rag_tpu_torch.retrieval import build_parent_embeddings
+    from triple_hybrid_rag_tpu_torch.synthetic import CHILDREN_PER_PARENT, encode_rows, maxsim_store
+
+    syn, dev, texts, rows, is_graph = run.syn, run.dev, run.texts, run.rows, run.is_graph
+    sample = texts[:N_ENCODER_TEXTS // 2] + [syn.state.corpus.text_of(int(r))
+                                             for r in rows[:N_ENCODER_TEXTS // 2]]
+    encoder_forward_check(sample, dev)
+
+    # defaults, but for what the corpus fixes: capacity rounding, entities a chunk,
+    # the postings' df cap (the corpus's rows are 1024 wide, the default embedding_dim)
+    cfg = RAGConfig(capacity_round=1024, graph_max_entities_per_chunk=4, bm25_df_cap=DF_CAP)
+    if cfg.embedder_backend != "auto" or cfg.embedding_dim != DIM:
+        fail("the default RAGConfig changed under the encoder phase")
+    t0 = time.time()
+    term_ids = torch.from_numpy(syn.term_ids).to(dev)
+    tokens, tok_mask = maxsim_store(term_ids, syn.n, syn.embedder, cfg)
+    del term_ids
+    st = dataclasses.replace(syn.state, config=cfg, embeddings=syn.state.embeddings.clone(),
+                             maxsim_tokens=tokens, maxsim_mask=tok_mask)
+    eng = Engine(st, device=dev)
+    if not isinstance(eng.embedder, EncoderEmbedder) or eng.maxsim_calibration != 0.6:
+        fail(f"embedder_backend='auto' built {type(eng.embedder).__name__}, not the encoder")
+    # every chunk of the queries' parents, so the dot rerank's parent means are the encoder's
+    enc_rows = sorted({int(r) - int(r) % CHILDREN_PER_PARENT + j for r in rows
+                       for j in range(CHILDREN_PER_PARENT)})
+    torch.cuda.synchronize()
+    t1 = time.time()
+    encode_rows(st, enc_rows, eng.embedder, st.corpus.text_of)
+    torch.cuda.synchronize()
+    enc_s = time.time() - t1
+    sizes = {k: round(v / 1e9, 4) for k, v in st.nbytes().items()}
+    log(f"default config: MaxSim store {tuple(tokens.shape)} built in {t1 - t0:.1f} s; "
+        f"{len(enc_rows)} rows and their {len(enc_rows) // CHILDREN_PER_PARENT} parents re-embedded "
+        f"by the encoder in {enc_s:.1f} s ({len(enc_rows) / enc_s:.0f} rows/s on the host and "
+        f"card: {syn.n / (len(enc_rows) / enc_s) / 60:.0f} min for all {syn.n} rows); device GB "
+        f"{sizes}")
+
+    # which encode path served each batch
+    calls = {"device": 0, "host": 0}
+    emb = eng.embedder
+    encode, embed_texts = emb.encode_queries_device, emb.embed_texts
+
+    def counted(fn, key):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    emb.encode_queries_device = counted(encode, "device")
+    emb.embed_texts = counted(embed_texts, "host")
+    plain = [i for i in range(2 * BATCH) if not is_graph[i]]
+    ones = [i for i in range(len(texts)) if not is_graph[i]][:6] + \
+           [i for i in range(len(texts)) if is_graph[i]][:2]
+    outs = {}
+    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    maxsim_counts_reset()
+    for device_encode in (True, False):
+        eng.device_query_encode = device_encode
+        before = dict(calls)
+        ids, out0 = [], None
+        for lo in range(0, 2 * BATCH, BATCH):
+            _, out = eng.search_arrays(texts[lo:lo + BATCH])
+            if not bool(torch.isfinite(out[1]).all()):
+                fail("default config: non-finite final scores")
+            if out0 is None:
+                out0 = out
+            ids.append(out[0].cpu().numpy())
+        ids = np.concatenate(ids)
+        frac = sum(int(rows[i] in ids[i].tolist()) for i in plain) / len(plain)
+        one_hits = 0
+        for i in ones:
+            one_ids = eng.search_arrays([texts[i]])[1][0].cpu().numpy()[0]
+            one_hits += int(rows[i] in one_ids.tolist()) if not is_graph[i] else 0
+        path = "device" if device_encode else "host"
+        used = {k: calls[k] - before[k] for k in calls}
+        label = f"default config, {path} encode"
+        log(f"{label}: self-retrieval {frac:.4f} of {len(plain)} plain queries at B={BATCH}; B=1: "
+            f"{one_hits}/6 plain self-retrieved, 2 graph queries ran; encode calls {used}")
+        if used[path] < 1 or used["device" if path == "host" else "host"] != 0:
+            fail(f"{label}: the {path} encode path was not the one taken ({used})")
+        if frac < 0.95 or one_hits < 5:
+            fail(f"{label}: self-retrieval {frac} at B={BATCH}, {one_hits}/6 at B=1")
+        outs[device_encode] = out0
+    torch.cuda.synchronize()
+    launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
+                "maxsim_scores": maxsim_body_launches("bf16", "default config", st)}
+    log(f"default config: kernel launches {launches} (bucket maxima by row type "
+        f"{bucket_maxima.launches_by_rows})")
+    if min(launches.values()) < 1 or sum(bucket_maxima.launches_by_rows.values()) != launches[
+            "fused_bucket_maxima"]:
+        fail(f"default config: the bf16 bucket maxima and MaxSim bodies were not the ones launched")
+    # f16 wires of vectors equal within the forward's rounding: ids may differ at near ties
+    n_diff = near_ties_only(outs[True][0], outs[False][0], outs[False][1], 1e-3)
+    if n_diff < 0:
+        fail("default config: device encode and host encode differ beyond near ties")
+    log(f"default config: device encode vs host encode: {n_diff} of {outs[True][0].numel()} "
+        f"final slots differ, all at near ties (atol 1e-3); max final-score gap "
+        f"{float((outs[True][1] - outs[False][1]).abs().max()):.3g}")
+    emb.encode_queries_device, emb.embed_texts = encode, embed_texts
+    eng.device_query_encode = True
+    encoder_timing(run, eng, card_name)
+
+    # ---- the dot rerank: cosine against the parents' mean embeddings ----
+    t0 = time.time()
+    parent_emb = build_parent_embeddings(st.embeddings, st.dense_scales,
+                                         st.parent_of[:syn.n], tokens.shape[0])
+    torch.cuda.synchronize()
+    st_dot = dataclasses.replace(st, config=cfg.replace(rerank_backend="dot"), maxsim_tokens=None,
+                                 maxsim_mask=None, parent_emb=parent_emb)
+    del tokens, tok_mask
+    eng_dot = Engine(st_dot, device=dev)
+    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    maxsim_counts_reset()
+    _, out = eng_dot.search_arrays(texts[:BATCH])
+    ids = out[0].cpu().numpy()
+    plain1 = [i for i in range(BATCH) if not is_graph[i]]
+    frac = sum(int(rows[i] in ids[i].tolist()) for i in plain1) / len(plain1)
+    n_maxsim = sum(maxsim_scores.launches_by_tokens.values())
+    log(f"dot rerank: parent_emb {tuple(parent_emb.shape)} built in {time.time() - t0:.1f} s, "
+        f"device GB {st_dot.nbytes()['parent_emb'] / 1e9:.4f}; self-retrieval {frac:.4f} of "
+        f"{len(plain1)} plain queries at B={BATCH}; refused {int(out[2].sum())}; bucket maxima "
+        f"launches {bucket_maxima.launches_by_rows['bf16']}, MaxSim launches {n_maxsim}")
+    if frac < 0.95 or n_maxsim != 0 or not bool(torch.isfinite(out[1]).all()):
+        fail(f"dot rerank: self-retrieval {frac}, MaxSim launches {n_maxsim}")
+    del eng_dot, st_dot, parent_emb, st, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encoder_timing(run, eng, card_name):
+    """The encoder's device ms and host ms per batch at B = 128 and B = 1, host prep
+    against the BowHash engine's, program wall, device busy and e2e ms per query."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from triple_hybrid_rag_tpu_torch.engine import Engine
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    cfg, emb = eng.config, eng.embedder
+    texts = run.texts
+    kw = dict(out_dim=cfg.embedding_dim, max_tokens=cfg.maxsim_query_tokens,
+              token_dim=cfg.maxsim_dim)
+    bow = Engine(dataclasses.replace(eng.state, config=cfg.replace(embedder_backend="bowhash")),
+                 embedder=run.syn.embedder, device=run.dev)
+    for b in (BATCH, 1):
+        batches = [texts[i * b:(i + 1) * b] for i in range(2, 6)]
+        t0 = time.perf_counter()
+        inputs = [emb.query_inputs(tb) for tb in batches]
+        host_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+        for x in inputs:
+            emb.encode_device(*x, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in inputs:
+            emb.encode_device(*x, **kw)
+        torch.cuda.synchronize()
+        enc_wall = (time.perf_counter() - t0) / len(inputs) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for x in inputs:
+                emb.encode_device(*x, **kw)
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                         key=dev_ms, reverse=True)
+        busy = sum(dev_ms(e) for e in kernels) / len(inputs)
+        gemm = sum(dev_ms(e) for e in kernels
+                   if any(w in e.key.lower() for w in ("gemm", "nvjet", "xmma", "cutlass")))
+        log(f"encoder B={b} kernels: {sum(e.count for e in kernels) // len(inputs)} launches a "
+            f"batch, matrix products {gemm / len(inputs):.4f} of {busy:.4f} ms; longest: "
+            + "; ".join(f"{dev_ms(e) / len(inputs):.3f} ms x{e.count // len(inputs)} "
+                        f"{e.key[:70]}" for e in kernels[:6]))
+        prep, e2e = {}, {}
+        for name, e, dev_encode in (("BowHash", bow, False), ("encoder, device encode", eng, True),
+                                    ("encoder, host encode", eng, False)):
+            e.device_query_encode = dev_encode
+            for tb in batches:  # warm the embedders' per-token caches on these texts
+                e.prepare_queries(tb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for tb in batches:
+                e.prepare_queries(tb)
+            torch.cuda.synchronize()
+            prep[name] = (time.perf_counter() - t0) / len(batches) * 1e3
+            t0 = time.perf_counter()
+            for tb in batches:
+                e.search_arrays(tb)[1][0].cpu()
+            e2e[name] = (time.perf_counter() - t0) / (len(batches) * b) * 1e3
+        eng.device_query_encode = True
+        log(f"encoder B={b}: device busy {busy:.4f} ms/batch (profiler, kernels of the forward, "
+            f"blend and cast), wall {enc_wall:.4f} ms/batch (host launches included); host inputs "
+            f"(analyzer, hash, anchors) {host_ms:.4f} ms/batch; prepare_queries (synchronized) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in prep.items()) + " ms/batch; e2e "
+            + ", ".join(f"{k} {v:.4f}" for k, v in e2e.items()) + f" ms/query; card {card_name}")
+    run.timing([("encoder default config", eng)], "default config")
+    batches = [texts[i * BATCH:(i + 1) * BATCH] for i in range(2, 4)]
+    stage_profile(eng, batches, "default config, prepare_queries + run", texts=True)
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -1097,16 +1357,18 @@ def maxsim_body_launches(body: str, label: str, state) -> int:
     return by_tokens[body]
 
 
-def stage_profile(eng, args, label: str) -> float:
+def stage_profile(eng, args, label: str, texts: bool = False) -> float:
     """Device time per engine stage and per kernel over a few batches
-    (torch.profiler; the profiler's own cost is in the wall time). Returns the
-    device busy ms per batch (the sum of the kernels' times)."""
+    (torch.profiler; the profiler's own cost is in the wall time). ``args`` are
+    prepared batches, or with ``texts`` batches of query texts that
+    ``prepare_queries`` prepares inside the window (its ``engine.encode`` stage
+    included). Returns the device busy ms per batch (the sum of the kernels' times)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for a in args:
-            eng.run(a)
+            eng.run(eng.prepare_queries(a)[1] if texts else a)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -1190,6 +1452,8 @@ def main() -> int:
     launches = main_path(dev, card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["name"] in launches["default_config"]:
+            k["default_config_launches"] = launches["default_config"][k["name"]]
         if k["name"] in launches["f32_rows"]:
             k["f32_rows_launches"] = launches["f32_rows"][k["name"]]
     log(f"total wall time {time.time() - T_START:.1f} s")

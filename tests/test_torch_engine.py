@@ -238,7 +238,6 @@ def test_engine_refresh_and_unported_options(cfg):
     assert eng.refresh(state_from_retriever(ret))
     for bad in (
         {"semantic_backend": "ivf"},
-        {"rerank_backend": "dot"},
         {"mesh_shape": (2,)},
     ):
         with pytest.raises(NotImplementedError):

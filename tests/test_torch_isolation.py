@@ -116,3 +116,42 @@ def test_synthetic_corpus_self_retrieval():
     assert any(p.requires_graph for p in plans)
     res = eng.retrieve_batch(texts[:2])
     assert res[0].results[0].chunk_id == f"c{rows[0]}"
+
+
+def test_default_config_serves_with_the_encoder():
+    """A default RAGConfig (embedder_backend="auto") builds the port's encoder from
+    the reference's packaged weights, read by path, with no JAX imported; chosen
+    rows re-embedded with it (synthetic.encode_rows) self-retrieve through the
+    device encode and through the host path."""
+    code = """
+import json, sys
+import numpy as np
+from triple_hybrid_rag_tpu_torch.config import RAGConfig
+from triple_hybrid_rag_tpu_torch.engine import Engine
+from triple_hybrid_rag_tpu_torch.synthetic import build_synthetic, encode_rows, make_query_texts
+
+cfg = RAGConfig(capacity_round=1024, graph_max_entities_per_chunk=4, bm25_df_cap=256)
+syn = build_synthetic(cfg, 4096, cfg.embedding_dim, 300, seed=0, device="cpu")
+eng = Engine(syn.state, device="cpu")
+rows = np.arange(0, 80, 5)
+encode_rows(syn.state, rows, eng.embedder, syn.state.corpus.text_of)
+texts, _ = make_query_texts(rows, syn.term_ids, np.random.default_rng(0), 0.0, 300)
+found = {}
+for dev_encode in (True, False):
+    eng.device_query_encode = dev_encode
+    ids = eng.search_arrays(texts)[1][0].numpy()
+    found[dev_encode] = sum(int(r in ids[i]) for i, r in enumerate(rows))
+bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "triple_hybrid_rag_tpu")]
+print(json.dumps({"embedder": type(eng.embedder).__name__, "calibration": eng.maxsim_calibration,
+                  "pool_w2": eng.embedder.enc_cfg.anchor_pool_w2, "found": [found[True], found[False]],
+                  "n": len(rows), "bad": bad}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["embedder"] == "EncoderEmbedder" and got["bad"] == []
+    assert got["calibration"] == 0.6 and got["pool_w2"] == 0.65
+    assert got["found"] == [got["n"], got["n"]]

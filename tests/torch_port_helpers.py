@@ -21,6 +21,17 @@ def torch_config(cfg) -> TorchConfig:
     return TorchConfig(**dataclasses.asdict(cfg))
 
 
+def flat_params(params) -> dict:
+    """A flax parameter tree flattened as the packaged encoder npz names its arrays
+    (``params/block_0/attn/query/kernel``, ...), for ``encoder_params_from_flax``."""
+    import jax
+
+    return {
+        "/".join(str(getattr(k, "key", k)) for k in kp): np.asarray(leaf)
+        for kp, leaf in jax.tree_util.tree_flatten_with_path(params)[0]
+    }
+
+
 def _record(obj) -> dict:
     d = dataclasses.asdict(obj)
     if "modality" in d:
@@ -34,7 +45,6 @@ def state_from_retriever(ret, config=None, device="cpu") -> IndexState:
     arrays = {"parent_of": np.asarray(ret.parent_of)}
     host = {
         "collection_ids": dict(ret.collection_ids),
-        "maxsim_calibration": float(getattr(ret.embedder, "maxsim_calibration", 1.0)),
         "corpus": CorpusView.from_records(
             [_record(c) for c in ret.corpus.children], [_record(p) for p in ret.corpus.parents]
         ),
@@ -71,4 +81,7 @@ def state_from_retriever(ret, config=None, device="cpu") -> IndexState:
     mx = ret.maxsim_index
     if mx is not None:
         arrays.update(maxsim_tokens=np.asarray(mx.tokens), maxsim_mask=np.asarray(mx.mask))
+    pe = getattr(ret.reranker, "parent_embeddings", None)
+    if pe is not None:
+        arrays["parent_emb"] = np.asarray(pe)
     return IndexState.from_numpy(arrays, host, cfg, device)

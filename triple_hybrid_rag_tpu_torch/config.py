@@ -87,8 +87,8 @@ class RAGConfig:
     use_tiktoken: bool = False
 
     # ---- embeddings ----
-    # "auto" | "encoder" | "bowhash" | "hash"; the port has the hash embedders
-    # only (models/embedder.get_default_embedder raises for the encoder)
+    # "auto" | "encoder" | "bowhash" | "hash": "auto" and "encoder" load the
+    # packaged trained encoder (models/embedder.get_default_embedder)
     embedder_backend: str = "auto"
     embedding_dim_full: int = 2048
     embedding_dim: int = 1024  # Matryoshka prefix-truncated + re-L2-normalized
@@ -134,7 +134,7 @@ class RAGConfig:
     graph_sparse_max_batch: int = 4
 
     # ---- rerank / late interaction ----
-    rerank_backend: str = "maxsim"  # "maxsim" ("dot" not ported) | "none"
+    rerank_backend: str = "maxsim"  # "maxsim" | "dot" | "none"
     maxsim_doc_tokens: int = 64
     maxsim_query_tokens: int = 32
     maxsim_dim: int = 128

@@ -7,7 +7,8 @@ runs as one program on the device:
     BM25 top-k (sorted postings,     ->\\
       or the term-table kernel)
     dense top-k (fused kernel)          -> merge -> weighted RRF -> parent expand
-    k-hop graph walk + chunk top-k   ->/          -> MaxSim rerank (kernel) -> safety gate
+    k-hop graph walk + chunk top-k   ->/          -> MaxSim rerank (kernel)  -> safety gate
+                                                     or dot rerank
 
 Program variants follow the reference's ``(batch, scoped, graph)`` keys: the
 collection mask is only built for scoped batches, narrow batches take the sparse
@@ -18,7 +19,12 @@ branch of :meth:`Engine.run`, not a compiled program.
 On a CUDA device the dense channel goes through the hand-written fused kernel when
 ``use_fused_topk`` is None or True (``ops/fused_topk.py``; bf16, f32, int8 and packed
 int4 rows), the term-table lexical backend through the term-table kernel
-(``ops/bm25.py``), and the rerank always through the MaxSim kernel (``ops/maxsim.py``).
+(``ops/bm25.py``), and the MaxSim rerank through the MaxSim kernel (``ops/maxsim.py``).
+
+An embedder with ``encode_queries_device`` (the trained encoder) encodes a batch on
+the device, and its outputs feed the program without a copy to the host
+(``device_query_encode``, the reference's default); the hash embedders embed on
+the host.
 """
 
 from __future__ import annotations
@@ -109,13 +115,17 @@ class Engine:
             )
         if cfg.semantic_backend == "ivf":
             raise NotImplementedError("semantic_backend='ivf' is not ported (ROADMAP.md, Queue 1)")
-        if cfg.rerank_enabled and cfg.rerank_backend == "dot":
-            raise NotImplementedError("rerank_backend='dot' is not ported (ROADMAP.md, Queue 1)")
         self.state = state
         self.corpus = state.corpus
         self.analyzer = Analyzer(cfg)
-        self.embedder = embedder or get_default_embedder(cfg)
+        self.embedder = embedder or get_default_embedder(cfg, device=self.device)
         self.planner = planner or get_planner(cfg)
+        # the anchored encoder's MaxSim renormalization, fixed for the engine's life
+        # (parallel/engine.py:549); 1.0 for the hash embedders
+        self.maxsim_calibration = float(getattr(self.embedder, "maxsim_calibration", 1.0))
+        # encode query batches on the device when the embedder can (False: the
+        # host path, embed_texts + token_embeddings)
+        self.device_query_encode = True
 
     def refresh(self, state: IndexState) -> bool:
         """Swap in an updated index state when every static statistic the program
@@ -141,6 +151,8 @@ class Engine:
                 state.maxsim_tokens is None
                 or state.maxsim_tokens.shape == old.maxsim_tokens.shape
             )
+            and (state.parent_emb is None) == (old.parent_emb is None)
+            and (state.parent_emb is None or state.parent_emb.shape == old.parent_emb.shape)
         )
         if same:
             self.state = state
@@ -152,7 +164,13 @@ class Engine:
     def prepare_queries(
         self, queries: Sequence[str], collections: Optional[Sequence[Optional[str]]] = None
     ) -> Tuple[List[QueryPlan], QueryArgs]:
-        """Host prep for a batch: plan, analyze, embed, seed, collection scope."""
+        """Host prep for a batch: plan, analyze, embed, seed, collection scope.
+
+        Embedding runs under the profiler range ``engine.encode``. With
+        ``device_query_encode`` and an embedder that has ``encode_queries_device``,
+        the query vectors and tokens are made on the device and stay there; a
+        failure there surfaces in :meth:`retrieve_batch`, which retries once
+        through the host path."""
         st = self.state
         cfg = self.config
         b = len(queries)
@@ -178,29 +196,8 @@ class Engine:
                     )
 
         sem_texts = [p.semantic_query_text or p.original_query for p in plans]
-        q_vec_f32 = np.zeros((b, st.dim), np.float32)
-        if st.has_dense:
-            # one batched embed call; a failed embed yields zero vectors, which the
-            # program's zero-vector guard turns into an empty dense channel
-            try:
-                raw = np.asarray(self.embedder.embed_texts(sem_texts), np.float32)
-            except Exception:
-                raw = np.zeros((b, self.embedder.dim), np.float32)
-            q_vec_f32 = truncate_matryoshka(raw, cfg.embedding_dim)
-        q_vec = q_vec_f32.astype(np.float16)
-
-        if st.maxsim_tokens is not None:
-            q_tokens_f32 = self.embedder.token_embeddings(
-                sem_texts, max_tokens=cfg.maxsim_query_tokens, dim=cfg.maxsim_dim
-            )
-            q_tok_mask = np.any(q_tokens_f32 != 0, axis=-1).astype(np.float16)
-            t_real = q_tok_mask.shape[1]
-            for i, t in enumerate(sem_texts):
-                q_tok_mask[i] *= maxsim_query_weights(t, self.analyzer, t_real).astype(np.float16)
-            q_tokens = q_tokens_f32.astype(np.float16)
-        else:
-            q_tokens = np.zeros((b, 1, 1), np.float16)
-            q_tok_mask = np.zeros((b, 1), np.float16)
+        with record_function("engine.encode"):
+            q_vec, q_tokens, q_tok_mask = self._encode(sem_texts)
 
         seed_rows = np.full((b, cfg.graph_max_seeds), -1, np.int32)
         graph_on = np.zeros((b,), bool)
@@ -235,8 +232,13 @@ class Engine:
         ).reshape(b, 4)
 
         dev = self.device
+
+        def to_dev(x):  # numpy from the host, or a tensor the device encode made
+            x = x if torch.is_tensor(x) else torch.from_numpy(x)
+            return x.to(dev, non_blocking=True)
+
         args = QueryArgs(
-            *(torch.from_numpy(x).to(dev, non_blocking=True) for x in (
+            *(to_dev(x) for x in (
                 q_terms, qs_terms, qs_slots, ql_terms, ql_slots, q_vec, q_tokens,
                 q_tok_mask, seed_rows, weights,
             )),
@@ -250,6 +252,51 @@ class Engine:
             coll_cid=torch.from_numpy(coll_cid).to(dev),
         )
         return plans, args
+
+    def _encode(self, sem_texts: Sequence[str]):
+        """(q_vec f16[B, D], q_tokens f16[B, Tq, Dm], q_tok_mask f16[B, Tq]) of the
+        semantic texts: tensors on the device from the device encode, else numpy
+        (the reference's f16 query wire either way)."""
+        st, cfg = self.state, self.config
+        b = len(sem_texts)
+        q_vec = q_tokens = q_tok_mask = None
+        encode = getattr(self.embedder, "encode_queries_device", None)
+        if self.device_query_encode and st.has_dense and encode is not None:
+            t_q = cfg.maxsim_query_tokens if st.maxsim_tokens is not None else 1
+            q_vec, tok, occupied = encode(
+                sem_texts, out_dim=cfg.embedding_dim, max_tokens=t_q, token_dim=cfg.maxsim_dim
+            )
+            if st.maxsim_tokens is not None:
+                q_tokens, q_tok_mask = tok, self._token_weights(occupied, sem_texts)
+        if q_vec is None:
+            q_vec_f32 = np.zeros((b, st.dim), np.float32)
+            if st.has_dense:
+                # one batched embed call; a failed embed yields zero vectors, which the
+                # program's zero-vector guard turns into an empty dense channel
+                try:
+                    raw = np.asarray(self.embedder.embed_texts(sem_texts), np.float32)
+                except Exception:
+                    raw = np.zeros((b, self.embedder.dim), np.float32)
+                q_vec_f32 = truncate_matryoshka(raw, cfg.embedding_dim)
+            q_vec = q_vec_f32.astype(np.float16)
+        if q_tokens is None and st.maxsim_tokens is not None:
+            q_tokens_f32 = self.embedder.token_embeddings(
+                sem_texts, max_tokens=cfg.maxsim_query_tokens, dim=cfg.maxsim_dim
+            )
+            q_tok_mask = self._token_weights(np.any(q_tokens_f32 != 0, axis=-1), sem_texts)
+            q_tokens = q_tokens_f32.astype(np.float16)
+        elif q_tokens is None:
+            q_tokens = np.zeros((b, 1, 1), np.float16)
+            q_tok_mask = np.zeros((b, 1), np.float16)
+        return q_vec, q_tokens, q_tok_mask
+
+    def _token_weights(self, occupied: np.ndarray, sem_texts: Sequence[str]) -> np.ndarray:
+        """f16[B, T] MaxSim query-token weights: the occupied slots, with function
+        words down-weighted (``maxsim_query_weights``)."""
+        w = occupied.astype(np.float16)
+        for i, t in enumerate(sem_texts):
+            w[i] *= maxsim_query_weights(t, self.analyzer, w.shape[1]).astype(np.float16)
+        return w
 
     # ------------------------------------------------------------------ device program
 
@@ -404,8 +451,13 @@ class Engine:
                     st.maxsim_tokens, st.maxsim_mask, parent_ids, args.q_tokens.float(),
                     args.q_tok_mask.float(),
                 ),
-                st.maxsim_calibration,
+                self.maxsim_calibration,
             )
+        elif cfg.rerank_enabled and st.parent_emb is not None:
+            # cosine against the parents' mean embeddings, mapped to [0, 1]
+            pe = st.parent_emb[parent_ids.clamp(0, st.parent_emb.shape[0] - 1)]
+            cos = torch.bmm(pe, args.q_vec.float()[:, :, None])[..., 0]
+            rerank = torch.where(parent_ids >= 0, (cos + 1.0) * 0.5, torch.zeros_like(cos))
         else:
             rerank = minmax_normalize(fused.ids, fused.rrf)
         if cfg.rerank_enabled:
@@ -439,6 +491,17 @@ class Engine:
         )
         return plans, self.run(args, scoped, graph)
 
+    def _search_host(self, queries, colls):
+        """:meth:`search_arrays` with its outputs copied to the host as numpy."""
+        plans, (ids, scores, refused, max_score, fused, rerank) = self.search_arrays(
+            queries, colls
+        )
+        ids, scores, refused, max_score, rerank = (
+            x.cpu().numpy() for x in (ids, scores, refused, max_score, rerank)
+        )
+        fused = FusedCandidates(*(x.cpu().numpy() for x in fused))
+        return plans, (ids, scores, refused, max_score, fused, rerank)
+
     def retrieve(self, query: str, top_k: Optional[int] = None, collection: Optional[str] = None
                  ) -> RetrievalResult:
         return self.retrieve_batch([query], top_k=top_k, collection=collection)[0]
@@ -454,12 +517,20 @@ class Engine:
         ``collections`` scopes per query."""
         colls = list(collections) if collections is not None else [collection] * len(queries)
         t0 = time.perf_counter()
-        plans, out = self.search_arrays(queries, colls)
+        try:
+            plans, out = self._search_host(queries, colls)
+        except RuntimeError:
+            # a failure of the device encode can surface only at the copy back to the
+            # host (kernels run asynchronously): retry once through the host path,
+            # then restore the fast path
+            if not self.device_query_encode:
+                raise
+            self.device_query_encode = False
+            try:
+                plans, out = self._search_host(queries, colls)
+            finally:
+                self.device_query_encode = True
         ids, scores, refused, max_score, fused, rerank = out
-        ids, scores, refused, max_score, rerank = (
-            x.cpu().numpy() for x in (ids, scores, refused, max_score, rerank)
-        )
-        fused = FusedCandidates(*(x.cpu().numpy() for x in fused))
         dispatch_ms = (time.perf_counter() - t0) * 1e3
 
         results: List[RetrievalResult] = []

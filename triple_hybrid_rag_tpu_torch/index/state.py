@@ -146,8 +146,9 @@ class IndexState:
     parent_of: torch.Tensor
     maxsim_tokens: Optional[torch.Tensor]  # bf16|i8[P, Td, Dm]
     maxsim_mask: Optional[torch.Tensor]
-    maxsim_calibration: float
     corpus: Any = None  # view with child_by_row / parent (decode)
+    # f32[P_pad, D] unit mean embeddings of each parent's chunks (the dot rerank)
+    parent_emb: Optional[torch.Tensor] = None
 
     @property
     def has_graph(self) -> bool:
@@ -178,12 +179,14 @@ class IndexState:
         int8[N, D] or packed int4 uint8[N, D/2] with ``dense_scales`` f32[N],
         ``valid`` bool[N]; ``nbr`` i32[E, Dg], ``chunk_entities`` i32[N, M];
         ``collection_of`` i32[N]; ``maxsim_tokens`` bf16/int8[P, Td, Dm],
-        ``maxsim_mask`` bool[P, Td].
+        ``maxsim_mask`` bool[P, Td]; ``parent_emb`` f32[P_pad, D] (the reference
+        reranker's ``parent_embeddings``, for the dot rerank).
 
         ``host``: ``vocab`` (list of terms), ``entity_keys`` + ``entities`` (the entity
         store's canonical keys and :class:`Entity` rows, in store order), ``row_of``,
-        ``seed_stop`` (bool[E] or None), ``collection_ids``, ``maxsim_calibration``,
-        ``corpus`` (a view for decoding), ``n_rows`` (the lexical table's capacity)."""
+        ``seed_stop`` (bool[E] or None), ``collection_ids``, ``corpus`` (a view for
+        decoding), ``n_rows`` (the lexical table's capacity). The MaxSim calibration
+        is not the index's: the engine takes it from its embedder."""
         dev = torch.device(device)
         t: Dict[str, Any] = {}
         h = dict(host)
@@ -197,7 +200,8 @@ class IndexState:
             h.update(bm25_l_max=l_max, stored_df=np.asarray(arrays["bm25_lengths"]),
                      idf=np.asarray(arrays["bm25_idf"], np.float32))
         for key in ("parent_of", "embeddings", "dense_scales", "valid", "nbr", "collection_of",
-                    "maxsim_tokens", "maxsim_mask", "bm25_term_ids", "bm25_term_weights"):
+                    "maxsim_tokens", "maxsim_mask", "bm25_term_ids", "bm25_term_weights",
+                    "parent_emb"):
             if key in arrays and arrays[key] is not None:
                 t[key] = arrays[key]
         if "chunk_entities" in arrays:
@@ -333,8 +337,8 @@ class IndexState:
             collection_ids=dict(host.get("collection_ids", {})),
             parent_of=_pad_rows(tt["parent_of"].int(), n_pad),
             maxsim_tokens=tokens, maxsim_mask=mask,
-            maxsim_calibration=float(host.get("maxsim_calibration", 1.0)),
             corpus=host.get("corpus"),
+            parent_emb=tt["parent_emb"].float().contiguous() if "parent_emb" in tt else None,
         )
 
     # ------------------------------------------------------------------ host lookups
@@ -404,6 +408,7 @@ class IndexState:
             "maxsim": [self.maxsim_tokens, self.maxsim_mask],
             "graph": [self.nbr, self.chunk_entities, self.g_offsets, self.g_lengths, self.g_docs],
             "tables": [self.parent_of, self.collection_of],
+            "parent_emb": [self.parent_emb],
         }
         return {
             k: sum(t.numel() * t.element_size() for t in v if t is not None)

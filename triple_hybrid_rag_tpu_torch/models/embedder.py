@@ -1,9 +1,9 @@
 """Hash embedders: text -> fixed-dim vectors for the dense channel and MaxSim tokens.
 
 Copies of the JAX package's ``HashEmbedder`` and ``BowHashEmbedder`` (text only), so a
-query embeds to the same numpy vector on both sides. The trained encoder is not
-ported yet: :func:`get_default_embedder` raises for ``"auto"``/``"encoder"`` rather
-than quietly substituting a hash embedder where the reference would load the model.
+query embeds to the same numpy vector on both sides. :func:`get_default_embedder`
+resolves ``embedder_backend`` as the reference does: "auto" and "encoder" load the
+trained encoder (``models/encoder.py``) from the packaged weights.
 """
 
 from __future__ import annotations
@@ -124,18 +124,26 @@ class BowHashEmbedder:
         return out
 
 
-def get_default_embedder(config: Optional[RAGConfig] = None):
-    """Resolve ``config.embedder_backend``: "bowhash" or "hash".
+def get_default_embedder(config: Optional[RAGConfig] = None, device=None):
+    """Resolve ``config.embedder_backend`` to an embedder.
 
-    The reference's "auto"/"encoder" load its trained transformer encoder, which this
-    package does not have yet (ROADMAP.md, Queue 1: the query encoder)."""
+    "auto" prefers the packaged trained encoder, built on ``device`` (CUDA unless
+    ``device="cpu"``), and falls back to :class:`BowHashEmbedder` only when the
+    weights are absent or unreadable; "encoder" requires the weights and raises
+    without them; "bowhash" and "hash" are the hash embedders."""
     cfg = config or get_settings()
     backend = cfg.embedder_backend
+    if backend in ("auto", "encoder"):
+        from .pretrain import load_default_encoder
+
+        enc = load_default_encoder(cfg, device=device)
+        if enc is not None:
+            return enc
+        if backend == "encoder":
+            raise RuntimeError(
+                "embedder_backend='encoder' but no packaged weights were found "
+                "(triple_hybrid_rag_tpu/models/data/encoder.npz, or encoder_params_path)"
+            )
     if backend == "hash":
         return HashEmbedder(dim=cfg.embedding_dim_full)
-    if backend == "bowhash":
-        return BowHashEmbedder(dim=cfg.embedding_dim_full, config=cfg)
-    raise NotImplementedError(
-        f"embedder_backend={backend!r} needs the trained encoder, which is not ported "
-        "(ROADMAP.md, Queue 1: query encoder); use 'bowhash' or 'hash'"
-    )
+    return BowHashEmbedder(dim=cfg.embedding_dim_full, config=cfg)

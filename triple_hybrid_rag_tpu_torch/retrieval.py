@@ -1,14 +1,17 @@
-"""Host helpers of the query path: MaxSim query-token weights and the decode of
-device rows into :class:`~triple_hybrid_rag_tpu_torch.types.SearchResult` records.
-Copies of the JAX package's ``retrieval.py`` helpers of the same names."""
+"""Helpers of the query path: MaxSim query-token weights, the parents' mean
+embeddings of the dot rerank, and the decode of device rows into
+:class:`~triple_hybrid_rag_tpu_torch.types.SearchResult` records. Ports of the JAX
+package's ``retrieval.py`` helpers of the same names."""
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from .analyzer import Analyzer
+from .index.dense_index import unpack_int4
 from .ops.fusion import GRAPH_BIT, LEXICAL_BIT, SEMANTIC_BIT
 from .types import SearchResult
 
@@ -52,6 +55,48 @@ def maxsim_query_weights(text: str, analyzer: Analyzer, max_tokens: int) -> np.n
     for j, t in enumerate(analyzer.tokenize(text)[:max_tokens]):
         w[j] = FUNCTION_WORD_WEIGHT if t in fw else 1.0
     return w
+
+
+_ROW_BLOCK = 1 << 17  # rows dequantized at once (bounds the f32 transient)
+
+
+def dequant_f32(rows: torch.Tensor, scales: Optional[torch.Tensor]) -> torch.Tensor:
+    """f32 view of dense rows (the reference's ``index/ivf._dequant_f32``): f32/bf16
+    as they are, int8 times the row scale, packed int4 unpacked then scaled. The
+    width is the logical dim (twice the stored width for int4)."""
+    if rows.dtype == torch.uint8:
+        r = torch.cat(unpack_int4(rows), dim=-1).float()
+    else:
+        r = rows.float()
+    if scales is not None and rows.dtype in (torch.int8, torch.uint8):
+        r = r * scales[:, None]
+    return r
+
+
+def build_parent_embeddings(
+    embeddings: torch.Tensor,
+    scales: Optional[torch.Tensor],
+    parent_rows: Union[Sequence[int], torch.Tensor],
+    p_pad: int,
+) -> torch.Tensor:
+    """f32[p_pad, D] parent embeddings on the rows' device: each parent is the
+    L2-normalized mean of its chunks' dequantized rows (the reference's
+    ``Retriever._build_parent_embeddings``). ``parent_rows`` maps the first
+    chunk rows to their parent; rows past it (padding) fall into the last parent
+    slot, as in the reference."""
+    dev = embeddings.device
+    n = embeddings.shape[0]
+    seg = torch.full((n,), p_pad - 1, dtype=torch.long, device=dev)
+    rows = torch.as_tensor(parent_rows, dtype=torch.long, device=dev)
+    seg[: rows.shape[0]] = rows
+    dim = embeddings.shape[1] * (2 if embeddings.dtype == torch.uint8 else 1)
+    sums = torch.zeros((p_pad, dim), dtype=torch.float32, device=dev)
+    for lo in range(0, n, _ROW_BLOCK):
+        hi = lo + _ROW_BLOCK
+        block_scales = None if scales is None else scales[lo:hi]
+        sums.index_add_(0, seg[lo:hi], dequant_f32(embeddings[lo:hi], block_scales))
+    norms = torch.linalg.vector_norm(sums, dim=1, keepdim=True)
+    return sums / torch.clamp(norms, min=1e-12)
 
 
 def decode_results(corpus, fused, rerank_scores, final_ids, final_scores) -> List[SearchResult]:

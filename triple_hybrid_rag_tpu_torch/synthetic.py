@@ -16,11 +16,16 @@ unrounded (as the reference's dense index stores them under that dtype),
 stores the MaxSim tokens as int8 (as ``bench.py`` does), and ``lexical_backend``
 "termtable" / "postings"
 places the doc-major term table (:func:`build_term_table`) instead of the postings.
+
+:func:`encode_rows` re-embeds chosen rows with the trained encoder: their dense
+rows and their parents' MaxSim tokens become the encoder's, the other rows keep the
+BowHash geometry, so queries drawn from those rows self-retrieve under the encoder
+while the dense scan still reads every row.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +34,7 @@ from .analyzer import Vocabulary
 from .config import RAGConfig
 from .corpus import SyntheticCorpusView
 from .device import resolve_device
-from .index.dense_index import quantize_rows_int4, quantize_rows_int8
+from .index.dense_index import quantize_rows_int4, quantize_rows_int8, truncate_matryoshka
 from .index.state import IndexState
 from .models.embedder import BowHashEmbedder
 from .models.entity_extractor import canonical_key
@@ -127,6 +132,71 @@ def document_rows(
     return emb
 
 
+def maxsim_store(
+    term_ids: torch.Tensor,  # i[n_pad, L_DOC] the terms of each document
+    n: int,
+    embedder: BowHashEmbedder,
+    config: RAGConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MaxSim token store on ``term_ids``' device: parent p holds the BowHash
+    token vectors of chunk 5p's first ``maxsim_doc_tokens`` terms at width
+    ``maxsim_dim``, int8 under int8/int4 rows (as the reference stores them), bf16
+    otherwise. Returns (tokens [P_pad, Td, Dm], mask bool[P_pad, Td])."""
+    cfg = config
+    dev = term_ids.device
+    m_dim, td = cfg.maxsim_dim, cfg.maxsim_doc_tokens
+    terms = [term_str(i) for i in range(VOCAB)]
+    mtok = embedder.token_embeddings(terms, max_tokens=1, dim=m_dim)[:, 0, :]
+    mdirs = torch.from_numpy(mtok).to(torch.float16).to(dev)
+    n_parents = n // CHILDREN_PER_PARENT
+    p_pad = cfg.round_capacity(n_parents)
+    parent_terms = torch.zeros((p_pad, td), dtype=torch.long, device=dev)
+    parent_terms[:n_parents] = term_ids[: CHILDREN_PER_PARENT * n_parents : CHILDREN_PER_PARENT, :td].long()
+    tokens = mdirs[parent_terms]
+    if cfg.embedding_dtype in ("int8", "int4"):  # MaxSim tokens stay int8 under int4 dense
+        tokens = quantize_tokens(tokens)
+    else:
+        tokens = tokens.to(torch.bfloat16)
+    tok_mask = (torch.arange(p_pad, device=dev) < n_parents)[:, None].expand(p_pad, td).contiguous()
+    return tokens, tok_mask
+
+
+def encode_rows(
+    state: IndexState,
+    rows: Sequence[int],
+    embedder,
+    text_of: Callable[[int], str],
+) -> None:
+    """Overwrite, in place and in the state's dtypes, the dense rows of ``rows``
+    with ``embedder.embed_texts`` of their texts (Matryoshka-truncated to the
+    state's width) and the MaxSim tokens of their parents with
+    ``embedder.token_embeddings`` of each parent's text, its first chunk's (as
+    :func:`build_synthetic` lays parents out), truncated and renormalized to the
+    store's width; the parents' token masks become the occupied slots."""
+    dev = state.device
+    rows = sorted({int(r) for r in rows})
+    idx = torch.tensor(rows, dtype=torch.long, device=dev)
+    vec = truncate_matryoshka(embedder.embed_texts([text_of(r) for r in rows]), state.dim)
+    vec = torch.from_numpy(vec).to(dev)
+    emb = state.embeddings
+    if emb.dtype in (torch.int8, torch.uint8):
+        quantize = quantize_rows_int8 if emb.dtype == torch.int8 else quantize_rows_int4
+        emb[idx], state.dense_scales[idx] = quantize(vec)
+    else:
+        emb[idx] = vec.to(emb.dtype)
+    if state.maxsim_tokens is None:
+        return
+    parents = torch.unique(state.parent_of[idx].long())
+    first = (parents * CHILDREN_PER_PARENT).tolist()
+    td, m_dim = state.maxsim_tokens.shape[1:]
+    tok = embedder.token_embeddings([text_of(r) for r in first], max_tokens=td, dim=m_dim)
+    full = torch.zeros((len(first), td, m_dim), dtype=torch.float32, device=dev)
+    full[:, : tok.shape[1]] = torch.from_numpy(tok).to(dev)
+    store = state.maxsim_tokens
+    store[parents] = quantize_tokens(full) if store.dtype == torch.int8 else full.to(store.dtype)
+    state.maxsim_mask[parents] = (full != 0).any(dim=-1)
+
+
 def build_synthetic(
     config: RAGConfig,
     n: int,
@@ -192,7 +262,6 @@ def build_synthetic(
 
     # ---- dense rows = BowHash of each document's terms ----
     embedder = BowHashEmbedder(dim=dim, config=cfg)
-    terms = [term_str(i) for i in range(VOCAB)]
     row_dtype = torch.float32 if cfg.embedding_dtype == "float32" else torch.bfloat16
     emb = document_rows(term_ids, embedder, row_dtype)
     valid = torch.arange(n_pad, device=dev) < n
@@ -202,21 +271,7 @@ def build_synthetic(
         dense["embeddings"], dense["dense_scales"] = quantize(emb)
     del emb
 
-    # ---- MaxSim token store: parent p holds chunk 5p's first terms ----
-    m_dim, td = cfg.maxsim_dim, cfg.maxsim_doc_tokens
-    mtok = embedder.token_embeddings(terms, max_tokens=1, dim=m_dim)[:, 0, :]
-    mdirs = torch.from_numpy(mtok).to(torch.float16).to(dev)
-    n_parents = n // CHILDREN_PER_PARENT
-    p_pad = cfg.round_capacity(n_parents)
-    parent_terms = torch.zeros((p_pad, td), dtype=torch.long, device=dev)
-    parent_terms[:n_parents] = term_ids[: CHILDREN_PER_PARENT * n_parents : CHILDREN_PER_PARENT, :td].long()
-    tokens = mdirs[parent_terms]
-    if cfg.embedding_dtype in ("int8", "int4"):  # MaxSim tokens stay int8 under int4 dense
-        tokens = quantize_tokens(tokens)
-    else:
-        tokens = tokens.to(torch.bfloat16)
-    tok_mask = (torch.arange(p_pad, device=dev) < n_parents)[:, None].expand(p_pad, td).contiguous()
-    del parent_terms, mdirs
+    tokens, tok_mask = maxsim_store(term_ids, n, embedder, cfg)
     parent_of = (torch.arange(n_pad, device=dev) // CHILDREN_PER_PARENT).to(torch.int32)
 
     # ---- graph: random adjacency (mean degree deg/2) + two mentions per chunk ----
@@ -247,7 +302,7 @@ def build_synthetic(
             "bm25_l_max": l_max,
             "stored_df": stored_df.cpu().numpy(),
             "idf": idf.cpu().numpy(),
-            "vocab": Vocabulary.from_list(terms),
+            "vocab": Vocabulary.from_list([term_str(i) for i in range(VOCAB)]),
             "chunk_entities_host": chunk_entities.cpu().numpy(),
             "entity_keys": [canonical_key(e.canonical_name) for e in entities],
             "entities": entities,
