@@ -37,9 +37,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``synthetic.encode_rows``): self-retrieval at B = 128 and B = 1 with the device
    encode on and off (both must agree up to near ties), the encoder's device and
    host ms, program wall, device busy and e2e ms per query; and one batch with
-   ``rerank_backend="dot"`` over the parents' mean embeddings.
+   ``rerank_backend="dot"`` over the parents' mean embeddings;
+5. ``semantic_backend="ivf"`` at the reference's defaults (512-row blocks, 1,954
+   clusters, 8 k-means iterations, 32 probes) on the same corpus, bf16 rows and
+   then int8 rows with the int8 MaxSim store: the layout's build time and peak
+   memory, self-retrieval, the semantic channel's recall against the exact scan, no
+   bucket-maxima launch and the MaxSim body launched, program wall, device busy and
+   ``engine.dense`` beside the exact kernel path at B = 128 and B = 1; and with every
+   block probed on a 65,536-row cut, the exact f32 scan's ids up to near ties;
+6. ingestion: the default ``RAGConfig`` through ``RAG(device="cuda")`` ingests the
+   docstrings of this Python's standard library (``ingest_text``, one collection per
+   top-level module), failing on a FAILED result, on an embed that fell back to zero
+   vectors and on an all-zero dense row; then ``query_batch`` at B = 128 and B = 1
+   with queries made of chunks' own first twelve analyzer tokens (self-retrieval,
+   both kernels launched, e2e, program wall, device busy), a repeated ingest that
+   must be skipped, a new document that must go through ``Engine.refresh`` and be
+   found, and a 200-document subset ingested on the card and on the CPU (equal
+   chunk ids, BM25 and graph arrays; dense rows within ``ENCODER_ATOL``).
 
-Any failed check exits non-zero. The second-to-last line is a JSON object with
+Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches, error and times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
@@ -122,6 +138,7 @@ OWN_KERNELS = {"engine.dense": ("bucket_max",), "engine.lexical": ("termtable_ke
 ENCODER_ATOL = 2e-2
 N_ENCODER_TEXTS = 64
 T_START = time.time()
+STAGE_MS: dict = {}  # engine stage -> device ms per batch of the last stage_profile
 
 
 def log(msg: str) -> None:
@@ -752,7 +769,7 @@ def main_path(dev, card):
         graph_max_entities_per_chunk=4, lexical_backend="sorted", bm25_df_cap=DF_CAP,
         embedder_backend="bowhash",
     )
-    t0 = time.time()
+    t0 = t_phase = time.time()
     syn = build_synthetic(cfg, N_ROWS, DIM, N_ENTITIES, seed=0, device=dev)
     torch.cuda.synchronize()
     st = syn.state
@@ -863,8 +880,14 @@ def main_path(dev, card):
     for kind in ("int8", "int4"):
         launches[f"fused_bucket_maxima_{kind}"], n_int8 = quantized_path(run, cfg, kind)
         launches["maxsim_scores_int8"] += n_int8
+    log(f"phase 3 wall time {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
     launches["default_config"] = encoder_path(run, card)
-    log(f"peak device memory over the whole run {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"phase 4 wall time {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    launches["ivf"] = ivf_path(run, eng, cfg, card)
+    log(f"phase 5 wall time {time.time() - t_phase:.1f} s")
+    log(f"peak device memory over phases 3-5 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches
 
 
@@ -1337,6 +1360,316 @@ def encoder_timing(run, eng, card_name):
     stage_profile(eng, batches, "default config, prepare_queries + run", texts=True)
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def program_times(eng, batches, label: str):
+    """(program wall ms/batch on prepared args, device busy ms/batch, engine.dense
+    device ms/batch) of ``eng`` over ``batches`` of query texts."""
+    args = [eng.prepare_queries(tb)[1] for tb in batches]
+    eng.run(args[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in args:
+        eng.run(a)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(args) * 1e3
+    busy = stage_profile(eng, args, label)
+    return wall, busy, STAGE_MS.get("engine.dense", float("nan"))
+
+
+def ivf_path(run, eng_exact, cfg, card):
+    """semantic_backend="ivf" at the reference's defaults (512-row blocks, 32 probes,
+    8 k-means iterations, one cluster per block) over the 1M-chunk corpus: bf16
+    rows, then int8 rows with the int8 MaxSim store; then full probes on a cut of
+    the rows against the exact f32 scan. Returns the MaxSim launches by body."""
+    from triple_hybrid_rag_tpu_torch.index import dense_index as di
+    from triple_hybrid_rag_tpu_torch.index.ivf import dequant_f32, ivf_build_local, ivf_topk_local
+    from triple_hybrid_rag_tpu_torch.index.state import ivf_layout
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores, quantize_tokens
+    from triple_hybrid_rag_tpu_torch.ops.topk import sort_topk_desc
+
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+
+    st, texts = run.syn.state, run.texts
+    cfg_i = cfg.replace(semantic_backend="ivf")
+
+    def ivf_settings(c):
+        return c.ivf_block_rows, c.ivf_probes, c.ivf_kmeans_iters, c.ivf_clusters
+
+    if ivf_settings(cfg_i) != ivf_settings(RAGConfig()):
+        fail(f"IVF settings {ivf_settings(cfg_i)} are not the defaults")
+    launches = {}
+    for kind in ("bf16", "int8"):
+        label = f"IVF {kind} rows"
+        base = st
+        if kind == "int8":
+            rows_q, scales = di.quantize_rows_int8(st.embeddings)
+            base = dataclasses.replace(st, embeddings=rows_q, dense_scales=scales,
+                                       maxsim_tokens=quantize_tokens(st.maxsim_tokens))
+        cfg_k = cfg_i.replace(embedding_dtype="int8" if kind == "int8" else "bfloat16")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.time()
+        st_i = ivf_layout(base, cfg_k)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        build_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        n_blocks = st_i.ivf_centroids.shape[0]
+        ivf_gb = (st_i.nbytes()["ivf"] + st_i.embeddings.numel() * st_i.embeddings.element_size()
+                  + (0 if st_i.dense_scales is None else st_i.dense_scales.numel() * 4)) / 1e9
+        alive = st_i.ivf_perm < st_i.n_pad
+        src = st_i.ivf_perm[alive]
+        if not (torch.equal(st_i.embeddings[alive], base.embeddings[src])
+                and (kind == "bf16" or torch.equal(st_i.dense_scales[alive], base.dense_scales[src]))
+                and int(alive.sum()) == int(base.valid.sum())):
+            fail(f"{label}: the reordered rows or scales are not the placed rows of their slots")
+        log(f"{label}: IVF layout of {st_i.n_pad} rows in {n_blocks} blocks of {cfg_k.ivf_block_rows}, "
+            f"{n_blocks} clusters, built on the card in {build_s:.2f} s; peak device memory of the "
+            f"build {build_peak:.3f} GB above the {held / 1e9:.2f} GB held; IVF arrays "
+            f"(reordered rows and scales, perm, centroids) {ivf_gb:.3f} GB; card {card}")
+        eng = run.engine(st_i, cfg_k)
+        bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+        maxsim_counts_reset()
+        run.self_retrieval(eng, label)
+        torch.cuda.synchronize()
+        if sum(bucket_maxima.launches_by_rows.values()):
+            fail(f"{label}: bucket maxima launched under IVF: {bucket_maxima.launches_by_rows}")
+        launches[kind] = maxsim_body_launches(kind, label, st_i)
+        # the semantic channel against the exact scan of the same rows
+        eng_x = run.engine(base, cfg_k.replace(semantic_backend="exact"))
+        a = eng.prepare_queries(texts[:BATCH])[1]
+        ids_i, _ = eng._dense(a, None, False)
+        ids_e, _ = eng_x._dense(a, None, False)
+        found = [len(set(x.tolist()) & set(y[y >= 0].tolist())) / max(int((y >= 0).sum()), 1)
+                 for x, y in zip(ids_i.cpu(), ids_e.cpu())]
+        log(f"{label}: semantic channel recall@{cfg.semantic_top_k} against the exact scan "
+            f"{float(np.mean(found)):.4f} (min {min(found):.4f}) over {BATCH} queries")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        eng.run(a)
+        torch.cuda.synchronize()
+        log(f"{label}: peak device memory of a B={BATCH} batch {(torch.cuda.max_memory_allocated() - held) / 1e9:.3f} GB "
+            f"above the {held / 1e9:.2f} GB held")
+        for b in (BATCH, 1):
+            batches = [texts[i * b:(i + 1) * b] for i in range(2, 2 + (2 if b == BATCH else 8))]
+            got = {name: program_times(e, batches, f"{label}, {name}, B={b}")
+                   for name, e in (("IVF", eng), ("exact kernel path", eng_x))}
+            log(f"{label} B={b}: program wall / device busy / engine.dense device ms per batch: "
+                + "; ".join(f"{k} {w:.4f} / {bz:.4f} / {dn:.4f}" for k, (w, bz, dn) in got.items())
+                + f"; card {card}")
+        del eng, eng_x, st_i, base
+        torch.cuda.empty_cache()
+
+    # full probes on a cut of the rows: the exact f32 scan's ids up to near ties
+    rows, valid = st.embeddings[:65_536], st.valid[:65_536]
+    n_cut = rows.shape[0]
+    layout = ivf_build_local(rows, None, valid, block_rows=cfg.ivf_block_rows)
+    q = eng_exact.prepare_queries(texts[:BATCH])[1].q_vec.float()
+    ids, vals = ivf_topk_local(*layout, q, probes=layout[3].shape[0], top_k=cfg.semantic_top_k)
+    exact = (q @ dequant_f32(rows, None).T).masked_fill(~valid[None, :], float("-inf"))
+    ids_e, vals_e = sort_topk_desc(exact, torch.arange(n_cut, device=q.device).expand_as(exact),
+                                   cfg.semantic_top_k)
+    n_diff = near_ties_only(ids, ids_e, vals_e, 1e-5)
+    gap = max_err(torch.sort(vals, 1).values, torch.sort(vals_e, 1).values)
+    log(f"IVF full probes ({layout[3].shape[0]} blocks of {n_cut} rows): {n_diff} of {ids.numel()} "
+        f"slots differ from the exact f32 scan (near ties, atol 1e-5); max score gap {gap:.3g}")
+    if n_diff < 0 or not gap <= 1e-5:
+        fail("IVF with every block probed differs from the exact scan")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def stdlib_docstrings(min_chars: int = 200):
+    """(name, docstring) of every module of this Python's standard library and of
+    every class and function whose docstring has at least ``min_chars`` characters,
+    parsed with ``ast``; test packages, idlelib and site-packages left out."""
+    import ast
+    import sysconfig
+    from pathlib import Path
+
+    root = Path(sysconfig.get_paths()["stdlib"])
+    skip = {"test", "tests", "idlelib", "site-packages"}
+    mods, defs = [], []
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(root)
+        if skip & set(rel.parts[:-1]):
+            continue
+        try:
+            tree = ast.parse(path.read_text(encoding="utf-8"))
+        except (SyntaxError, UnicodeDecodeError, ValueError):
+            continue
+        module = ".".join(rel.with_suffix("").parts)
+        doc = ast.get_docstring(tree)
+        if doc:
+            mods.append((module, doc))
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+                text = ast.get_docstring(node)
+                if text and len(text) >= min_chars:
+                    defs.append((f"{module}.{node.name}", text))
+    return mods, defs
+
+
+def ingest_all(rag, docs, label: str):
+    """``ingest_text`` of every (name, text), collection = the top-level module.
+    Fails on a FAILED result or on an embed that fell back to zero vectors.
+    Returns the summed stage ms."""
+    from triple_hybrid_rag_tpu_torch.types import IngestionStatus
+
+    stages = dict.fromkeys(("load_ms", "chunk_ms", "embed_ms", "store_ms", "ner_ms"), 0.0)
+    for name, text in docs:
+        res = rag.ingest_text(text, name=f"{name}.txt", collection=name.split(".")[0])
+        if res.status == IngestionStatus.FAILED:
+            fail(f"{label}: ingesting {name} failed: {res.error}")
+        if rag.ingestor.embedder.last_errors:
+            fail(f"{label}: {name}: the embedder fell back to zero vectors for items "
+                 f"{rag.ingestor.embedder.last_errors}")
+        for k in stages:
+            stages[k] += res.timings.get(k, 0.0)
+    return stages
+
+
+def ingest_path(dev, card):
+    """The default RAGConfig ingests the standard library's docstrings through the
+    facade on the card and serves them. Returns the launches of the bf16 bucket
+    maxima and the bf16 MaxSim body over the queries."""
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+    from triple_hybrid_rag_tpu_torch.analyzer import Analyzer
+    from triple_hybrid_rag_tpu_torch.models.encoder import EncoderEmbedder
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+
+    t0 = time.time()
+    mods, defs = stdlib_docstrings()
+    docs = mods + defs
+    log(f"stdlib docstrings: {len(mods)} modules + {len(defs)} classes and functions = "
+        f"{len(docs)} documents, {sum(len(t) for _, t in docs) / 1e6:.3f} MB, parsed in "
+        f"{time.time() - t0:.1f} s")
+    cfg = RAGConfig()
+    rag = RAG(cfg, device=dev, use_sharded_engine=True)
+    emb = rag.ingestor.embedder.inner
+    if not isinstance(emb, EncoderEmbedder) or emb.maxsim_calibration != 0.6:
+        fail(f"the default RAGConfig built {type(emb).__name__}, not the encoder")
+    t0 = time.time()
+    stages = ingest_all(rag, docs, "stdlib ingest")
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t0
+    t0 = time.time()
+    retriever = rag.retriever
+    st = retriever.state
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    stats = rag.stats()
+    corpus = rag.ingestor.corpus
+    n = len(corpus)
+    zero = int((~(st.embeddings[:n] != 0).any(dim=1)).sum())
+    log(f"stdlib ingest: {stats['documents']} documents, {stats['parents']} parents, "
+        f"{stats['children']} children, {stats['graph_entities']} entities, "
+        f"{stats['graph_relations']} relations, {stats['graph_mentions']} mentions in "
+        f"{ingest_s:.1f} s (stage sums, s: "
+        + ", ".join(f"{k[:-3]} {v / 1e3:.2f}" for k, v in stages.items())
+        + f"); index build and placement {build_s:.2f} s; device GB "
+        + str({k: round(v / 1e9, 4) for k, v in st.nbytes().items()})
+        + f"; n_pad {st.n_pad}, lexical {st.lexical_mode}, graph {st.graph_mode}; documents past "
+        f"the term table's {cfg.doc_term_capacity} slots {retriever.bm25_index.overflow_docs}, "
+        f"entities past {cfg.graph_max_degree} neighbours {retriever.graph_index.overflow_entities}"
+        f"; card {card}")
+    if zero:
+        fail(f"stdlib ingest: {zero} stored chunks have an all-zero dense row")
+
+    analyzer = Analyzer(cfg)
+    rows = np.linspace(0, n - 1, BATCH).astype(int)
+    queries = [" ".join(analyzer.tokenize(corpus.children[r].text)[:12]) for r in rows]
+    same_text = {}
+    for c in corpus.children:
+        same_text.setdefault(c.text, set()).add(c.chunk_id)
+
+    def hits(results, idx):
+        return sum(any(x.chunk_id in same_text[corpus.children[rows[i]].text] for x in r.results)
+                   for i, r in zip(idx, results))
+
+    rag.query_batch(queries[:8])  # warm-up
+    torch.cuda.synchronize()
+    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    maxsim_counts_reset()
+    res = rag.query_batch(queries)
+    ones = [rag.query_batch([queries[i]])[0] for i in range(8)]
+    torch.cuda.synchronize()
+    launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
+                "maxsim_scores": maxsim_body_launches("bf16", "stdlib queries", st)}
+    frac = hits(res, range(BATCH)) / BATCH
+    one_frac = hits(ones, range(8)) / 8
+    log(f"stdlib queries: self-retrieval {frac:.4f} of {BATCH} at B={BATCH} (refused "
+        f"{sum(r.refused for r in res)}), {one_frac:.4f} of 8 at B=1; kernel launches {launches} "
+        f"(bucket maxima by row type {bucket_maxima.launches_by_rows})")
+    if frac < 0.95 or one_frac < 0.75:
+        fail(f"stdlib queries: self-retrieval {frac} at B={BATCH}, {one_frac} at B=1")
+    if min(launches.values()) < 1 or sum(bucket_maxima.launches_by_rows.values()) != launches[
+            "fused_bucket_maxima"]:
+        fail("stdlib queries: the bf16 bucket maxima and MaxSim bodies were not the ones launched")
+    eng = rag._engine
+    for b in (BATCH, 1):
+        batches = [queries, queries] if b == BATCH else [[q] for q in queries[:8]]
+        t0 = time.perf_counter()
+        for tb in batches:
+            rag.query_batch(tb)
+        e2e = (time.perf_counter() - t0) / (len(batches) * b) * 1e3
+        wall, busy, dense = program_times(eng, batches, f"stdlib queries, B={b}")
+        log(f"stdlib queries B={b}: e2e {e2e:.4f} ms/query (query_batch, host prep and decode "
+            f"included); program wall {wall / b:.4f} ms/query, device busy {busy / b:.4f} "
+            f"ms/query, engine.dense {dense:.4f} ms/batch; card {card}")
+
+    # the same text again is skipped; a new document refreshes the engine and is found
+    name, text = docs[0]
+    if not rag.ingest_text(text, name=f"{name}.txt", collection=name.split(".")[0]).skipped:
+        fail("ingesting the same text again was not skipped")
+    new = ("Zorblax quintessors recalibrate the flumbering of vexillary gaskets whenever "
+           "the quorple threshold drifts. A quintessor keeps its gasket ledger in moss.")
+    res_new = rag.ingest_text(new, name="zorblax.txt", collection="zorblax")
+    t0 = time.time()
+    rag.retriever  # rebuilt: the corpus changed
+    refreshed = rag._engine is eng
+    log(f"new document ({res_new.n_children} chunks): retriever rebuilt in {time.time() - t0:.2f} s, "
+        f"engine refreshed in place: {refreshed}")
+    if not refreshed:
+        fail("the new document did not go through Engine.refresh")
+    found = rag.query_batch(["zorblax quintessors recalibrate vexillary gaskets"])[0]
+    if not found.results or found.results[0].doc_id != res_new.doc_id:
+        fail("the new document was not retrieved by its own text")
+    del rag, eng, st, retriever
+    torch.cuda.empty_cache()
+
+    # the same subset on the card and on the CPU: equal ids and arrays
+    subset = docs[::max(1, len(docs) // 200)][:200]
+    built = []
+    for where in (dev, "cpu"):
+        t0 = time.time()
+        r = RAG(cfg, device=where, use_sharded_engine=True)
+        ingest_all(r, subset, f"subset on {where}")
+        built.append((r.ingestor.corpus, r.retriever.state))
+        log(f"subset of {len(subset)} documents ingested and placed on {where} in "
+            f"{time.time() - t0:.1f} s")
+    (c_gpu, s_gpu), (c_cpu, s_cpu) = built
+    if [c.chunk_id for c in c_gpu.children] != [c.chunk_id for c in c_cpu.children]:
+        fail("card and CPU ingests gave different chunk ids")
+    for key in ("lex_offsets", "lex_lengths", "lex_pd", "lex_pt", "nbr", "chunk_entities",
+                "g_offsets", "g_lengths", "g_docs", "parent_of", "collection_of"):
+        a, b = getattr(s_gpu, key), getattr(s_cpu, key)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
+            fail(f"card and CPU ingests placed different {key}")
+    gap = float((s_gpu.embeddings.float().cpu() - s_cpu.embeddings.float()).abs().max())
+    log(f"subset: chunk ids, BM25 and graph arrays equal on card and CPU; dense rows within "
+        f"{gap:.3g} (atol {ENCODER_ATOL}, the card's bf16 encoder against the CPU's)")
+    if not gap <= ENCODER_ATOL:
+        fail(f"card and CPU dense rows differ by {gap}")
+    return launches
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -1362,7 +1695,8 @@ def stage_profile(eng, args, label: str, texts: bool = False) -> float:
     (torch.profiler; the profiler's own cost is in the wall time). ``args`` are
     prepared batches, or with ``texts`` batches of query texts that
     ``prepare_queries`` prepares inside the window (its ``engine.encode`` stage
-    included). Returns the device busy ms per batch (the sum of the kernels' times)."""
+    included). Returns the device busy ms per batch (the sum of the kernels' times)
+    and leaves each stage's kernel ms per batch in ``STAGE_MS``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1390,7 +1724,8 @@ def stage_profile(eng, args, label: str, texts: bool = False) -> float:
         log(f"profile ({label}): the profiler recorded no device time (not measured)")
         return float("nan")
     n = len(args)
-    log(f"profile ({label}) over {n} batches of {BATCH}: wall {wall_ms / n:.3f} ms/batch, device busy "
+    width = (len(args[0]) if texts else args[0].q_vec.shape[0]) if args else 0
+    log(f"profile ({label}) over {n} batches of {width}: wall {wall_ms / n:.3f} ms/batch, device busy "
         f"{busy / n:.3f} ms/batch ({100 * busy / wall_ms:.1f} % of wall, idle "
         f"{100 * max(0.0, 1 - busy / wall_ms):.1f} %)")
     # the profiler attributes to a stage's range the kernels that PyTorch's own ops
@@ -1398,6 +1733,7 @@ def stage_profile(eng, args, label: str, texts: bool = False) -> float:
     # no range, so the package's kernels are added to their stage by name
     own_ms = {stage: sum(dev_self(e) for e in kernels if any(w in e.key for w in words))
               for stage, words in OWN_KERNELS.items()}
+    STAGE_MS.clear()
     for e in events:
         if not e.key.startswith("engine."):
             continue
@@ -1405,6 +1741,7 @@ def stage_profile(eng, args, label: str, texts: bool = False) -> float:
             log(f"  stage {e.key}: device span {dev_self(e) / n:.3f} ms/batch")
         else:
             ops, mine = dev_total(e) / n, own_ms.get(e.key, 0.0) / n
+            STAGE_MS[e.key] = ops + mine
             log(f"  stage {e.key}: kernels {ops + mine:.3f} ms/batch ({ops:.3f} of PyTorch's ops + "
                 f"{mine:.3f} hand-written), host {e.cpu_time_total / 1e3 / n:.3f} ms/batch")
     # the twelve longest, and the package's own kernels wherever they stand
@@ -1430,7 +1767,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.time()
     build.build()
-    log(f"kernels built in {time.time() - t0:.1f} s (one nvcc per source, in parallel)")
+    log(f"kernels built in {time.time() - t0:.1f} s (one nvcc per source, in parallel; phase 1)")
     for name, text in build.BUILD_LOGS.items():
         for line in text.splitlines():
             # registers, spills, and any warning (ptxas says so when it serializes
@@ -1438,6 +1775,7 @@ def main() -> int:
             if any(word in line for word in ("registers", "spill", "arning", "serializ")):
                 log(f"  ptxas {name}: {line.strip()}")
 
+    t_phase = time.time()
     gen = torch.Generator(device=dev).manual_seed(1234)
     data = DenseInputs(dev, gen)
     bucket_maxima_edge_sweep(dev, gen)
@@ -1449,13 +1787,20 @@ def main() -> int:
     kernels += [*check_maxsim(dev, gen), check_termtable(dev, gen), dense]
     for k in kernels:
         k.update(f32_bodies.get(k["name"], {}))
+    log(f"phase 2 wall time {time.time() - t_phase:.1f} s")
     launches = main_path(dev, card)
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    launches["ingest"] = ingest_path(dev, card)
+    log(f"phase 6 wall time {time.time() - t_phase:.1f} s")
+    ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        if k["name"] in launches["default_config"]:
-            k["default_config_launches"] = launches["default_config"][k["name"]]
-        if k["name"] in launches["f32_rows"]:
-            k["f32_rows_launches"] = launches["f32_rows"][k["name"]]
+        for path in ("default_config", "f32_rows", "ingest"):
+            if k["name"] in launches[path]:
+                k[f"{path}_launches"] = launches[path][k["name"]]
+        if k["name"] in ivf_bodies:
+            k["ivf_launches"] = launches["ivf"][ivf_bodies[k["name"]]]
     log(f"total wall time {time.time() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -236,10 +236,7 @@ def test_engine_refresh_and_unported_options(cfg):
     st = state_from_retriever(ret)
     eng = Engine(st, device="cpu")
     assert eng.refresh(state_from_retriever(ret))
-    for bad in (
-        {"semantic_backend": "ivf"},
-        {"mesh_shape": (2,)},
-    ):
+    for bad in ({"mesh_shape": (2,)},):
         with pytest.raises(NotImplementedError):
             Engine(st, config=torch_config(cfg.replace(**bad)), device="cpu")
     assert torch.is_tensor(eng.run(eng.prepare_queries(QUERIES[:2])[1])[0])

@@ -155,3 +155,32 @@ print(json.dumps({"embedder": type(eng.embedder).__name__, "calibration": eng.ma
     assert got["embedder"] == "EncoderEmbedder" and got["bad"] == []
     assert got["calibration"] == 0.6 and got["pool_w2"] == 0.65
     assert got["found"] == [got["n"], got["n"]]
+
+
+def test_facade_ingests_and_serves_without_jax():
+    """``RAG(device="cpu")`` ingests text and answers a batch with every module of
+    the ingest side (chunker, loader, extractor, index builders, ingestor,
+    retriever, facade) imported, and no JAX."""
+    code = """
+import json, sys
+from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+
+rag = RAG(RAGConfig(embedder_backend="bowhash", capacity_round=64, safety_threshold=0.0),
+          device="cpu", use_sharded_engine=True)
+res = rag.ingest_text("# Billing\\n\\nAcme Corp settles invoices within thirty days.", name="b.md")
+found = rag.query_batch(["When does Acme Corp settle invoices?"])[0]
+bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "triple_hybrid_rag_tpu")]
+print(json.dumps({"status": res.status.value, "top": found.results[0].doc_id == res.doc_id,
+                  "mods": sorted(m for m in sys.modules if m.startswith("triple_hybrid_rag_tpu_torch.")),
+                  "bad": bad}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["status"] == "completed" and got["top"] and got["bad"] == []
+    for mod in ("chunker", "loader", "ingest", "facade", "retrieval", "index.bm25_index",
+                "index.graph_index", "index.maxsim_index", "index.ivf"):
+        assert f"triple_hybrid_rag_tpu_torch.{mod}" in got["mods"]

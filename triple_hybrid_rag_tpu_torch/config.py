@@ -96,7 +96,7 @@ class RAGConfig:
     encoder_anchor_pool_w2: Optional[float] = 0.65
     encoder_params_path: Optional[str] = None
     embedding_batch_size: int = 20
-    semantic_backend: str = "exact"  # "exact" | "ivf" (ivf not ported)
+    semantic_backend: str = "exact"  # "exact" | "ivf" (blocked IVF, index/ivf.py)
     ivf_block_rows: int = 512
     ivf_probes: int = 32
     ivf_kmeans_iters: int = 8

@@ -20,6 +20,8 @@ On a CUDA device the dense channel goes through the hand-written fused kernel wh
 ``use_fused_topk`` is None or True (``ops/fused_topk.py``; bf16, f32, int8 and packed
 int4 rows), the term-table lexical backend through the term-table kernel
 (``ops/bm25.py``), and the MaxSim rerank through the MaxSim kernel (``ops/maxsim.py``).
+With ``semantic_backend="ivf"`` the dense channel probes the blocked-IVF layout
+instead (``index/ivf.py``) and launches no bucket maxima.
 
 An embedder with ``encode_queries_device`` (the trained encoder) encodes a batch on
 the device, and its outputs feed the program without a copy to the host
@@ -47,6 +49,7 @@ from .index.dense_index import (
     truncate_matryoshka,
     zero_query_guard,
 )
+from .index.ivf import ivf_topk_local
 from .index.state import IndexState
 from .models.embedder import get_default_embedder
 from .models.planner import get_planner
@@ -71,6 +74,13 @@ from .types import QueryPlan, RetrievalResult
 
 # term-table scores held at once, in elements: the f32[Bq, n_pad] block of one kernel call
 _TERMTABLE_SCORE_ELEMS = 1 << 27
+
+
+def _same(a: Optional[torch.Tensor], b: Optional[torch.Tensor], key) -> bool:
+    """Both absent, or both present with equal ``key``."""
+    if a is None or b is None:
+        return a is None and b is None
+    return key(a) == key(b)
 
 
 class QueryArgs(NamedTuple):
@@ -113,8 +123,6 @@ class Engine:
             raise NotImplementedError(
                 "more than one device is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
             )
-        if cfg.semantic_backend == "ivf":
-            raise NotImplementedError("semantic_backend='ivf' is not ported (ROADMAP.md, Queue 1)")
         self.state = state
         self.corpus = state.corpus
         self.analyzer = Analyzer(cfg)
@@ -129,8 +137,10 @@ class Engine:
 
     def refresh(self, state: IndexState) -> bool:
         """Swap in an updated index state when every static statistic the program
-        depends on is unchanged (capacity, windows, graph mode, dims, config).
-        Returns False when the shapes changed; build a new Engine then."""
+        depends on is unchanged (capacity, windows, graph mode and entity capacity,
+        dims and row dtype, the IVF mode, config, which fixes the IVF block width);
+        the new state brings its own arrays, the IVF layout included. Returns False
+        when the shapes changed; build a new Engine then."""
         old = self.state
         same = (
             state.n_pad == old.n_pad
@@ -142,17 +152,13 @@ class Engine:
             and state.g_l_max == old.g_l_max
             and state.graph_m == old.graph_m
             and state.dim == old.dim
+            and state.ivf_mode == old.ivf_mode
             and state.config == old.config
             and state.device == old.device
-            and (state.nbr is None) == (old.nbr is None)
-            and (state.embeddings is None) == (old.embeddings is None)
-            and (state.maxsim_tokens is None) == (old.maxsim_tokens is None)
-            and (
-                state.maxsim_tokens is None
-                or state.maxsim_tokens.shape == old.maxsim_tokens.shape
-            )
-            and (state.parent_emb is None) == (old.parent_emb is None)
-            and (state.parent_emb is None or state.parent_emb.shape == old.parent_emb.shape)
+            and _same(state.embeddings, old.embeddings, lambda t: t.dtype)
+            and _same(state.nbr, old.nbr, lambda t: t.shape[0])
+            and _same(state.maxsim_tokens, old.maxsim_tokens, lambda t: t.shape)
+            and _same(state.parent_emb, old.parent_emb, lambda t: t.shape)
         )
         if same:
             self.state = state
@@ -379,7 +385,16 @@ class Engine:
             collection_of=st.collection_of if scoped else None,
             coll_cid=args.coll_cid if scoped else None,
         )
-        if self.use_fused():  # every row dtype
+        if st.ivf_mode:
+            # blocked IVF: probe the top block centroids, score their rows; ids come
+            # back as original rows, so the merge and the guard apply unchanged
+            quantized = st.embeddings.dtype in (torch.int8, torch.uint8)
+            ids, vals = ivf_topk_local(
+                st.embeddings, st.dense_scales if quantized else None, st.ivf_perm,
+                st.ivf_centroids, q_vec, probes=cfg.ivf_probes, top_k=k,
+                row_mask=row_mask,
+            )
+        elif self.use_fused():  # every row dtype
             ids, vals = fused_dense_topk(
                 st.embeddings, st.valid, q_vec, k, scales=st.dense_scales, **scope
             )

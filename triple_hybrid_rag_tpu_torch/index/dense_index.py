@@ -1,6 +1,11 @@
-"""Dense channel: Matryoshka truncation, row quantizers, batched scores (bf16/f32,
-int8, packed int4), the blocked int4 top-k, the zero-vector guard. The port of the
-quantizers and the query half of the JAX package's ``index/dense_index.py``.
+"""Dense channel: Matryoshka truncation, row quantizers, the index build and its
+incremental append, batched scores (bf16/f32, int8, packed int4), the blocked int4
+top-k, the zero-vector guard. The port of the JAX package's ``index/dense_index.py``.
+
+:func:`build_dense_index` and :meth:`DenseIndex.append` give the reference's rows bit
+for bit: truncation and renormalization in host NumPy as the reference does them,
+then on the device the bf16 rounding (to nearest even, as ``jnp.asarray`` rounds)
+or the row quantizers (round half to even, as ``np.rint``).
 
 Quantized scores are exact and in one order everywhere (here, the fused kernel and
 its rescore): the int32 dot of the int8 row codes and the int8-quantized query,
@@ -11,11 +16,14 @@ bits. PyTorch has no integer matmul on CUDA, so :func:`int_dot` goes through
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..config import RAGConfig
+from ..device import resolve_device
 from ..ops.topk import NEG_INF, lax_top_k, sort_topk_desc
 
 _QUANT_ROWS = 1 << 16  # rows per quantizer block (bounds the f32 transients)
@@ -81,6 +89,84 @@ def unpack_int4(packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     low = ((packed & 0xF) ^ 8).view(torch.int8) - 8
     high = ((packed >> 4) ^ 8).view(torch.int8) - 8
     return low, high
+
+
+def _store_rows(mat: np.ndarray, embedding_dtype: str, device: torch.device):
+    """Truncated f32 rows -> (stored rows, row scales | None) on ``device`` in the
+    configured storage: f32, bf16, int8 or packed int4 with per-row scales."""
+    m = torch.from_numpy(np.ascontiguousarray(mat, dtype=np.float32)).to(device)
+    if embedding_dtype in ("int8", "int4"):
+        quantize = quantize_rows_int4 if embedding_dtype == "int4" else quantize_rows_int8
+        return quantize(m)
+    return m.to(torch.bfloat16 if embedding_dtype == "bfloat16" else torch.float32), None
+
+
+@dataclass
+class DenseIndex:
+    """The dense rows of one corpus snapshot on one device, capacity-padded: f32 or
+    bf16 rows, or int8 / packed-int4 rows with per-row scales (1 on padding)."""
+
+    embeddings: torch.Tensor  # f32|bf16|i8[n_pad, D] or packed u8[n_pad, D/2]
+    valid: torch.Tensor  # bool[n_pad] occupancy
+    n_docs: int
+    n_pad: int
+    dim: int
+    config: RAGConfig
+    scales: Optional[torch.Tensor] = None  # f32[n_pad] (int8 / int4 only)
+
+    def append(self, vectors: np.ndarray) -> "DenseIndex":
+        """Write new rows into spare capacity (the reference's in-place update);
+        past the capacity the index grows to the next capacity multiple first.
+        Returns a new index; this one stays valid."""
+        n_new = int(vectors.shape[0])
+        if n_new == 0:
+            return self
+        new_total = self.n_docs + n_new
+        n_pad = self.n_pad
+        if new_total > n_pad:
+            n_pad = self.config.round_capacity(new_total)
+        emb = _grow(self.embeddings, n_pad, 0)
+        valid = _grow(self.valid, n_pad, False)
+        scales = None if self.scales is None else _grow(self.scales, n_pad, 1.0)
+        rows, new_scales = _store_rows(
+            truncate_matryoshka(vectors, self.dim), self.config.embedding_dtype,
+            self.embeddings.device,
+        )
+        emb[self.n_docs:new_total] = rows
+        valid[self.n_docs:new_total] = True
+        if scales is not None:
+            scales[self.n_docs:new_total] = new_scales
+        return DenseIndex(
+            embeddings=emb, valid=valid, n_docs=new_total, n_pad=n_pad, dim=self.dim,
+            config=self.config, scales=scales,
+        )
+
+
+def _grow(t: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """A copy of ``t`` with its leading axis padded to ``n`` with ``fill``."""
+    out = t.new_full((n,) + tuple(t.shape[1:]), fill)
+    out[: t.shape[0]] = t
+    return out
+
+
+def build_dense_index(vectors: np.ndarray, config: RAGConfig, device=None) -> DenseIndex:
+    """Matryoshka-truncate and renormalize ``vectors`` f32[N, D_full], pad to the
+    capacity and place on ``device`` (CUDA unless ``device="cpu"``) in
+    ``config.embedding_dtype``."""
+    dev = resolve_device(device)
+    n_docs = int(vectors.shape[0])
+    dim = config.embedding_dim
+    n_pad = config.round_capacity(max(n_docs, 1))
+    mat = np.zeros((n_pad, dim), dtype=np.float32)
+    if n_docs:
+        mat[:n_docs] = truncate_matryoshka(vectors, dim)
+    valid = torch.zeros((n_pad,), dtype=torch.bool, device=dev)
+    valid[:n_docs] = True
+    rows, scales = _store_rows(mat, config.embedding_dtype, dev)
+    return DenseIndex(
+        embeddings=rows, valid=valid, n_docs=n_docs, n_pad=n_pad, dim=dim, config=config,
+        scales=scales,
+    )
 
 
 def quantize_queries_int8(query_vecs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -9,11 +9,15 @@ the entity lookup of ``GraphIndex.seed_lookup``.
 JAX retriever's index arrays as numpy (see its docstring for the keys) so that both
 packages compute on identical indexes. :meth:`IndexState.from_tensors` takes
 tensors already in the engine's layout (the synthetic corpus builds them on the
-card). Both apply the reference's graph-backend policy.
+card). Both apply the reference's graph-backend policy. Under
+``semantic_backend="ivf"`` the capacity rounds up to whole probe blocks and the
+placed rows are replaced by their blocked-IVF layout, built on the device
+(``parallel/engine.py``'s placement at one shard; :func:`ivf_layout`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -25,6 +29,7 @@ from ..config import RAGConfig
 from ..models.entity_extractor import EntityStore
 from ..ops.bm25 import DOC_PAD, QUERY_PAD
 from ..types import Entity
+from .ivf import ivf_build_local
 
 
 def _csr_layout(offsets, lengths, postings_doc, postings_weight):
@@ -149,6 +154,12 @@ class IndexState:
     corpus: Any = None  # view with child_by_row / parent (decode)
     # f32[P_pad, D] unit mean embeddings of each parent's chunks (the dot rerank)
     parent_emb: Optional[torch.Tensor] = None
+    # blocked IVF (semantic_backend="ivf"): ``embeddings`` and ``dense_scales`` hold
+    # the cluster-major rows, ``ivf_perm`` i64[n_pad] the original row of each slot
+    # (n_pad = dead slot), ``ivf_centroids`` f32[n_pad / ivf_block_rows, D] the
+    # block means
+    ivf_perm: Optional[torch.Tensor] = None
+    ivf_centroids: Optional[torch.Tensor] = None
 
     @property
     def has_graph(self) -> bool:
@@ -157,6 +168,10 @@ class IndexState:
     @property
     def has_dense(self) -> bool:
         return self.embeddings is not None
+
+    @property
+    def ivf_mode(self) -> bool:
+        return self.ivf_perm is not None
 
     # ------------------------------------------------------------------ builders
 
@@ -185,8 +200,10 @@ class IndexState:
         ``host``: ``vocab`` (list of terms), ``entity_keys`` + ``entities`` (the entity
         store's canonical keys and :class:`Entity` rows, in store order), ``row_of``,
         ``seed_stop`` (bool[E] or None), ``collection_ids``, ``corpus`` (a view for
-        decoding), ``n_rows`` (the lexical table's capacity). The MaxSim calibration
-        is not the index's: the engine takes it from its embedder."""
+        decoding), ``n_rows`` (the lexical table's capacity); or, in place of
+        ``entity_keys`` + ``entities``, the ``entity_store`` itself. The MaxSim
+        calibration is not the index's: the engine takes it from its embedder.
+        An array may also come as a tensor, which moves to ``device`` as it is."""
         dev = torch.device(device)
         t: Dict[str, Any] = {}
         h = dict(host)
@@ -206,8 +223,11 @@ class IndexState:
                 t[key] = arrays[key]
         if "chunk_entities" in arrays:
             t["chunk_entities"] = arrays["chunk_entities"]
-            h["chunk_entities_host"] = np.asarray(arrays["chunk_entities"])
-        tensors = {k: _to_tensor(v, dev) for k, v in t.items()}
+            ce = arrays["chunk_entities"]
+            h["chunk_entities_host"] = ce.cpu().numpy() if torch.is_tensor(ce) else np.asarray(ce)
+        tensors = {
+            k: v.to(dev) if torch.is_tensor(v) else _to_tensor(v, dev) for k, v in t.items()
+        }
         return cls.from_tensors(tensors, h, config, dev)
 
     @classmethod
@@ -229,6 +249,10 @@ class IndexState:
         n_rows = [tt["parent_of"].shape[0], int(host.get("n_rows", 0))]
         n_rows += [tt[k].shape[0] for k in ("embeddings", "bm25_term_ids") if k in tt]
         n_pad = max(n_rows)
+        ivf = cfg.semantic_backend == "ivf" and cfg.semantic_enabled and "embeddings" in tt
+        if ivf:  # whole probe blocks (parallel/engine.py: capacity rounding)
+            w = max(1, cfg.ivf_block_rows)
+            n_pad = -(-n_pad // w) * w
 
         # ---- lexical ----
         lexical_mode = "none"
@@ -305,7 +329,9 @@ class IndexState:
             if graph_mode != "sparse":
                 graph_mode = "dense"
                 chunk_entities = _pad_rows(tt["chunk_entities"].int(), n_pad)
-            store = EntityStore.from_items(zip(host["entity_keys"], host["entities"]))
+            store = host.get("entity_store") or EntityStore.from_items(
+                zip(host["entity_keys"], host["entities"])
+            )
 
         collection_of = (
             _pad_rows(tt["collection_of"].int(), n_pad)
@@ -321,7 +347,7 @@ class IndexState:
                 tokens = tokens.to(torch.bfloat16)
             tokens = tokens.contiguous()
             mask = tt["maxsim_mask"].bool()
-        return cls(
+        state = cls(
             config=cfg, device=dev, n_pad=n_pad,
             lexical_mode=lexical_mode, lex_offsets=lex[0], lex_lengths=lex[1],
             lex_pd=lex[2], lex_pt=lex[3], lex_l_max=l_max,
@@ -340,6 +366,7 @@ class IndexState:
             corpus=host.get("corpus"),
             parent_emb=tt["parent_emb"].float().contiguous() if "parent_emb" in tt else None,
         )
+        return ivf_layout(state, cfg) if ivf else state
 
     # ------------------------------------------------------------------ host lookups
 
@@ -409,8 +436,26 @@ class IndexState:
             "graph": [self.nbr, self.chunk_entities, self.g_offsets, self.g_lengths, self.g_docs],
             "tables": [self.parent_of, self.collection_of],
             "parent_emb": [self.parent_emb],
+            "ivf": [self.ivf_perm, self.ivf_centroids],
         }
         return {
             k: sum(t.numel() * t.element_size() for t in v if t is not None)
             for k, v in parts.items()
         }
+
+
+def ivf_layout(state: IndexState, config: RAGConfig) -> IndexState:
+    """``state`` under ``config`` (``semantic_backend="ivf"``) with its placed rows
+    replaced by their blocked-IVF layout, built on the rows' device: the
+    cluster-major rows and row scales, the permutation and the block centroids
+    (``ivf_build_local`` with the config's block width, cluster count and k-means
+    iterations). ``state.n_pad`` must be a multiple of ``ivf_block_rows``."""
+    rows, scales, perm, cent = ivf_build_local(
+        state.embeddings, state.dense_scales, state.valid,
+        block_rows=max(1, config.ivf_block_rows), n_clusters=config.ivf_clusters,
+        iters=config.ivf_kmeans_iters,
+    )
+    return dataclasses.replace(
+        state, config=config, embeddings=rows, dense_scales=scales, ivf_perm=perm,
+        ivf_centroids=cent,
+    )

@@ -4,12 +4,13 @@ Copies of the JAX package's ``HashEmbedder`` and ``BowHashEmbedder`` (text only)
 query embeds to the same numpy vector on both sides. :func:`get_default_embedder`
 resolves ``embedder_backend`` as the reference does: "auto" and "encoder" load the
 trained encoder (``models/encoder.py``) from the packaged weights.
+:class:`FailSoftEmbedder` is the ingestion side's degradation ladder.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -147,3 +148,38 @@ def get_default_embedder(config: Optional[RAGConfig] = None, device=None):
     if backend == "hash":
         return HashEmbedder(dim=cfg.embedding_dim_full)
     return BowHashEmbedder(dim=cfg.embedding_dim_full, config=cfg)
+
+
+class FailSoftEmbedder:
+    """Wrapper adding the reference's degradation ladder to any embedder: a failed
+    bulk embed is retried item by item, and an item that still fails becomes a zero
+    vector whose index is recorded in ``last_errors`` (reset by each bulk call).
+    A caller that must not serve zero rows (a device failure would otherwise turn
+    into them silently) checks ``last_errors`` after each call. Query embeds
+    raise."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.dim = inner.dim
+        self.last_errors: List[int] = []
+
+    def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
+        self.last_errors = []
+        try:
+            return self.inner.embed_texts(texts)
+        except Exception:
+            out = np.zeros((len(texts), self.dim), np.float32)
+            for i, t in enumerate(texts):
+                try:
+                    out[i] = self.inner.embed_query(t)
+                except Exception:
+                    self.last_errors.append(i)
+            return out
+
+    def embed_query(self, text: str) -> np.ndarray:
+        return self.inner.embed_query(text)
+
+    def __getattr__(self, name: str):
+        # the inner embedder's other capabilities (token_embeddings,
+        # maxsim_calibration, encode_queries_device, ...)
+        return getattr(self.inner, name)

@@ -1,19 +1,38 @@
-"""Helpers of the query path: MaxSim query-token weights, the parents' mean
-embeddings of the dot rerank, and the decode of device rows into
-:class:`~triple_hybrid_rag_tpu_torch.types.SearchResult` records. Ports of the JAX
-package's ``retrieval.py`` helpers of the same names."""
+"""The retriever's indexes and the helpers of the query path.
+
+:class:`Retriever` is the port of the JAX package's ``Retriever`` as it is built: it
+builds (or takes) the BM25, dense, graph and MaxSim indexes of a corpus, the child
+-> parent row table, the collection table and, when the dot rerank can be chosen,
+the parents' mean embeddings, and places them as one
+:class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState` on its device, which
+the batched :class:`~triple_hybrid_rag_tpu_torch.engine.Engine` serves. Its staged
+single-query path (``retrieve``) is not ported yet.
+
+The helpers are ports of the reference's of the same names: MaxSim query-token
+weights, the parents' mean embeddings of the dot rerank, and the decode of device
+rows into :class:`~triple_hybrid_rag_tpu_torch.types.SearchResult` records.
+"""
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .analyzer import Analyzer
-from .index.dense_index import unpack_int4
+from .config import RAGConfig, get_settings
+from .corpus import CorpusStore
+from .device import resolve_device
+from .index.bm25_index import BM25Index, build_bm25_index
+from .index.dense_index import DenseIndex, build_dense_index
+from .index.ivf import dequant_f32
+from .index.maxsim_index import MaxSimIndex, build_maxsim_index
+from .index.state import IndexState
+from .models.embedder import get_default_embedder
+from .models.planner import get_planner
 from .ops.fusion import GRAPH_BIT, LEXICAL_BIT, SEMANTIC_BIT
-from .types import SearchResult
+from .types import RetrievalResult, SearchResult
 
 # Content-light "function" words (EN + PT) that rarely match a document token and
 # would drag the MaxSim mean below the safety threshold on natural questions; they
@@ -58,19 +77,6 @@ def maxsim_query_weights(text: str, analyzer: Analyzer, max_tokens: int) -> np.n
 
 
 _ROW_BLOCK = 1 << 17  # rows dequantized at once (bounds the f32 transient)
-
-
-def dequant_f32(rows: torch.Tensor, scales: Optional[torch.Tensor]) -> torch.Tensor:
-    """f32 view of dense rows (the reference's ``index/ivf._dequant_f32``): f32/bf16
-    as they are, int8 times the row scale, packed int4 unpacked then scaled. The
-    width is the logical dim (twice the stored width for int4)."""
-    if rows.dtype == torch.uint8:
-        r = torch.cat(unpack_int4(rows), dim=-1).float()
-    else:
-        r = rows.float()
-    if scales is not None and rows.dtype in (torch.int8, torch.uint8):
-        r = r * scales[:, None]
-    return r
 
 
 def build_parent_embeddings(
@@ -150,3 +156,151 @@ def decode_results(corpus, fused, rerank_scores, final_ids, final_scores) -> Lis
             )
         )
     return out
+
+
+def _parent_of_table(corpus: CorpusStore, config: RAGConfig) -> np.ndarray:
+    """i32[n_pad] child row -> parent row, capacity-padded with 0."""
+    n_pad = config.round_capacity(max(len(corpus), 1))
+    parent_of = np.zeros((n_pad,), np.int32)
+    rows = corpus.parent_rows()
+    if rows:
+        parent_of[: len(rows)] = rows
+    return parent_of
+
+
+class Retriever:
+    """A corpus snapshot's indexes, placed on one device for the engine."""
+
+    def __init__(
+        self,
+        corpus: CorpusStore,
+        config: Optional[RAGConfig] = None,
+        embedder=None,
+        planner=None,
+        bm25_index: Optional[BM25Index] = None,
+        dense_index: Optional[DenseIndex] = None,
+        graph_index=None,
+        maxsim_index: Optional[MaxSimIndex] = None,
+        device=None,
+    ) -> None:
+        self.device = resolve_device(device)
+        cfg = self.config = config or get_settings()
+        self.corpus = corpus
+        self.analyzer = Analyzer(cfg)
+        self.embedder = embedder or get_default_embedder(cfg, device=self.device)
+        self.planner = planner or get_planner(cfg)
+        self.graph_index = graph_index
+
+        texts = corpus.child_texts()
+        if cfg.lexical_enabled and bm25_index is None:
+            bm25_index = build_bm25_index(texts, cfg, self.analyzer)
+        self.bm25_index = bm25_index
+        if cfg.semantic_enabled and dense_index is None:
+            dense_index = build_dense_index(self.embedder.embed_texts(texts), cfg, self.device)
+        self.dense_index = dense_index
+
+        self.parent_of = _parent_of_table(corpus, cfg)
+        self._init_collections(self.parent_of.shape[0])
+
+        # the MaxSim token store over the parents (the primary rerank); a prebuilt
+        # one (the ingestor's incremental store) skips the token-embedding pass
+        self.maxsim_index = None
+        if cfg.rerank_enabled and cfg.rerank_backend == "maxsim" and corpus.n_parents > 0:
+            if maxsim_index is not None:
+                self.maxsim_index = maxsim_index
+            elif hasattr(self.embedder, "token_embeddings"):
+                self.maxsim_index = build_maxsim_index(
+                    corpus.parent_texts(), self.embedder, cfg, device=self.device
+                )
+        self.parent_emb = None
+        if cfg.rerank_enabled and self.dense_index is not None and self.maxsim_index is None:
+            self.parent_emb = self._build_parent_embeddings()
+        self.corpus.mark_clean()
+        self.state = self._place()
+
+    @classmethod
+    def from_indexes(
+        cls,
+        corpus: CorpusStore,
+        config: RAGConfig,
+        bm25_index: Optional[BM25Index] = None,
+        dense_index: Optional[DenseIndex] = None,
+        graph_index=None,
+        maxsim_index: Optional[MaxSimIndex] = None,
+        parent_of: Optional[np.ndarray] = None,
+        embedder=None,
+        planner=None,
+        device=None,
+    ) -> "Retriever":
+        """A retriever over prebuilt indexes, none of them re-derived."""
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        self.config = config
+        self.corpus = corpus
+        self.analyzer = Analyzer(config)
+        self.embedder = embedder or get_default_embedder(config, device=self.device)
+        self.planner = planner or get_planner(config)
+        self.bm25_index = bm25_index
+        self.dense_index = dense_index
+        self.graph_index = graph_index
+        self.maxsim_index = maxsim_index
+        self.parent_of = (
+            np.asarray(parent_of, np.int32) if parent_of is not None
+            else _parent_of_table(corpus, config)
+        )
+        self._init_collections(self.parent_of.shape[0])
+        self.parent_emb = None
+        if config.rerank_enabled and dense_index is not None and maxsim_index is None and len(corpus):
+            self.parent_emb = self._build_parent_embeddings()
+        self.state = self._place()
+        return self
+
+    def _init_collections(self, n_pad: int) -> None:
+        """The collection-id table of the child rows (-1 where the document is unknown)."""
+        self.collection_ids = self.corpus.collection_ids()
+        coll = np.full((n_pad,), -1, np.int32)
+        rows = self.corpus.child_collection_rows()
+        if rows:
+            coll[: len(rows)] = rows
+        self.collection_of = coll
+
+    def _build_parent_embeddings(self) -> torch.Tensor:
+        dx = self.dense_index
+        p_pad = self.config.round_capacity(max(self.corpus.n_parents, 1))
+        return build_parent_embeddings(dx.embeddings, dx.scales, self.corpus.parent_rows(), p_pad)
+
+    def _place(self) -> IndexState:
+        """The indexes as one :class:`IndexState` on the retriever's device. The dot
+        rerank's parent embeddings go in only where the reference's reranker ladder
+        picks that rung (``rerank_backend`` "maxsim" or "dot")."""
+        cfg = self.config
+        arrays: Dict[str, Any] = {"parent_of": self.parent_of, "collection_of": self.collection_of}
+        host: Dict[str, Any] = {"collection_ids": self.collection_ids, "corpus": self.corpus}
+        if self.bm25_index is not None:
+            arrays.update(self.bm25_index.arrays())
+            host["vocab"] = self.bm25_index.vocab
+        dx = self.dense_index
+        if dx is not None:
+            arrays.update(embeddings=dx.embeddings, valid=dx.valid)
+            if dx.scales is not None:
+                arrays["dense_scales"] = dx.scales
+        gx = self.graph_index
+        if gx is not None:
+            arrays.update(nbr=gx.nbr, chunk_entities=gx.chunk_entities)
+            host.update(entity_store=gx.store, row_of=gx.row_of, seed_stop=gx.seed_stop)
+        if self.maxsim_index is not None:
+            arrays.update(maxsim_tokens=self.maxsim_index.tokens, maxsim_mask=self.maxsim_index.mask)
+        if self.parent_emb is not None and cfg.rerank_backend in ("maxsim", "dot"):
+            arrays["parent_emb"] = self.parent_emb
+        return IndexState.from_numpy(arrays, host, cfg, self.device)
+
+    def retrieve(
+        self, query: str, top_k: Optional[int] = None, collection: Optional[str] = None
+    ) -> RetrievalResult:
+        """The staged single-query path (plan, channels, fusion, rerank, gate as
+        separate steps) is not ported; the batched engine serves queries."""
+        raise NotImplementedError(
+            "Retriever.retrieve (the staged single-query path, with models/reranker.py "
+            "and models/maxsim_reranker.py) is not ported yet (ROADMAP.md, Queue 1); "
+            "serve queries through Engine.retrieve_batch"
+        )
