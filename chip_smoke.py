@@ -6,7 +6,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    (``triple_hybrid_rag_tpu_torch/csrc/*.cu``, one ``nvcc`` each, in parallel);
 2. holds each kernel against its plain PyTorch version at the serving shapes
    (fused dense bucket maxima: N = 1,000,448 rows of width 1024 in bf16, int8 and
-   packed int4, B = 128, scoped and unscoped; dense scores on the same rows; both
+   packed int4, B = 128, scoped and unscoped; dense scores on the same rows, at
+   B = 128 and at B = 1 (the staged path's width); both
    f32-row bodies (bucket maxima and dense scores) on random f32 unit rows of the
    same shape, at B = 128 and B = 1; MaxSim, its bf16 and its int8 token-store
    bodies: B = 128 x K = 50 candidates over 200,704 parents at the smoke run's
@@ -53,10 +54,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    both kernels launched, e2e, program wall, device busy), a repeated ingest that
    must be skipped, a new document that must go through ``Engine.refresh`` and be
    found, and a 200-document subset ingested on the card and on the CPU (equal
-   chunk ids, BM25 and graph arrays; dense rows within ``ENCODER_ATOL``).
+   chunk ids, BM25 and graph arrays; dense rows within ``ENCODER_ATOL``);
+7. the staged single-query path (``Retriever.retrieve``): (a) phase 6's corpus
+   through ``RAG.query`` (``use_sharded_engine=False``) for phase 6's queries:
+   self-retrieval, the bf16 dense scores and the bf16 MaxSim body once per query,
+   no swallowed embed failure, the ids against ``Engine.retrieve_batch`` at B = 128
+   and B = 1 (printed), then a host ``rerank_fn`` and a raising one (MaxSim must
+   take over); (b) ``Retriever.from_state`` over phase 3's placed 1M-chunk bf16
+   state, 32 of its queries: no device memory added, self-retrieval, launches,
+   device busy per query under the profiler; (c) 8 queries each over phase 3's
+   term-table and int8 states (the term-table kernel, the int8 MaxSim body).
+   Every part prints the median of each ``timings`` key and its e2e ms/query.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
-each kernel's launches, error and times; the last line is
+each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
+over phase 7, and per further path), error and times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
 """
@@ -439,12 +451,31 @@ def check_dense(data):
     b_ms, b_by = bound(n * DIM * 2 + BATCH * DIM * 4 + BATCH * n * 4, 2.0 * BATCH * n * DIM)
     log(f"dense_scores N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bf16 GEMM with f32 out (torch.mm) {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # B = 1, the staged semantic channel's shape (phase 7): one query in the
+    # kernel's 128-query tile
+    q1 = q[:1]
+    got = dk.dense_scores(emb, q1)
+    want = dk.dense_scores_plain(emb, q1)
+    torch.cuda.synchronize()
+    err1 = max_err(got, want)
+    if got.shape != (1, n) or not err1 <= FUSED_ATOL:
+        fail(f"dense_scores at B=1 disagrees with its plain version ({err1})")
+    del got, want
+    b1_ms = time_ms(lambda: dk.dense_scores(emb, q1))
+    b1_plain = time_ms(lambda: dk.dense_scores_plain(emb, q1))
+    b1_library = time_ms(lambda: torch.mm(q16[:1], emb.T, out_dtype=torch.float32))
+    b1_bound, b1_by = bound(n * DIM * 2 + DIM * 4 + n * 4, 2.0 * n * DIM)
+    log(f"dense_scores N={n} D={DIM} B=1: kernel {b1_ms:.4f} ms, plain {b1_plain:.4f} ms, "
+        f"torch.mm with f32 out {b1_library:.4f} ms, bound {b1_bound:.4f} ms ({b1_by}, "
+        f"{b1_bound / b1_ms:.3f} of it); max |kernel - plain| = {err1:.3g}")
     return {
         "name": "dense_scores", "route": "cuda",
         "source": "triple_hybrid_rag_tpu_torch/csrc/dense_scores.cu",
         "replaces": "triple_hybrid_rag_tpu/ops/pallas/dense_kernel.py:47",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": library_ms,
+        "b1_ms": b1_ms, "b1_plain_ms": b1_plain, "b1_library_ms": b1_library,
+        "b1_bound_ms": b1_bound, "b1_bound_by": b1_by, "b1_max_abs_err": err1,
     }
 
 
@@ -888,7 +919,7 @@ def main_path(dev, card):
     launches["ivf"] = ivf_path(run, eng, cfg, card)
     log(f"phase 5 wall time {time.time() - t_phase:.1f} s")
     log(f"peak device memory over phases 3-5 {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    return launches
+    return launches, run
 
 
 class Drive:
@@ -896,6 +927,7 @@ class Drive:
 
     def __init__(self, syn, texts, rows, is_graph, dev):
         self.syn, self.texts, self.rows, self.is_graph, self.dev = syn, texts, rows, is_graph, dev
+        self.staged_states = {}  # configuration -> (state, config), kept for phase 7
 
     def engine(self, state, cfg):
         from triple_hybrid_rag_tpu_torch.engine import Engine
@@ -1066,6 +1098,7 @@ def termtable_path(run, eng_sorted, cfg) -> int:
     if n_diff < 0 or not gap <= LEXICAL_ATOL:
         fail("the term-table lexical channel differs from the sorted postings")
     run.timing([("termtable", eng), ("sorted postings", eng_sorted)], "termtable lexical backend")
+    run.staged_states["termtable"] = (st_t, cfg_t)
     return launches
 
 
@@ -1111,6 +1144,8 @@ def quantized_path(run, cfg, kind: str):
     log(f"{kind} rows: final ids equal on both dense paths ({out_k[0].numel()} slots); max "
         f"final-score gap {float((out_k[1] - out_x[1]).abs().max()):.3g}")
     run.timing([("kernel dense path", eng), ("unfused dense path", eng_x)], f"{kind} rows")
+    if kind == "int8":
+        run.staged_states["int8"] = (st_q, cfg_q)
     return by_rows[kind], n_int8
 
 
@@ -1551,7 +1586,7 @@ def ingest_path(dev, card):
         f"{len(docs)} documents, {sum(len(t) for _, t in docs) / 1e6:.3f} MB, parsed in "
         f"{time.time() - t0:.1f} s")
     cfg = RAGConfig()
-    rag = RAG(cfg, device=dev, use_sharded_engine=True)
+    rag = RAG(cfg, device=dev)  # query_batch serves through the engine; phase 7 queries staged
     emb = rag.ingestor.embedder.inner
     if not isinstance(emb, EncoderEmbedder) or emb.maxsim_calibration != 0.6:
         fail(f"the default RAGConfig built {type(emb).__name__}, not the encoder")
@@ -1641,8 +1676,7 @@ def ingest_path(dev, card):
     found = rag.query_batch(["zorblax quintessors recalibrate vexillary gaskets"])[0]
     if not found.results or found.results[0].doc_id != res_new.doc_id:
         fail("the new document was not retrieved by its own text")
-    del rag, eng, st, retriever
-    torch.cuda.empty_cache()
+    del eng, st, retriever
 
     # the same subset on the card and on the CPU: equal ids and arrays
     subset = docs[::max(1, len(docs) // 200)][:200]
@@ -1667,6 +1701,242 @@ def ingest_path(dev, card):
         f"{gap:.3g} (atol {ENCODER_ATOL}, the card's bf16 encoder against the CPU's)")
     if not gap <= ENCODER_ATOL:
         fail(f"card and CPU dense rows differ by {gap}")
+    return launches, (rag, queries, hits)
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def staged_counts_reset() -> None:
+    """Every kernel counter to 0 (the staged paths' windows)."""
+    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+
+    dense_scores.launches = 0
+    score_termtable_batch.launches = 0
+    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    maxsim_counts_reset()
+
+
+def staged_counts() -> dict:
+    """Kernel launches since :func:`staged_counts_reset`, by the kernels line's names."""
+    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+
+    by_rows = bucket_maxima.launches_by_rows
+    return {
+        "dense_scores": dense_scores.launches,
+        "termtable_scores": score_termtable_batch.launches,
+        "maxsim_scores": maxsim_scores.launches_by_tokens["bf16"],
+        "maxsim_scores_int8": maxsim_scores.launches_by_tokens["int8"],
+        "fused_bucket_maxima": by_rows["bf16"] + by_rows["f32"],
+        "fused_bucket_maxima_int8": by_rows["int8"],
+        "fused_bucket_maxima_int4": by_rows["int4"],
+    }
+
+
+def semantic_failures() -> float:
+    from triple_hybrid_rag_tpu_torch.observability import rag_metrics
+
+    return rag_metrics.counter("semantic_channel_failures_total").value()
+
+
+def drive_staged(query, texts, label: str, card: str, expect: dict):
+    """``query(text)`` for every text (a staged entry point), the kernel counters set
+    to 0 just before and read just after. Fails on a swallowed embed failure (every
+    text has tokens), on a non-finite score, and unless the launches equal
+    ``expect`` (kernels not named there must not launch). Prints the median of
+    every ``timings`` key and the e2e ms/query. Returns (results, launches)."""
+    fails0 = semantic_failures()
+    torch.cuda.synchronize()
+    staged_counts_reset()
+    t0 = time.perf_counter()
+    res = [query(t) for t in texts]
+    torch.cuda.synchronize()
+    e2e = (time.perf_counter() - t0) / len(texts) * 1e3
+    launches = staged_counts()
+    swallowed = semantic_failures() - fails0
+    med = {k: float(np.median([r.timings[k] for r in res])) for k in res[0].timings}
+    log(f"{label}: {len(texts)} staged queries, e2e {e2e:.4f} ms/query (host clock, decode "
+        f"included); median timings ms: " + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f"; refused {sum(r.refused for r in res)}; kernel launches {launches}; semantic "
+        f"channel failures {swallowed:g}; card {card}")
+    if swallowed:
+        fail(f"{label}: the semantic channel swallowed {swallowed:g} embed failures")
+    if any(not np.isfinite(x.final_score) for r in res for x in r.results):
+        fail(f"{label}: non-finite final scores")
+    want = {k: expect.get(k, 0) for k in launches}
+    if launches != want:
+        fail(f"{label}: kernel launches {launches}, expected {want}")
+    return res, launches
+
+
+def staged_profile(query, texts, label: str) -> float:
+    """Device busy ms per staged query under torch.profiler (the sum of the kernels'
+    device times), the idle share and the longest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in texts:
+            query(t)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(device_self_ms(e) for e in kernels)
+    n = len(texts)
+    if busy <= 0:
+        log(f"profile ({label}): the profiler recorded no device time (not measured)")
+        return float("nan")
+    log(f"profile ({label}) over {n} staged queries: wall {wall_ms / n:.3f} ms/query, device busy "
+        f"{busy / n:.3f} ms/query ({100 * busy / wall_ms:.1f} % of wall, idle "
+        f"{100 * max(0.0, 1 - busy / wall_ms):.1f} %), {sum(e.count for e in kernels) // n} "
+        f"kernels a query")
+    for e in sorted(kernels, key=device_self_ms, reverse=True)[:8]:
+        log(f"  kernel {device_self_ms(e) / n:8.3f} ms/query x{e.count // n:<4d} {e.key[:110]}")
+    return busy / n
+
+
+def add_counts(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def staged_stdlib(ctx, card) -> dict:
+    """Phase 7(a): phase 6's stdlib corpus through ``RAG.query`` (the staged path,
+    ``use_sharded_engine=False``, default RAGConfig) for phase 6's queries; against
+    ``Engine.retrieve_batch`` (printed); a host ``rerank_fn`` and a raising one."""
+    from triple_hybrid_rag_tpu_torch import RAG
+    from triple_hybrid_rag_tpu_torch.analyzer import Analyzer
+
+    rag, queries, hits = ctx
+    if rag.use_sharded_engine:
+        fail("phase 7(a) must query through the staged path")
+    analyzer = Analyzer(rag.config)
+    idx = [i for i, q in enumerate(queries) if analyzer.tokenize(q)]
+    texts = [queries[i] for i in idx]
+    n = len(texts)
+    rag.query(texts[0])  # warm-up
+    label = "stdlib staged (RAG.query, default RAGConfig)"
+    res, launches = drive_staged(rag.query, texts, label, card,
+                                 {"dense_scores": n, "maxsim_scores": n})
+    frac = hits(res, idx) / n
+    misses = [i for i, r in zip(idx, res) if not hits([r], [i])]
+    log(f"{label}: self-retrieval {frac:.4f} of {n} queries (missed: queries {misses})")
+    if frac < 0.95:
+        fail(f"{label}: self-retrieval {frac} < 0.95")
+    engine = rag._get_engine()
+    for width, other in ((n, engine.retrieve_batch(texts)), (1, [engine.retrieve(q) for q in texts])):
+        differ = same_set = same_text = 0
+        gap = 0.0
+        for a, b in zip(res, other):
+            ids_a, ids_b = ([x.chunk_id for x in r.results] for r in (a, b))
+            if ids_a != ids_b:
+                differ += 1
+                same_set += set(ids_a) == set(ids_b)
+                same_text += [x.text for x in a.results] == [x.text for x in b.results]
+            else:
+                gap = max([gap, abs(a.max_score - b.max_score)]
+                          + [abs(x.final_score - y.final_score) for x, y in zip(a.results, b.results)])
+        log(f"{label}: against Engine.retrieve_batch at B={width} on the same queries, {differ} "
+            f"differ in their final ids ({same_set} of them only in order, {same_text} with equal "
+            f"texts: duplicate chunks); largest final-score gap where they agree {gap:.3g}; the "
+            f"engine misses queries {[i for i, r in zip(idx, other) if not hits([r], [i])]} (it "
+            f"encodes a batch and sends f16 query vectors and tokens, seeds the graph its own way, "
+            f"and its lexical and graph channels sum in other orders)")
+
+    seen = []
+
+    def overlap(query, parent_texts):
+        words = set(analyzer.tokenize(query))
+        out = [len(words & set(analyzer.tokenize(t))) / max(len(words), 1) for t in parent_texts]
+        seen.append(out)
+        return out
+
+    def broken(query, parent_texts):
+        raise RuntimeError("the reranker is down")
+
+    for fn, what, expect in ((overlap, "a host rerank_fn", {}), (broken, "a raising rerank_fn",
+                                                                  {"maxsim_scores": 8})):
+        r = RAG(rag.config, device=rag.device, rerank_fn=fn)
+        r.ingestor = rag.ingestor
+        r.retriever  # built and placed outside the counted window
+        out, part = drive_staged(r.query, texts[:8], f"stdlib staged with {what}", card,
+                                 {"dense_scores": 8, **expect})
+        add_counts(launches, part)
+        if fn is overlap:
+            # the callable's scores, clipped to [0, 1] in f32, are the results' rerank scores
+            ok = len(seen) == 8 and all(
+                {x.rerank_score for x in o.results}
+                <= set(np.clip(np.asarray(s, np.float32), 0, 1).tolist()) | {0.0}
+                for o, s in zip(out, seen))
+            if not ok:
+                fail("the host rerank_fn was not the reranker of the staged queries")
+        elif [[x.chunk_id for x in o.results] for o in out] != \
+                [[x.chunk_id for x in o.results] for o in res[:8]]:
+            fail("a raising rerank_fn did not fall back to the MaxSim rerank")
+        del r
+    return launches
+
+
+def staged_synthetic(run, card) -> dict:
+    """Phase 7(b): the staged path over phase 3's placed 1M-chunk state (bf16 rows),
+    32 queries of phase 3's mix; no second copy of the rows."""
+    from triple_hybrid_rag_tpu_torch.retrieval import Retriever
+
+    st = run.syn.state
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ret = Retriever.from_state(st, embedder=run.syn.embedder)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    rows_gb = st.nbytes()["embeddings"] / 1e9
+    log(f"staged retriever over the placed 1M-chunk state: torch.cuda.memory_allocated() "
+        f"{before / 1e9:.4f} GB before, {after / 1e9:.4f} GB after ({(after - before) / 1e6:.3f} MB "
+        f"added; the placed rows alone are {rows_gb:.3f} GB)")
+    if after - before > 1e-3 * rows_gb * 1e9:
+        fail("the staged retriever placed a second copy of the index")
+    texts, rows, is_graph = run.texts[:32], run.rows[:32], run.is_graph[:32]
+    ret.retrieve(texts[0])  # warm-up
+    label = "1M-chunk staged (Retriever.retrieve, bf16 rows)"
+    res, launches = drive_staged(ret.retrieve, texts, label, card,
+                                 {"dense_scores": 32, "maxsim_scores": 32})
+    plain = [i for i in range(len(texts)) if not is_graph[i]]
+    hits = sum(f"c{rows[i]}" in [x.chunk_id for x in res[i].results] for i in plain)
+    n_graph = sum(r.channel_counts["graph"] > 0 for r in res)
+    log(f"{label}: self-retrieval {hits}/{len(plain)} plain queries; {n_graph} of "
+        f"{len(texts)} queries had graph candidates")
+    if hits < 0.95 * len(plain):
+        fail(f"{label}: self-retrieval {hits}/{len(plain)}")
+    staged_profile(ret.retrieve, texts[:8], label)
+    return launches
+
+
+def staged_configs(run, card) -> dict:
+    """Phase 7(c): 8 staged queries each over phase 3's term-table and int8 states."""
+    from triple_hybrid_rag_tpu_torch.retrieval import Retriever
+
+    launches = {}
+    texts, rows, is_graph = run.texts[:8], run.rows[:8], run.is_graph[:8]
+    expect = {"termtable": {"termtable_scores": 8, "dense_scores": 8, "maxsim_scores": 8},
+              "int8": {"maxsim_scores_int8": 8}}
+    for kind, (state, cfg) in run.staged_states.items():
+        ret = Retriever.from_state(dataclasses.replace(state, config=cfg), embedder=run.syn.embedder)
+        ret.retrieve(texts[0])  # warm-up
+        label = f"1M-chunk staged, {kind} configuration"
+        res, part = drive_staged(ret.retrieve, texts, label, card, expect[kind])
+        plain = [i for i in range(len(texts)) if not is_graph[i]]
+        hits = sum(f"c{rows[i]}" in [x.chunk_id for x in res[i].results] for i in plain)
+        log(f"{label}: self-retrieval {hits}/{len(plain)} plain queries")
+        if hits < len(plain) - 1:
+            fail(f"{label}: self-retrieval {hits}/{len(plain)}")
+        add_counts(launches, part)
+    if set(run.staged_states) != set(expect):
+        fail(f"phase 7(c) ran {sorted(run.staged_states)}, not {sorted(expect)}")
     return launches
 
 
@@ -1688,6 +1958,11 @@ def maxsim_body_launches(body: str, label: str, state) -> int:
     if by_tokens[body] < 1 or sum(by_tokens.values()) != by_tokens[body]:
         fail(f"{label}: the {body} MaxSim body was not the one launched: {by_tokens}")
     return by_tokens[body]
+
+
+def device_self_ms(e) -> float:
+    """A profiler event's own device time in ms."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
 
 
 def stage_profile(eng, args, label: str, texts: bool = False) -> float:
@@ -1712,9 +1987,7 @@ def stage_profile(eng, args, label: str, texts: bool = False) -> float:
     def dev_total(e):
         return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
 
-    def dev_self(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
+    dev_self = device_self_ms
     # device-side events are the kernels and memory ops, plus one span per stage
     # range (first kernel start to last kernel end, gaps included)
     on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -1788,11 +2061,19 @@ def main() -> int:
     for k in kernels:
         k.update(f32_bodies.get(k["name"], {}))
     log(f"phase 2 wall time {time.time() - t_phase:.1f} s")
-    launches = main_path(dev, card)
+    launches, run = main_path(dev, card)
     torch.cuda.empty_cache()
     t_phase = time.time()
-    launches["ingest"] = ingest_path(dev, card)
+    launches["ingest"], stdlib = ingest_path(dev, card)
     log(f"phase 6 wall time {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    staged = staged_stdlib(stdlib, card)
+    del stdlib
+    add_counts(staged, staged_synthetic(run, card))
+    add_counts(staged, staged_configs(run, card))
+    del run
+    torch.cuda.empty_cache()
+    log(f"phase 7 wall time {time.time() - t_phase:.1f} s; staged launches {staged}")
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -1801,6 +2082,7 @@ def main() -> int:
                 k[f"{path}_launches"] = launches[path][k["name"]]
         if k["name"] in ivf_bodies:
             k["ivf_launches"] = launches["ivf"][ivf_bodies[k["name"]]]
+        k["staged_launches"] = staged.get(k["name"], 0)
     log(f"total wall time {time.time() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -158,12 +158,14 @@ def test_unported_facade_calls_raise(cfg):
     rag = RAG(torch_config(cfg), device="cpu")
     rag.ingest_text(DOCS[0], name="d0.md")
     assert rag.query_batch(QUERIES[:2])[0].results
-    for call in (lambda: rag.query(QUERIES[0]), lambda: rag.save("x"), lambda: RAG.load("x"),
-                 lambda: rag.retriever.retrieve(QUERIES[0])):
+    # the staged query and rerank_fn are ported (tests/test_torch_staged.py)
+    assert rag.query(QUERIES[0]).results and rag.retriever.retrieve(QUERIES[0]).results
+    assert RAG(torch_config(cfg), device="cpu", rerank_fn=lambda *a: None)._rerank_fn
+    for call in (lambda: rag.save("x"), lambda: RAG.load("x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     for kw in ({"config": torch_config(cfg.replace(embed_api_base="http://localhost:1"))},
-               {"rerank_fn": lambda *a: None}, {"ocr_fn": lambda *a: None}):
+               {"ocr_fn": lambda *a: None}):
         kw.setdefault("config", torch_config(cfg))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RAG(device="cpu", **kw)

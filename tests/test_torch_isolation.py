@@ -44,6 +44,15 @@ def test_import_leaves_jax_out():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_staged_path_modules_are_checked():
+    """The staged path's modules are among those the import checks cover."""
+    mods = {m for m, _ in _port_modules()}
+    base = "triple_hybrid_rag_tpu_torch."
+    for name in ("observability", "observability.metrics", "observability.trace",
+                 "models.reranker", "models.maxsim_reranker"):
+        assert base + name in mods, name
+
+
 @pytest.mark.parametrize("path", [p for _, p in _port_modules()] + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import(path):

@@ -3,21 +3,24 @@
 The port of the JAX package's ``RAG`` (``facade.py``)::
 
     from triple_hybrid_rag_tpu_torch import RAG
-    rag = RAG(use_sharded_engine=True)          # device="cpu" for the CPU
+    rag = RAG()                                 # device="cpu" for the CPU
     rag.ingest_text("Acme Corp pays invoices within 30 days.", name="terms.md")
-    results = rag.query_batch(["When are invoices paid?"])
+    result = rag.query("When are invoices paid?")       # the staged path
+    results = rag.query_batch(["When are invoices paid?"])  # the batched engine
 
 The facade owns an :class:`~triple_hybrid_rag_tpu_torch.ingest.Ingestor` (the host
 corpus and entity store) and rebuilds the
 :class:`~triple_hybrid_rag_tpu_torch.retrieval.Retriever` whenever the corpus changed
-since the last query; the :class:`~triple_hybrid_rag_tpu_torch.engine.Engine` it
-serves from is kept through :meth:`Engine.refresh` while the shapes hold.
+since the last query. ``query`` runs the retriever's staged path, or with
+``use_sharded_engine=True`` the batched
+:class:`~triple_hybrid_rag_tpu_torch.engine.Engine`, which ``query_batch`` always
+uses; the engine is kept through :meth:`Engine.refresh` while the shapes hold.
+``rerank_fn(query, texts) -> scores`` reranks the staged path's candidates on the
+host (the engine leaves it out, as the reference's does).
 
 Not ported yet, and raising ``NotImplementedError`` rather than taking another path
-(ROADMAP.md, Queue 1): the staged single-query path (``query`` with
-``use_sharded_engine=False``, the reference's default), checkpoints (``save`` and
-``load``), the HTTP model clients (any ``*_api_base`` setting) and the LLM
-reranker and OCR callables.
+(ROADMAP.md, Queue 1): checkpoints (``save`` and ``load``), the HTTP model clients
+(any ``*_api_base`` setting) and the OCR callable.
 """
 
 from __future__ import annotations
@@ -54,11 +57,10 @@ class RAG:
         wired = [f for f in _API_FIELDS if getattr(self.config, f)]
         if wired:
             raise _not_ported(f"the HTTP model clients ({', '.join(wired)})")
-        if rerank_fn is not None:
-            raise _not_ported("the LLM reranker (rerank_fn)")
         if ocr_fn is not None:
             raise _not_ported("OCR (ocr_fn)")
         self._planner = planner
+        self._rerank_fn = rerank_fn
         self.ingestor = Ingestor(
             config=self.config, embedder=embedder, extractor=extractor, device=device
         )
@@ -90,21 +92,23 @@ class RAG:
         engine takes the new state through :meth:`Engine.refresh`, or is rebuilt
         lazily when the shapes changed."""
         if self._retriever is None or self.ingestor.corpus.dirty:
-            kwargs = {} if self._planner is None else {"planner": self._planner}
+            kwargs = {}
+            if self._planner is not None:
+                kwargs["planner"] = self._planner
+            if self._rerank_fn is not None:
+                kwargs["rerank_llm_fn"] = self._rerank_fn
             self._retriever = self.ingestor.make_retriever(**kwargs)
             if self._engine is not None and not self._engine.refresh(self._retriever.state):
                 self._engine = None
         return self._retriever
 
     def query(self, query: str, top_k: Optional[int] = None, **kwargs) -> RetrievalResult:
-        if not self.use_sharded_engine:
-            raise _not_ported(
-                "the staged query path (RAG.query with use_sharded_engine=False; "
-                "use query_batch or use_sharded_engine=True)"
+        retriever = self.retriever
+        if self.use_sharded_engine:
+            return self._get_engine().retrieve(
+                query, top_k=top_k, collection=kwargs.get("collection")
             )
-        return self._get_engine().retrieve(
-            query, top_k=top_k, collection=kwargs.get("collection")
-        )
+        return retriever.retrieve(query, top_k=top_k, **kwargs)
 
     def query_batch(
         self,

@@ -9,6 +9,11 @@ slots, overflow keeps the heaviest terms). The arrays stay on the host:
 :meth:`IndexState.from_numpy <triple_hybrid_rag_tpu_torch.index.state.IndexState.from_numpy>`
 places the layout the config selects. The reference's C++ build of the same arrays
 (``native.py``) is not ported (ROADMAP.md, Queue 1).
+
+The staged retriever's lexical channel (:func:`lexical_scores`,
+:func:`lexical_search`, :func:`lexical_search_sorted`, the ports of
+``BM25Index.score`` / ``search`` / ``search_sorted``) reads the placed
+:class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState`, the engine's own copy.
 """
 
 from __future__ import annotations
@@ -17,10 +22,15 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..analyzer import Analyzer, Vocabulary
 from ..config import RAGConfig
-from ..ops.bm25 import DOC_PAD
+from ..ops.bm25 import DOC_PAD, score_postings, score_postings_topk_pre, score_termtable
+from ..ops.topk import masked_top_k
+
+# "auto": corpora of at least this many documents take the sorted postings
+AUTO_SORTED_DOCS = 4096
 
 
 @dataclass
@@ -194,3 +204,56 @@ def _fold_posting_weights(
         tfs = postings_tf[:nnz]
         pw[:nnz] = idf[term_of] * tfs * k1p1 / (tfs + denom[docs])
     return pw
+
+
+# ---------------------------------------------------------------- staged channel
+
+
+def _n_docs(state) -> int:
+    return len(state.corpus) if state.corpus is not None else state.n_pad
+
+
+def lexical_scores(state, query_terms: torch.Tensor) -> torch.Tensor:
+    """Dense f32[n_pad] BM25 scores of one padded query-term vector over the placed
+    state (the reference's ``BM25Index.score``): ``"postings"`` adds the CSR windows
+    term at a time, ``"termtable"`` launches the term-table kernel on CUDA; under
+    ``"auto"`` corpora below :data:`AUTO_SORTED_DOCS` documents take the postings."""
+    backend = state.config.lexical_backend
+    if backend == "auto":
+        backend = "termtable" if _n_docs(state) >= AUTO_SORTED_DOCS else "postings"
+    if backend == "postings" and state.lex_offsets is not None:
+        return score_postings(
+            state.lex_offsets, state.lex_lengths, state.lex_pd, state.lex_pt, query_terms,
+            l_max=state.lex_l_max, n_pad=state.n_pad,
+        )
+    if backend == "termtable" and state.term_ids is not None:
+        return score_termtable(state.term_ids, state.term_weights, query_terms)
+    raise ValueError(f"the placed state has no layout for the {backend!r} lexical backend")
+
+
+def lexical_search(
+    state, keywords: Sequence[str], top_k: Optional[int] = None,
+    row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The staged lexical channel: keywords -> (ids i64[k], scores f32[k]) (the
+    reference's ``BM25Index.search``). ``row_mask`` bool[n_pad] scopes the rows."""
+    cfg = state.config
+    k = top_k or cfg.lexical_top_k
+    qt = torch.from_numpy(state.encode_query(keywords)).to(state.device)
+    backend = cfg.lexical_backend
+    if backend == "sorted" or (backend == "auto" and _n_docs(state) >= AUTO_SORTED_DOCS):
+        return lexical_search_sorted(state, qt, k, row_mask)
+    return masked_top_k(lexical_scores(state, qt), k, valid=row_mask)
+
+
+def lexical_search_sorted(
+    state, query_terms: torch.Tensor, top_k: int, row_mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based sparse top-k of one query, O(matched postings) (the reference's
+    ``BM25Index.search_sorted``): the batched op at one query."""
+    ids, vals = score_postings_topk_pre(
+        state.lex_offsets, state.lex_lengths, state.lex_pd, state.lex_pt, query_terms[None, :],
+        None if row_mask is None else row_mask[None, :],
+        l_max=state.lex_l_max, n_pad=state.n_pad, top_k=top_k,
+    )
+    return ids[0], vals[0]

@@ -12,6 +12,11 @@ its rescore): the int32 dot of the int8 row codes and the int8-quantized query,
 then ``(float(acc) * row_scale) * q_scale`` in f32, so every path gives the same
 bits. PyTorch has no integer matmul on CUDA, so :func:`int_dot` goes through
 ``torch._int_mm`` there and through the int32 matmul on the CPU.
+
+The staged retriever's semantic channel (:func:`semantic_scores`,
+:func:`semantic_search`, the ports of ``DenseIndex.score`` / ``search``) scans the
+rows of the placed :class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState`,
+the engine's own copy: bf16 and f32 rows through the dense-scores kernel on CUDA.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from ..config import RAGConfig
 from ..device import resolve_device
-from ..ops.topk import NEG_INF, lax_top_k, sort_topk_desc
+from ..ops.topk import NEG_INF, lax_top_k, masked_top_k, sort_topk_desc
 
 _QUANT_ROWS = 1 << 16  # rows per quantizer block (bounds the f32 transients)
 RESCORE_QUERIES = 16  # queries per member-rescore block
@@ -343,3 +348,43 @@ def zero_query_guard(
         torch.where(q_ok, ids, torch.full_like(ids, -1)),
         torch.where(q_ok, scores, torch.zeros_like(scores)),
     )
+
+
+# ---------------------------------------------------------------- staged channel
+
+
+def semantic_scores(state, query_vec: torch.Tensor) -> torch.Tensor:
+    """Cosine scores f32[n_pad] of one unit query vector against every placed row,
+    in row order (the reference's ``DenseIndex.score``). bf16 and f32 rows go
+    through :func:`~triple_hybrid_rag_tpu_torch.ops.dense_kernel.dense_scores` (the
+    kernel on CUDA), int8 and packed-int4 rows through the exact integer scores.
+    Under ``semantic_backend="ivf"`` the placed rows are cluster-major: their
+    scores go back to row order through ``ivf_perm`` (dead slots dropped), since
+    the reference's staged scan covers every row in row order."""
+    from ..ops.dense_kernel import dense_scores
+
+    rows, q = state.embeddings, query_vec.float()[None, :]
+    if rows.dtype == torch.uint8:
+        scores = dense_scores_int4_batch(rows, state.dense_scales, q)[0]
+    elif rows.dtype == torch.int8:
+        scores = dense_scores_int8_batch(rows, state.dense_scales, q)[0]
+    else:
+        scores = dense_scores(rows, q)[0]
+    if not state.ivf_mode:
+        return scores
+    out = torch.zeros((state.n_pad + 1,), dtype=torch.float32, device=scores.device)
+    out[state.ivf_perm] = scores
+    return out[: state.n_pad]
+
+
+def semantic_search(
+    state, query_vec: torch.Tensor, top_k: Optional[int] = None,
+    row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The staged semantic channel: (ids i64[k], scores f32[k]) of the exact top-k
+    over the occupied rows (the reference's ``DenseIndex.search``); scores <= -2
+    never surface, so a negative cosine still can. ``row_mask`` bool[n_pad]
+    scopes the rows."""
+    k = top_k or state.config.semantic_top_k
+    valid = state.valid if row_mask is None else state.valid & row_mask
+    return masked_top_k(semantic_scores(state, query_vec), k, valid=valid, invalid_score_floor=-2.0)

@@ -8,18 +8,28 @@ seed stoplist of entities mentioned in too many chunks, and ``row_of`` (entity i
 -> row). The tables stay on the host: :meth:`IndexState.from_numpy
 <triple_hybrid_rag_tpu_torch.index.state.IndexState.from_numpy>` places them with the
 reference's graph-backend policy.
+
+The staged retriever's graph channel (:func:`graph_search_plan`,
+:func:`graph_search_seeds`, :func:`search_by_keywords_graph`, the ports of
+``GraphIndex.search_plan`` / ``_search_seeds`` / ``search_by_keywords_graph``) reads
+the placed :class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState`: its seed
+lookup, neighbour table and ``chunk_entities``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..config import RAGConfig
 from ..corpus import CorpusStore
 from ..models.entity_extractor import EntityStore
+from ..ops.graph import khop_chunk_scores
+from ..ops.topk import NEG_INF, masked_top_k
+from ..types import Entity, QueryPlan
 
 
 @dataclass
@@ -104,3 +114,54 @@ def build_graph_index(
         overflow_entities=overflow,
         seed_stop=seed_stop,
     )
+
+
+# ---------------------------------------------------------------- staged channel
+
+
+def graph_search_plan(
+    state, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The staged graph channel (the reference's ``GraphIndex.search_plan``): seeds
+    from the plan's entities (three each), else from its keywords (two each)."""
+    seeds: List[Entity] = []
+    for name in plan.graph_entities:
+        seeds.extend(state.seed_lookup(name, 3))
+    if not seeds:
+        for kw in plan.keywords:
+            seeds.extend(state.seed_lookup(kw, 2))
+    return graph_search_seeds(state, seeds, plan.graph_top_k, row_mask)
+
+
+def search_by_keywords_graph(
+    state, keywords: Sequence[str], top_k: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """keywords -> entity seeds (three each) -> k-hop -> chunks."""
+    seeds: List[Entity] = []
+    for kw in keywords:
+        seeds.extend(state.seed_lookup(kw, 3))
+    return graph_search_seeds(state, seeds, top_k)
+
+
+def graph_search_seeds(
+    state, seeds: Sequence[Entity], top_k: Optional[int],
+    row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids i64[k], scores f32[k]) of the chunks best connected to ``seeds`` within
+    ``graph_hops`` (the reference's ``GraphIndex._search_seeds``): the dense scan of
+    ``chunk_entities``, scores <= 0 never surface; no seeds -> ids -1, scores -inf."""
+    k = top_k or state.config.graph_top_k
+    dev = state.device
+    if not seeds:
+        return (torch.full((k,), -1, dtype=torch.long, device=dev),
+                torch.full((k,), NEG_INF, dtype=torch.float32, device=dev))
+    vec = np.zeros((state.nbr.shape[0],), bool)
+    for e in seeds:
+        row = state.row_of.get(e.entity_id)
+        if row is not None:
+            vec[row] = True
+    scores = khop_chunk_scores(
+        state.nbr, state.chunk_entities, torch.from_numpy(vec).to(dev),
+        hops=state.config.graph_hops,
+    )
+    return masked_top_k(scores, k, valid=row_mask)

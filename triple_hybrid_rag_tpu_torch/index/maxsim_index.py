@@ -6,7 +6,9 @@ is ``[P_pad, maxsim_doc_tokens, maxsim_dim]`` in the reference's storage dtype: 
 rows, bf16 under bf16 (rounded to nearest even, as ``jnp.asarray`` rounds), f32
 otherwise. A token is masked in where its embedding has a non-zero component. The
 store is filled an embedder batch at a time, so no full-corpus f32 staging buffer
-is held.
+is held. :meth:`MaxSimIndex.score_candidates` scores a query's candidate parents
+(the staged rerank); the retriever hands the reranker an index over the placed
+state's store, so the store is on the device once.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from ..config import RAGConfig
 from ..device import resolve_device
-from ..ops.maxsim import quantize_tokens
+from ..ops.maxsim import maxsim_scores, quantize_tokens
 
 
 def _store_dtype(embedding_dtype: str) -> torch.dtype:
@@ -65,6 +67,18 @@ class MaxSimIndex:
             mask.device
         )
         return MaxSimIndex(tokens=toks, mask=mask, n_parents=new_total, config=self.config)
+
+    def score_candidates(
+        self, parent_rows: torch.Tensor, q_tokens: torch.Tensor, q_mask: torch.Tensor
+    ) -> torch.Tensor:
+        """f32[K] MaxSim scores of one query's candidate parent rows i[K] (-1
+        invalid, scoring 0) against its tokens f32[Tq, D] with weights f32[Tq] (the
+        reference's ``MaxSimIndex.score_candidates``): the MaxSim kernel on a CUDA
+        store, whatever the reference's ``use_pallas`` says; the plain version on
+        the CPU. The kernel gathers the candidates' rows from the store itself."""
+        return maxsim_scores(
+            self.tokens, self.mask, parent_rows[None, :], q_tokens[None], q_mask[None]
+        )[0]
 
 
 def build_maxsim_index(

@@ -242,7 +242,8 @@ class IndexState:
         :meth:`from_numpy`, the CSR already reshaped; ``host`` adds ``bm25_l_max``,
         ``stored_df``, ``idf`` and ``chunk_entities_host``). ``config.lexical_backend``
         picks the lexical layout that is placed: the sorted CSR for "sorted"/"auto",
-        the term table otherwise."""
+        the term table otherwise, and under "postings" the CSR as well (the staged
+        retriever's scan). ``chunk_entities`` is placed in every graph mode."""
         cfg = config
         dev = torch.device(device)
         tt = {k: v.to(dev) for k, v in tensors.items()}
@@ -262,13 +263,16 @@ class IndexState:
         vocab = stored_df = idf = None
         sorted_backend = cfg.lexical_backend in ("sorted", "auto")
         if cfg.lexical_enabled and ("bm25_offsets" if sorted_backend else "bm25_term_ids") in tt:
-            if sorted_backend:
-                lexical_mode = "sorted"
+            # the CSR serves the sorted backends, and under "postings" the staged
+            # retriever's term-at-a-time scan (the engine reads the term table there)
+            if sorted_backend or (cfg.lexical_backend == "postings" and "bm25_offsets" in tt):
                 lex = [tt["bm25_offsets"].int(), tt["bm25_lengths"].int(),
                        tt["bm25_postings_doc"].int(), tt["bm25_postings_weight"].float()]
                 l_max = int(host["bm25_l_max"])
                 stored_df = np.asarray(host["stored_df"])
                 idf = np.asarray(host["idf"], np.float32)
+            if sorted_backend:
+                lexical_mode = "sorted"
             else:  # "termtable" / "postings": the doc-major table, weights in f32
                 lexical_mode = "termtable"
                 term_ids = _pad_rows(tt["bm25_term_ids"].int(), n_pad, fill=DOC_PAD).contiguous()
@@ -328,7 +332,9 @@ class IndexState:
                         graph_small_sparse = True
             if graph_mode != "sparse":
                 graph_mode = "dense"
-                chunk_entities = _pad_rows(tt["chunk_entities"].int(), n_pad)
+            # the dense scan's table; the sparse mode's engine walks the mention CSR
+            # instead, but the staged retriever scans this table in every mode
+            chunk_entities = _pad_rows(tt["chunk_entities"].int(), n_pad)
             store = host.get("entity_store") or EntityStore.from_items(
                 zip(host["entity_keys"], host["entities"])
             )

@@ -18,8 +18,9 @@ The port of the JAX package's ``Ingestor`` (``ingest.py``):
 Index building is separate: :meth:`Ingestor.build_indexes` derives the indexes
 from the corpus, incrementally where it can (dense and MaxSim rows are appended
 into spare capacity on the device), and :meth:`Ingestor.make_retriever` places them.
-The reference's metrics counters are observability, which the port has not got yet
-(ROADMAP.md, Queue 1), and the PDF, office and image loaders raise (``loader.py``).
+The reference's counters go to ``observability.rag_metrics``: documents skipped,
+ingested and failed, chunks stored, ingest time, and parents whose entity
+extraction failed. The PDF, office and image loaders raise (``loader.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from .index.maxsim_index import MaxSimIndex, build_maxsim_index
 from .loader import DocumentLoader
 from .models.embedder import FailSoftEmbedder, get_default_embedder
 from .models.entity_extractor import EntityStore, RuleBasedExtractor
+from .observability.metrics import rag_metrics
 from .retrieval import Retriever
 from .types import (
     ChildChunk,
@@ -128,6 +130,7 @@ class Ingestor:
             doc_id = hashlib.sha256(f"{collection}:{doc_id}".encode()).hexdigest()
             existing = self.corpus.documents.get(doc_id)
         if existing is not None and existing.status == IngestionStatus.COMPLETED and not force:
+            rag_metrics.counter("ingest_skipped_total").inc()
             return IngestionResult(
                 doc_id=doc_id, filename=path.name,
                 status=IngestionStatus.COMPLETED, skipped=True, timings=timings,
@@ -196,6 +199,9 @@ class Ingestor:
             doc.n_parents = add.added_parents
             doc.n_children = add.added_children
             timings["total_ms"] = (time.perf_counter() - t_start) * 1e3
+            rag_metrics.counter("ingest_documents_total").inc()
+            rag_metrics.counter("ingest_chunks_total").inc(add.added_children)
+            rag_metrics.histogram("ingest_duration_ms").observe(timings["total_ms"])
             tick("completed", 1.0)
             return IngestionResult(
                 doc_id=doc_id, filename=path.name, status=IngestionStatus.COMPLETED,
@@ -207,6 +213,7 @@ class Ingestor:
             )
         except Exception as e:
             doc.status = IngestionStatus.FAILED
+            rag_metrics.counter("ingest_failed_total").inc()
             timings["total_ms"] = (time.perf_counter() - t_start) * 1e3
             return IngestionResult(
                 doc_id=doc_id, filename=path.name, status=IngestionStatus.FAILED,
@@ -387,4 +394,5 @@ class Ingestor:
                 delay = min(2.0 * (2**attempt), 10.0)
                 if attempt + 1 < self.ner_retries:
                     time.sleep(min(delay, self.config.ner_retry_sleep_cap_s))
+        rag_metrics.counter("ner_failed_parents_total").inc()
         return None

@@ -10,6 +10,10 @@ unique terms ``term_ids[N, L]`` and their precomputed BM25 contributions
 hand-written kernel ``csrc/termtable.cu`` (the port of the Pallas kernel
 ``ops/pallas/lexical_kernel.py``), on a CPU tensor :func:`score_termtable_batch_plain`.
 
+**CSR postings, term at a time** (:func:`score_postings`): one query's dense score
+vector, each query slot's postings window added in slot order (the staged
+retriever's ``"postings"`` backend).
+
 **Sorted CSR postings** (:func:`score_postings_topk_pre`, ``_tiered``): work is
 O(matched postings), independent of corpus size:
 
@@ -22,7 +26,7 @@ O(matched postings), independent of corpus size:
 The doubling tree is kept in the reference's order on purpose: a run's total depends
 only on run-relative offsets, so every score is bit-identical to the JAX op (the
 property the reference's sharding proofs rest on). A ``scatter_add``/``index_add_``
-would sum in another order and is deliberately not used.
+over the whole sort would sum in another order and is deliberately not used there.
 """
 
 from __future__ import annotations
@@ -154,6 +158,31 @@ def gather_windows(
         valid, postings_weight.float()[idx], torch.zeros((), device=terms.device)
     )
     return docs, contrib
+
+
+def score_postings(
+    offsets: torch.Tensor,  # i32[V + 1] CSR offsets
+    lengths: torch.Tensor,  # i32[V] stored df
+    postings_doc: torch.Tensor,  # i32[nnz_pad] doc row per posting
+    postings_weight: torch.Tensor,  # f32[nnz_pad] precomputed contribution
+    query_terms: torch.Tensor,  # i[Q] padded query term ids (-1 = empty slot)
+    *,
+    l_max: int,
+    n_pad: int,
+) -> torch.Tensor:
+    """Term-at-a-time CSR scoring of one query: dense f32[n_pad] BM25 scores (the
+    reference's ``score_postings``). Each query slot adds its window's weights into
+    the score vector in slot order, as the reference's loop of scatters does; a
+    term's postings name each doc once, so every doc's sum runs over the slots in
+    order and the scores are the reference's bits. Invalid postings go to a spill
+    slot past ``n_pad`` that is dropped."""
+    docs, contrib = gather_windows(
+        offsets, lengths, postings_doc, postings_weight, query_terms[None, :], l_max, n_pad
+    )
+    scores = torch.zeros((n_pad + 1,), dtype=torch.float32, device=docs.device)
+    for q in range(docs.shape[1]):
+        scores.index_add_(0, docs[0, q], contrib[0, q])
+    return scores[:n_pad]
 
 
 def sparse_topk_from_windows(

@@ -5,7 +5,8 @@ neighbour table ``nbr[E, D]`` (-1 pads); k-hop BFS is ``hops`` rounds of gather 
 min. Chunk scores are the max of their entities' ``1 / (1 + distance)``, taken
 either by a blocked dense scan of ``chunk_entities[N, M]`` (:func:`graph_topk_batch`)
 or over the entity -> chunk mention postings of the activated entities
-(:func:`graph_sparse_topk`).
+(:func:`graph_sparse_topk`). The staged retriever scores one query's chunks densely
+(:func:`khop_chunk_scores`) and takes their top-k.
 """
 
 from __future__ import annotations
@@ -45,6 +46,33 @@ def khop_distances(nbr: torch.Tensor, seeds: torch.Tensor, *, hops: int) -> torc
         best = nd.amin(dim=-1) + 1.0
         dist = torch.minimum(dist, best)
     return dist
+
+
+def khop_entity_scores(nbr: torch.Tensor, seeds: torch.Tensor, *, hops: int) -> torch.Tensor:
+    """f32[..., E] entity scores ``1 / (1 + distance)``, 0 for entities not reached
+    within ``hops``."""
+    dist = khop_distances(nbr, seeds, hops=hops)
+    return torch.where(dist <= float(hops), 1.0 / (1.0 + dist), torch.zeros_like(dist))
+
+
+def chunk_scores_from_entities(
+    chunk_entities: torch.Tensor,  # i32[N, M] entity rows per chunk (-1 = pad)
+    entity_scores: torch.Tensor,  # f32[E]
+) -> torch.Tensor:
+    """f32[N] chunk scores: the best score among each chunk's entities (0 without
+    any)."""
+    e_pad = entity_scores.shape[0]
+    valid = chunk_entities >= 0
+    s = entity_scores.float()[chunk_entities.long().clamp(0, e_pad - 1)]
+    return torch.where(valid, s, torch.zeros_like(s)).amax(dim=1)
+
+
+def khop_chunk_scores(
+    nbr: torch.Tensor, chunk_entities: torch.Tensor, seeds: torch.Tensor, *, hops: int
+) -> torch.Tensor:
+    """Seed entities bool[E] -> f32[N] chunk scores of one query (the staged graph
+    channel's dense scan)."""
+    return chunk_scores_from_entities(chunk_entities, khop_entity_scores(nbr, seeds, hops=hops))
 
 
 def graph_topk_batch(

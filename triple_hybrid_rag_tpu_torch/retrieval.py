@@ -1,12 +1,27 @@
-"""The retriever's indexes and the helpers of the query path.
+"""The retriever: a corpus snapshot's indexes on one device, and the staged query.
 
-:class:`Retriever` is the port of the JAX package's ``Retriever`` as it is built: it
-builds (or takes) the BM25, dense, graph and MaxSim indexes of a corpus, the child
--> parent row table, the collection table and, when the dot rerank can be chosen,
-the parents' mean embeddings, and places them as one
+:class:`Retriever` is the port of the JAX package's ``Retriever``. It builds (or
+takes) the BM25, dense, graph and MaxSim indexes of a corpus, the child -> parent
+row table, the collection table and, when the dot rerank can be chosen, the
+parents' mean embeddings, and places them as one
 :class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState` on its device, which
-the batched :class:`~triple_hybrid_rag_tpu_torch.engine.Engine` serves. Its staged
-single-query path (``retrieve``) is not ported yet.
+the batched :class:`~triple_hybrid_rag_tpu_torch.engine.Engine` serves.
+
+:meth:`Retriever.retrieve` is the staged single-query path, the reference's
+default query path, in six steps with a host clock around each:
+
+    1. plan            (host: the planner)
+    2. three channels  (BM25, the exact dense scan, the k-hop graph walk)
+    3. weighted RRF    (and conformal denoising when enabled)
+    4. parent expand   (child rows -> parent rows)
+    5. rerank          (MaxSim / dot / none, or a host callable over them)
+    6. safety + denoise
+
+Every channel reads the placed state, the engine's own tensors: nothing is placed
+twice. On CUDA the bf16 and f32 dense scan launches the dense-scores kernel, the
+term-table backend the term-table kernel and the MaxSim rerank the MaxSim kernel.
+Kernels run asynchronously, so a stage's device time shows in the stage that next
+reads a result on the host (the channel counts, the gate).
 
 The helpers are ports of the reference's of the same names: MaxSim query-token
 weights, the parents' mean embeddings of the dot rerank, and the decode of device
@@ -15,7 +30,8 @@ rows into :class:`~triple_hybrid_rag_tpu_torch.types.SearchResult` records.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,15 +40,36 @@ from .analyzer import Analyzer
 from .config import RAGConfig, get_settings
 from .corpus import CorpusStore
 from .device import resolve_device
-from .index.bm25_index import BM25Index, build_bm25_index
-from .index.dense_index import DenseIndex, build_dense_index
+from .index.bm25_index import BM25Index, build_bm25_index, lexical_search
+from .index.dense_index import (
+    DenseIndex,
+    build_dense_index,
+    semantic_search,
+    truncate_matryoshka,
+)
+from .index.graph_index import graph_search_plan
 from .index.ivf import dequant_f32
 from .index.maxsim_index import MaxSimIndex, build_maxsim_index
 from .index.state import IndexState
 from .models.embedder import get_default_embedder
 from .models.planner import get_planner
-from .ops.fusion import GRAPH_BIT, LEXICAL_BIT, SEMANTIC_BIT
-from .types import RetrievalResult, SearchResult
+from .models.reranker import Reranker, get_reranker
+from .observability import rag_metrics
+from .observability.trace import tracer
+from .ops.fusion import (
+    GRAPH_BIT,
+    LEXICAL_BIT,
+    SEMANTIC_BIT,
+    FusedCandidates,
+    apply_safety_denoise,
+    conformal_denoise_mask,
+    fuse_rrf,
+    minmax_normalize,
+)
+from .ops.topk import NEG_INF, masked_top_k
+from .types import QueryPlan, RetrievalResult, SearchResult
+
+_EMPTY_CHANNEL_K = 1  # width of the placeholder lists of a channel that is off
 
 # Content-light "function" words (EN + PT) that rarely match a document token and
 # would drag the MaxSim mean below the safety threshold on natural questions; they
@@ -169,7 +206,7 @@ def _parent_of_table(corpus: CorpusStore, config: RAGConfig) -> np.ndarray:
 
 
 class Retriever:
-    """A corpus snapshot's indexes, placed on one device for the engine."""
+    """A corpus snapshot's indexes placed on one device, and the staged query."""
 
     def __init__(
         self,
@@ -180,6 +217,9 @@ class Retriever:
         bm25_index: Optional[BM25Index] = None,
         dense_index: Optional[DenseIndex] = None,
         graph_index=None,
+        reranker: Optional[Reranker] = None,
+        child_embeddings: Optional[np.ndarray] = None,
+        rerank_llm_fn=None,
         maxsim_index: Optional[MaxSimIndex] = None,
         device=None,
     ) -> None:
@@ -196,7 +236,8 @@ class Retriever:
             bm25_index = build_bm25_index(texts, cfg, self.analyzer)
         self.bm25_index = bm25_index
         if cfg.semantic_enabled and dense_index is None:
-            dense_index = build_dense_index(self.embedder.embed_texts(texts), cfg, self.device)
+            vecs = child_embeddings if child_embeddings is not None else self.embedder.embed_texts(texts)
+            dense_index = build_dense_index(vecs, cfg, self.device)
         self.dense_index = dense_index
 
         self.parent_of = _parent_of_table(corpus, cfg)
@@ -217,6 +258,7 @@ class Retriever:
             self.parent_emb = self._build_parent_embeddings()
         self.corpus.mark_clean()
         self.state = self._place()
+        self._init_reranker(reranker, rerank_llm_fn)
 
     @classmethod
     def from_indexes(
@@ -253,7 +295,59 @@ class Retriever:
         if config.rerank_enabled and dense_index is not None and maxsim_index is None and len(corpus):
             self.parent_emb = self._build_parent_embeddings()
         self.state = self._place()
+        self._init_reranker(None, None)
         return self
+
+    @classmethod
+    def from_state(
+        cls,
+        state: IndexState,
+        embedder=None,
+        planner=None,
+    ) -> "Retriever":
+        """The staged query over an index state already placed (the synthetic corpus
+        built on the card, or an engine's state): no index object is kept and nothing
+        is placed again. ``state.corpus`` decodes the results."""
+        self = cls.__new__(cls)
+        self.device = state.device
+        self.config = state.config
+        self.corpus = state.corpus
+        self.analyzer = Analyzer(state.config)
+        self.embedder = embedder or get_default_embedder(state.config, device=self.device)
+        self.planner = planner or get_planner(state.config)
+        self.bm25_index = self.dense_index = self.graph_index = self.maxsim_index = None
+        self.collection_ids = dict(state.collection_ids)
+        self.state = state
+        self._init_reranker(None, None)
+        return self
+
+    def _init_reranker(self, reranker: Optional[Reranker], rerank_llm_fn) -> None:
+        """The staged rerank over the placed state's MaxSim store or parent
+        embeddings (the reference's ``get_reranker`` ladder). ``self.maxsim_view``
+        is the store as placed, the one the engine reads."""
+        cfg, st = self.config, self.state
+        self.maxsim_view = None
+        if (
+            st.maxsim_tokens is not None and cfg.rerank_enabled and cfg.rerank_backend == "maxsim"
+        ):
+            n_parents = getattr(self.corpus, "n_parents", st.maxsim_tokens.shape[0])
+            self.maxsim_view = MaxSimIndex(
+                tokens=st.maxsim_tokens, mask=st.maxsim_mask, n_parents=n_parents, config=cfg
+            )
+        self.reranker = reranker or get_reranker(
+            cfg,
+            parent_embeddings=st.parent_emb,
+            maxsim_index=self.maxsim_view,
+            llm_fn=rerank_llm_fn,
+            texts_of=self._parent_text_by_row if rerank_llm_fn is not None else None,
+            maxsim_calibration=getattr(self.embedder, "maxsim_calibration", 1.0),
+        )
+
+    def _parent_text_by_row(self, row: int) -> str:
+        """Parent row -> text (the host lookup of a callable reranker)."""
+        if 0 <= row < self.corpus.n_parents:
+            return self.corpus.parent_by_row(row).text
+        return ""
 
     def _init_collections(self, n_pad: int) -> None:
         """The collection-id table of the child rows (-1 where the document is unknown)."""
@@ -294,13 +388,221 @@ class Retriever:
             arrays["parent_emb"] = self.parent_emb
         return IndexState.from_numpy(arrays, host, cfg, self.device)
 
+    # ------------------------------------------------------------------ staged query
+
+    @torch.no_grad()
     def retrieve(
         self, query: str, top_k: Optional[int] = None, collection: Optional[str] = None
     ) -> RetrievalResult:
-        """The staged single-query path (plan, channels, fusion, rerank, gate as
-        separate steps) is not ported; the batched engine serves queries."""
-        raise NotImplementedError(
-            "Retriever.retrieve (the staged single-query path, with models/reranker.py "
-            "and models/maxsim_reranker.py) is not ported yet (ROADMAP.md, Queue 1); "
-            "serve queries through Engine.retrieve_batch"
+        """The staged query with per-stage host timings and decoded results."""
+        cfg, st = self.config, self.state
+        dev = self.device
+        final_k = top_k or cfg.final_top_k
+        timings: Dict[str, float] = {}
+        t_total = time.perf_counter()
+
+        # 1. plan
+        t0 = time.perf_counter()
+        plan = self.planner.plan(query, collection)
+        timings["planning_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # 2. channels (optionally scoped to a collection)
+        t0 = time.perf_counter()
+        row_mask = self._collection_mask(collection)
+        lex_ids, lex_scores = self._lexical_search(plan, row_mask)
+        sem_ids, sem_scores, query_vec = self._semantic_search(plan, row_mask)
+        gr_ids, gr_scores = self._graph_search(plan, row_mask)
+        counts = torch.stack([(x >= 0).sum() for x in (lex_ids, sem_ids, gr_ids)]).tolist()
+        channel_counts = dict(zip(("lexical", "semantic", "graph"), counts))
+        timings["retrieval_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # 3. fusion
+        t0 = time.perf_counter()
+        weights = torch.tensor(
+            [[
+                plan.weights.get("lexical", cfg.lexical_weight),
+                plan.weights.get("semantic", cfg.semantic_weight),
+                plan.weights.get("graph", cfg.graph_weight),
+            ]],
+            dtype=torch.float32, device=dev,
         )
+        fused = fuse_rrf(
+            lex_ids[None], lex_scores[None], sem_ids[None], sem_scores[None],
+            gr_ids[None], gr_scores[None], weights,
+            rrf_k=cfg.rrf_k, top_k=cfg.rerank_top_k,
+            score_blend=cfg.fusion_score_blend, lex_conf_gate=cfg.fusion_lex_conf_gate,
+        )
+        fused = FusedCandidates(*(x[0] for x in fused))
+        if cfg.conformal_denoise_enabled:
+            keep = conformal_denoise_mask(
+                fused.ids[None], fused.rrf[None], torch.tensor(cfg.conformal_alpha)
+            )[0]
+            fused = fused._replace(ids=torch.where(keep, fused.ids, torch.full_like(fused.ids, -1)))
+        timings["fusion_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # 4. parent expansion
+        t0 = time.perf_counter()
+        parent_ids = self._expand_to_parents(fused.ids)
+        timings["expansion_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # 5. rerank
+        t0 = time.perf_counter()
+        if cfg.rerank_enabled:
+            qctx: Dict[str, object] = {"query_text": query}
+            if query_vec is not None:
+                qctx["query_vec"] = query_vec
+            if self.maxsim_view is not None:
+                qctx.update(self._query_token_ctx(plan))
+            rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
+        else:
+            rerank_scores = fused.rrf
+        # the ordering score may fold the fused evidence back in; the gate below
+        # still reads the pure rerank score
+        b = cfg.rerank_blend_rrf
+        if plan.requires_graph and plan.intent in ("relational", "entity_lookup"):
+            # relation-mediated answers: trust the fused ranks more
+            b = cfg.rerank_blend_rrf_relational
+        if cfg.rerank_enabled and b > 0:
+            order_scores = (1.0 - b) * rerank_scores + b * minmax_normalize(fused.ids, fused.rrf)
+        else:
+            order_scores = rerank_scores
+        timings["rerank_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # 6. safety + denoise
+        t0 = time.perf_counter()
+        if cfg.safety_enabled or cfg.denoise_enabled:
+            threshold = cfg.safety_threshold if cfg.safety_enabled else float("-inf")
+            alpha = cfg.denoise_alpha if cfg.denoise_enabled else 0.0
+            gate = apply_safety_denoise(
+                fused.ids[None], order_scores[None],
+                torch.tensor(threshold, dtype=torch.float32, device=dev),
+                torch.tensor(alpha, dtype=torch.float32, device=dev),
+                top_k=final_k, gate_scores=rerank_scores[None],
+            )
+            final_ids, final_scores = gate.ids[0], gate.scores[0]
+            refused, max_score = bool(gate.refused[0]), float(gate.max_score[0])
+        else:
+            slots, final_scores = masked_top_k(
+                torch.where(fused.ids >= 0, order_scores, torch.full_like(order_scores, NEG_INF)),
+                final_k, invalid_score_floor=NEG_INF,
+            )
+            # slots are positions in the candidate list; map them to rows
+            final_scores = torch.where(slots >= 0, final_scores, torch.zeros_like(final_scores))
+            final_ids = torch.where(
+                slots >= 0, fused.ids[slots.clamp(min=0)], torch.full_like(slots, -1)
+            )
+            refused, max_score = False, float(rerank_scores.max())
+        timings["safety_ms"] = (time.perf_counter() - t0) * 1e3
+
+        # decode on the host
+        t0 = time.perf_counter()
+        fused_np = FusedCandidates(*(x.cpu().numpy() for x in fused))
+        results = decode_results(
+            self.corpus, fused_np, rerank_scores.cpu().numpy(), final_ids.cpu().numpy(),
+            final_scores.cpu().numpy(),
+        )
+        timings["decode_ms"] = (time.perf_counter() - t0) * 1e3
+        timings["total_ms"] = (time.perf_counter() - t_total) * 1e3
+
+        if cfg.metrics_enabled:
+            rag_metrics.counter("retrieval_queries_total").inc()
+            rag_metrics.histogram("retrieval_latency_ms").observe(timings["total_ms"])
+            for ch, n in channel_counts.items():
+                rag_metrics.counter("retrieval_channel_hits_total", "").inc(
+                    n, labels={"channel": ch}
+                )
+            if refused:
+                rag_metrics.counter("retrieval_refusals_total").inc()
+            for stage, ms in timings.items():
+                if stage != "total_ms":
+                    tracer.stage(query[:64], stage, ms)
+
+        return RetrievalResult(
+            query=query,
+            results=results,
+            plan=plan,
+            refused=refused,
+            refusal_reason=(
+                None
+                if not refused
+                else f"Max score {max_score:.2f} below threshold {cfg.safety_threshold}"
+                if sum(channel_counts.values())
+                else "No candidates retrieved"
+            ),
+            max_score=max_score,
+            timings=timings,
+            channel_counts=channel_counts,
+        )
+
+    # ------------------------------------------------------------------ channel stages
+
+    def _empty_channel(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (
+            torch.full((_EMPTY_CHANNEL_K,), -1, dtype=torch.long, device=self.device),
+            torch.zeros((_EMPTY_CHANNEL_K,), dtype=torch.float32, device=self.device),
+        )
+
+    def _lexical_search(self, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None):
+        if not self.config.lexical_enabled or self.state.vocab is None or not plan.keywords:
+            return self._empty_channel()
+        return lexical_search(self.state, plan.keywords, plan.lexical_top_k, row_mask)
+
+    def _semantic_search(self, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None):
+        if not self.config.semantic_enabled or not self.state.has_dense:
+            return (*self._empty_channel(), None)
+        try:
+            raw = self.embedder.embed_query(plan.semantic_query_text or plan.original_query)
+        except Exception:
+            # a failed embed (the encoder raises on a query with no tokens; an embed
+            # server may be down) drops the semantic channel for this query only
+            rag_metrics.counter("semantic_channel_failures_total").inc()
+            return (*self._empty_channel(), None)
+        qv = torch.from_numpy(truncate_matryoshka(raw[None], self.config.embedding_dim)[0])
+        qv = qv.to(self.device)
+        ids, scores = semantic_search(self.state, qv, plan.semantic_top_k, row_mask)
+        return ids, scores, qv
+
+    def _graph_search(self, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None):
+        if not self.config.graph_enabled or not self.state.has_graph or not plan.requires_graph:
+            return self._empty_channel()
+        return graph_search_plan(self.state, plan, row_mask)
+
+    def _expand_to_parents(self, child_rows: torch.Tensor) -> torch.Tensor:
+        parent_of = self.state.parent_of
+        safe = child_rows.clamp(0, parent_of.shape[0] - 1)
+        return torch.where(child_rows >= 0, parent_of.long()[safe], torch.full_like(safe, -1))
+
+    def _collection_mask(self, collection: Optional[str]) -> Optional[torch.Tensor]:
+        """bool[n_pad] row filter of a collection; None = unscoped. An unknown
+        collection masks every row."""
+        if collection is None:
+            return None
+        return self.state.collection_of == self.collection_ids.get(collection, -2)
+
+    def _query_token_ctx(self, plan: QueryPlan) -> Dict[str, torch.Tensor]:
+        """The query's MaxSim tokens and weights (the embedder that built the store)."""
+        cfg = self.config
+        text = plan.semantic_query_text or plan.original_query
+        toks = self.embedder.token_embeddings(
+            [text], max_tokens=cfg.maxsim_query_tokens, dim=cfg.maxsim_dim
+        )[0]
+        mask = np.any(toks != 0, axis=-1)
+        weights = maxsim_query_weights(text, self.analyzer, cfg.maxsim_query_tokens) * mask.astype(
+            np.float32
+        )
+        return {
+            "q_tokens": torch.from_numpy(np.ascontiguousarray(toks, np.float32)).to(self.device),
+            "q_mask": torch.from_numpy(weights).to(self.device),
+        }
+
+
+def retrieve(
+    corpus: CorpusStore,
+    query: str,
+    top_k: Optional[int] = None,
+    collection: Optional[str] = None,
+    **kwargs,
+) -> RetrievalResult:
+    """One-shot staged query: ``top_k`` and ``collection`` go to the query, the other
+    keyword arguments build the :class:`Retriever`."""
+    return Retriever(corpus, **kwargs).retrieve(query, top_k=top_k, collection=collection)
