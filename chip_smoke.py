@@ -64,11 +64,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    state, 32 of its queries: no device memory added, self-retrieval, launches,
    device busy per query under the profiler; (c) 8 queries each over phase 3's
    term-table and int8 states (the term-table kernel, the int8 MaxSim body).
-   Every part prints the median of each ``timings`` key and its e2e ms/query.
+   Every part prints the median of each ``timings`` key and its e2e ms/query;
+8. the serving surface over phase 6's RAG: (a) ``RAG.save`` (seconds, each
+   artifact's MB), ``RAG.load`` onto the card and its first query (the MaxSim
+   store's rebuild timed apart); the loaded RAG's ``query_batch`` must give the saved
+   one's ids up to near ties and its placed dense rows must equal the saved RAG's
+   bit for bit; (b) the HTTP server (``server.serve``) with the micro-batcher over
+   the loaded RAG (``use_sharded_engine=True``): two rounds of 128 concurrent
+   ``POST /query``, each answered 200 with ``query_batch``'s ids, in fewer engine
+   batches than requests, each batch one bf16 bucket-maxima and one bf16 MaxSim
+   launch (requests/s, p50 and p99 ms, batches and mean width); (c) the staged
+   server: 32 sequential ``POST /query``, one dense-scores (B = 1) and one MaxSim
+   launch each, the ids of ``RAG.query``; (d) ``/rerank`` of one query over 50 and
+   over 400 parent texts (one MaxSim launch, within ``FUSED_ATOL`` of the plain
+   version), ``/ingest`` then a ``/query`` that finds the new text, ``/healthz``,
+   ``/stats``, ``/metrics``, and the agent tools (``search_knowledge_base``,
+   ``lookup_entity`` of the most mentioned entity with relations); (e) the CLI,
+   ``python -m triple_hybrid_rag_tpu_torch query --json`` over the checkpoint in a
+   new process on the card, with the loaded RAG's ids.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
-over phase 7, and per further path), error and times; the last line is
+over phase 7, ``serve_launches`` over phase 8's served requests, and per further
+path), error and times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
 """
@@ -1940,6 +1958,427 @@ def staged_configs(run, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def http(base: str, route: str, payload=None, timeout: float = 300.0):
+    """(status, decoded JSON or text) of one request to the server at ``base``
+    (``127.0.0.1``; proxies from the environment are not used)."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + route, data=data,
+                                 headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with opener.open(req, timeout=timeout) as r:
+            status, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode()
+    try:
+        return status, json.loads(body)
+    except ValueError:
+        return status, body
+
+
+# A load generator run in a process of its own (``python -c``), so that its client
+# work does not share the server's interpreter lock (a urllib client in the server's
+# process added some 40 ms to each request on the card, a GET /healthz included):
+# one asyncio loop opens a connection per request, all at once (or one after another
+# with "sequential"), sends each as one write and reads the answer to EOF (HTTP/1.0).
+# Reads {"port", "route", "payloads", "sequential"} as JSON on stdin and prints one
+# JSON list of [status, seconds from connect to EOF, body].
+LOAD_CLIENT = r"""
+import asyncio, json, sys, time
+
+async def one(port, route, payload):
+    body = json.dumps(payload).encode()
+    head = (f"POST {route} HTTP/1.0\r\nHost: 127.0.0.1\r\nContent-Type: application/json\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n").encode()
+    t = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(head + body)
+    await writer.drain()
+    data = await reader.read()
+    dt = time.perf_counter() - t
+    writer.close()
+    status_line, _, rest = data.partition(b"\r\n")
+    return [int(status_line.split()[1]), dt, json.loads(rest.partition(b"\r\n\r\n")[2])]
+
+async def main(job):
+    if job["sequential"]:
+        return [await one(job["port"], job["route"], p) for p in job["payloads"]]
+    return await asyncio.gather(*(one(job["port"], job["route"], p) for p in job["payloads"]))
+
+print(json.dumps(asyncio.run(main(json.load(sys.stdin)))))
+"""
+
+
+def load_client(port: int, route: str, payloads, sequential: bool = False) -> list:
+    """[status, seconds, body] of every payload POSTed by :data:`LOAD_CLIENT` in a new
+    process: all at once, or one after another."""
+    job = {"port": port, "route": route, "payloads": payloads, "sequential": sequential}
+    out = subprocess.run([sys.executable, "-c", LOAD_CLIENT], capture_output=True, text=True,
+                         input=json.dumps(job), timeout=600)
+    if out.returncode != 0:
+        fail(f"the load client failed: {out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def start_server(rag, **kw):
+    """``server.serve`` on 127.0.0.1 at a free port, run in a thread; returns
+    (server, base url)."""
+    import threading
+
+    from triple_hybrid_rag_tpu_torch.server import serve
+
+    httpd = serve(host="127.0.0.1", port=0, rag=rag, **kw)
+    threading.Thread(target=httpd.serve_forever, name="smoke-http", daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_server(httpd) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def answer_ids(answers, names: dict, k: int):
+    """[B, k] ids (-1 padded) and final scores (-inf padded) of ``answers``, each a
+    list of (chunk_id, final score); ``names`` numbers the chunk ids as it meets them."""
+    ids = torch.full((len(answers), k), -1, dtype=torch.long)
+    scores = torch.full((len(answers), k), float("-inf"))
+    for i, ans in enumerate(answers):
+        for j, (cid, s) in enumerate(ans[:k]):
+            ids[i, j] = names.setdefault(cid, len(names))
+            scores[i, j] = s
+    return ids, scores
+
+
+def same_ids(label: str, want, got, atol: float) -> int:
+    """Fails unless two lists of answers ((chunk_id, final score) lists) have the
+    same ids up to near ties of ``atol`` in ``want``'s scores; returns the slots that
+    differ. Prints the largest final-score gap where the ids agree."""
+    names: dict = {}
+    k = max([len(a) for a in want + got] + [1])
+    ids_w, s_w = answer_ids(want, names, k)
+    ids_g, s_g = answer_ids(got, names, k)
+    n_diff = near_ties_only(ids_g, ids_w, s_w, atol)
+    same = (ids_g == ids_w) & (ids_w >= 0)
+    gap = float((s_g - s_w)[same].abs().max()) if bool(same.any()) else 0.0
+    log(f"{label}: {n_diff} of {int((ids_w >= 0).sum())} result slots differ (near ties within "
+        f"{atol:g} allowed); largest final-score gap where the ids agree {gap:.3g}")
+    if n_diff < 0:
+        fail(f"{label}: the ids differ beyond near ties")
+    return n_diff
+
+
+def pairs(results) -> list:
+    """(chunk_id, final score) lists of RetrievalResults."""
+    return [[(x.chunk_id, x.final_score) for x in r.results] for r in results]
+
+
+def http_pairs(bodies) -> list:
+    """(chunk_id, final score) lists of /query answers."""
+    return [[(x["chunk_id"], x["scores"]["final"]) for x in b["results"]] for b in bodies]
+
+
+def percentile_ms(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values) * 1e3, q))
+
+
+def serve_checkpoint(ctx, tmp: str, card: str):
+    """Phase 8(a): ``RAG.save`` of phase 6's RAG, ``RAG.load`` onto the card, the
+    first query with the MaxSim store's rebuild timed apart. Returns the loaded RAG
+    (``use_sharded_engine=True``)."""
+    import os
+
+    from triple_hybrid_rag_tpu_torch import RAG
+
+    rag, queries, _ = ctx
+    dev = rag.device
+    before = rag.query_batch(queries)
+    t0 = time.perf_counter()
+    rag.save(tmp)
+    save_s = time.perf_counter() - t0
+    sizes = {n: os.path.getsize(os.path.join(tmp, n)) / 1e6 for n in sorted(os.listdir(tmp))}
+    log(f"checkpoint: RAG.save in {save_s:.3f} s; artifacts MB "
+        + ", ".join(f"{n} {mb:.3f}" for n, mb in sizes.items()))
+    t0 = time.perf_counter()
+    loaded = RAG.load(tmp, device=dev, use_sharded_engine=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ing = loaded.ingestor
+    rebuild = []
+    build_maxsim = ing._maxsim_index
+
+    def timed_maxsim():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = build_maxsim()
+        torch.cuda.synchronize()
+        rebuild.append(time.perf_counter() - t)
+        return out
+
+    ing._maxsim_index = timed_maxsim  # the first retriever build rebuilds the store
+    t0 = time.perf_counter()
+    first = loaded.query(queries[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    del ing._maxsim_index
+    log(f"checkpoint: RAG.load(device={dev.type!r}) in {load_s:.3f} s (the encoder onto the card, "
+        f"the artifacts read and verified); first query {first_s:.3f} s, of which the MaxSim "
+        f"store's rebuild (token_embeddings over {loaded.ingestor.corpus.n_parents} parents) "
+        f"{rebuild[0] if rebuild else float('nan'):.3f} s; {len(first.results)} results; card {card}")
+    if len(rebuild) != 1:
+        fail("checkpoint: the first query did not rebuild the MaxSim store once")
+    n = len(rag.ingestor.corpus)
+    rows_a = rag.retriever.state.embeddings[:n]
+    rows_b = loaded.retriever.state.embeddings[:n]
+    if rows_a.shape != rows_b.shape or not torch.equal(rows_a, rows_b):
+        fail("checkpoint: the dense rows placed from the checkpoint differ from the saved RAG's")
+    tok_a, tok_b = rag.retriever.state.maxsim_tokens, loaded.retriever.state.maxsim_tokens
+    p = min(tok_a.shape[0], tok_b.shape[0])
+    tok_gap = float((tok_a[:p].float() - tok_b[:p].float()).abs().max())
+    log(f"checkpoint: dense rows equal bit for bit ({n} rows); MaxSim tokens rebuilt within "
+        f"{tok_gap:.3g} of the saved RAG's (built in other encoder batches)")
+    after = loaded.query_batch(queries)
+    same_ids("checkpoint: loaded query_batch against the saved RAG's", pairs(before), pairs(after),
+             1e-3)
+    return loaded
+
+
+def serve_batched(loaded, queries, card: str, rounds: int = 2) -> dict:
+    """Phase 8(b): the micro-batched server, ``len(queries)`` concurrent POST /query
+    per round from a load client in another process; fails unless every request
+    answers 200 with ``query_batch``'s ids (up to near ties), the requests were
+    coalesced into fewer engine calls, and each engine call launched the bf16 bucket
+    maxima and the bf16 MaxSim body once."""
+    from triple_hybrid_rag_tpu_torch.observability import rag_metrics
+
+    want = pairs(loaded.query_batch(queries))
+    httpd, _ = start_server(loaded)
+    if httpd.rag_state.batcher is None:
+        fail("the server over use_sharded_engine=True has no micro-batcher")
+    total: dict = {}
+    n = len(queries)
+    try:
+        for rnd in range(rounds):
+            batches = rag_metrics.counter("server_engine_batches_total")
+            width = rag_metrics.histogram("server_batch_size")
+            errors = rag_metrics.counter("server_errors_total")
+            b0, w0, c0, e0 = batches.value(), width.sum(), width.count(), errors.value()
+            torch.cuda.synchronize()
+            staged_counts_reset()
+            t0 = time.perf_counter()
+            out = load_client(httpd.server_address[1], "/query", [{"query": q} for q in queries])
+            wall = time.perf_counter() - t0
+            launches = staged_counts()
+            n_batches = int(batches.value() - b0)
+            mean_width = (width.sum() - w0) / max(width.count() - c0, 1)
+            lat = [t for _, t, _ in out]
+            bad = [(s, b) for s, _, b in out if s != 200]
+            label = f"micro-batched server, round {rnd + 1}"
+            log(f"{label}: {n} concurrent POST /query from another process: {n / max(lat):.1f} "
+                f"requests/s (first send to last answer {max(lat):.3f} s; the client process "
+                f"{wall:.3f} s); per request p50 {percentile_ms(lat, 50):.2f} ms, p99 "
+                f"{percentile_ms(lat, 99):.2f} ms; {n_batches} engine batches, mean width "
+                f"{mean_width:.2f}; kernel launches {launches}; card {card}")
+            if bad or errors.value() != e0:
+                fail(f"{label}: {len(bad)} requests failed, e.g. {bad[:2]}")
+            if not 1 <= n_batches < n:
+                fail(f"{label}: {n_batches} engine batches for {n} requests: not coalesced")
+            if launches["fused_bucket_maxima"] != n_batches or launches["maxsim_scores"] != n_batches \
+                    or sum(launches.values()) != 2 * n_batches:
+                fail(f"{label}: expected one bf16 bucket-maxima and one bf16 MaxSim launch per "
+                     f"engine batch, got {launches}")
+            same_ids(f"{label} against query_batch", want, http_pairs([b for _, _, b in out]), 1e-3)
+            add_counts(total, launches)
+    finally:
+        stop_server(httpd)
+    return total
+
+
+def serve_staged(loaded, queries, card: str):
+    """Phase 8(c): the staged server (no micro-batcher), POST /query one after
+    another from the load client: one bf16 dense-scores (B = 1) and one bf16 MaxSim
+    launch each, the ids of ``RAG.query``. Returns (server, launches, answers); the
+    server stays up for phase 8(d)."""
+    loaded.use_sharded_engine = False
+    httpd, _ = start_server(loaded)
+    if httpd.rag_state.batcher is not None:
+        fail("the staged server has a micro-batcher")
+    n = len(queries)
+    torch.cuda.synchronize()
+    staged_counts_reset()
+    out = load_client(httpd.server_address[1], "/query", [{"query": q} for q in queries],
+                      sequential=True)
+    launches = staged_counts()
+    bad = [(s, b) for s, _, b in out if s != 200]
+    if bad:
+        fail(f"staged server: {len(bad)} requests failed, e.g. {bad[:2]}")
+    lat = [t for _, t, _ in out]
+    t0 = time.perf_counter()
+    direct = [loaded.query(q) for q in queries]
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) / n * 1e3
+    log(f"staged server: {n} POST /query one after another from another process, p50 "
+        f"{percentile_ms(lat, 50):.2f} ms, p99 {percentile_ms(lat, 99):.2f} ms (RAG.query "
+        f"alone {direct_ms:.2f} ms a query); kernel launches {launches}; card {card}")
+    want = {k: 0 for k in launches}
+    want.update(dense_scores=n, maxsim_scores=n)
+    if launches != want:
+        fail(f"staged server: kernel launches {launches}, expected {want}")
+    if [[c for c, _ in a] for a in pairs(direct)] != \
+            [[c for c, _ in a] for a in http_pairs([b for _, _, b in out])]:
+        fail("staged server: the answers' ids differ from RAG.query's")
+    log(f"staged server: the ids of all {n} answers equal RAG.query's")
+    return httpd, launches, direct
+
+
+def rerank_check(port: int, loaded, query: str, docs, card: str) -> dict:
+    """One POST /rerank from the load client: the MaxSim bf16 body launched once,
+    every score within FUSED_ATOL of the plain version on the same tokens on the
+    card."""
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import (
+        calibrate_maxsim,
+        maxsim_scores,
+        maxsim_scores_plain,
+    )
+    from triple_hybrid_rag_tpu_torch.retrieval import maxsim_query_weights
+
+    torch.cuda.synchronize()
+    staged_counts_reset()
+    [(status, secs, body)] = load_client(port, "/rerank", [{"query": query, "documents": docs}])
+    ms = secs * 1e3
+    launches = staged_counts()
+    if status != 200 or body.get("scorer") != "maxsim" or len(body["results"]) != len(docs):
+        fail(f"/rerank answered {status}: {str(body)[:300]}")
+    want = {k: 0 for k in launches}
+    want["maxsim_scores"] = 1
+    if launches != want:
+        fail(f"/rerank with {len(docs)} documents: kernel launches {launches}, expected {want}")
+    cfg, dev = loaded.config, loaded.device
+    emb = loaded.ingestor.embedder.inner
+    dt = np.asarray(emb.token_embeddings(docs, max_tokens=cfg.maxsim_doc_tokens, dim=cfg.maxsim_dim),
+                    np.float32)
+    qt = np.asarray(emb.token_embeddings([query], max_tokens=cfg.maxsim_query_tokens,
+                                         dim=cfg.maxsim_dim), np.float32)[0]
+    qw = (np.linalg.norm(qt, axis=-1) > 0).astype(np.float32)
+    qw *= maxsim_query_weights(query, loaded.retriever.analyzer, cfg.maxsim_query_tokens)
+    args = (torch.from_numpy(dt).to(dev, torch.bfloat16),
+            torch.from_numpy(np.linalg.norm(dt, axis=-1) > 0).to(dev),
+            torch.arange(len(docs), device=dev)[None],
+            torch.from_numpy(qt).to(dev)[None], torch.from_numpy(qw).to(dev)[None])
+    plain = calibrate_maxsim(maxsim_scores_plain(*args)[0], emb.maxsim_calibration).cpu().numpy()
+    got = np.zeros(len(docs), np.float32)
+    for r in body["results"]:
+        got[r["index"]] = r["relevance_score"]
+    err = float(np.abs(got - plain).max())
+    # the kernel alone at this shape (launches after the counters were read)
+    k_ms, p_ms = time_ms(lambda: maxsim_scores(*args)), time_ms(lambda: maxsim_scores_plain(*args))
+    log(f"/rerank, 1 query x {len(docs)} documents (K = {len(docs)} at B = 1, Td {dt.shape[1]}, "
+        f"D {dt.shape[2]}, Tq {qt.shape[0]}): {ms:.2f} ms a request; the MaxSim kernel "
+        f"{k_ms:.4f} ms, its plain version {p_ms:.4f} ms; max abs err {err:.3g} (atol {FUSED_ATOL}); "
+        f"top score {body['results'][0]['relevance_score']:.4f}; card {card}")
+    if not err <= FUSED_ATOL:
+        fail(f"/rerank: the MaxSim kernel's scores differ from the plain version's by {err}")
+    return launches
+
+
+def serve_routes(httpd, loaded, queries, direct, card: str) -> dict:
+    """Phase 8(d): /rerank at K = 50 and K = 400, /ingest then a /query that finds
+    the new text, /healthz, /stats, /metrics, and the agent tools (a search with
+    the first query that ``direct``, its answers, did not refuse)."""
+    from collections import Counter
+
+    from triple_hybrid_rag_tpu_torch.tools import make_knowledge_tools
+
+    port = httpd.server_address[1]
+    base = f"http://127.0.0.1:{port}"
+    texts = loaded.ingestor.corpus.parent_texts()
+    launches: dict = {}
+    for k in (50, 400):
+        docs = [texts[i] for i in np.linspace(0, len(texts) - 1, k).astype(int)]
+        add_counts(launches, rerank_check(port, loaded, queries[0], docs, card))
+    new = ("Quarkwise lumbervanes tabulate the hexfold drizzlecounts of every pelmanic "
+           "archive twice a fortnight.")
+    status, body = http(base, "/ingest", {"text": new, "name": "quarkwise.txt"})
+    if status != 200 or body.get("status") != "completed":
+        fail(f"/ingest answered {status}: {body}")
+    status, found = http(base, "/query", {"query": "quarkwise lumbervanes tabulate drizzlecounts"})
+    if status != 200 or not found["results"] or found["results"][0]["doc_id"] != body["doc_id"]:
+        fail(f"/query after /ingest did not find the new text: {status} {str(found)[:300]}")
+    for route in ("/healthz", "/stats", "/metrics"):
+        status, out = http(base, route)
+        if status != 200:
+            fail(f"GET {route} answered {status}")
+    if "server_engine_batches_total" not in out or "server_rerank_ms_bucket" not in out:
+        fail("/metrics lacks the server's metrics")
+    tools = make_knowledge_tools(loaded)
+    search = tools.call("search_knowledge_base",
+                        query=next(q for q, r in zip(queries, direct) if not r.refused))
+    if not search.get("success") or not search.get("sources"):
+        fail(f"search_knowledge_base: {str(search)[:300]}")
+    store = loaded.ingestor.entity_store
+    related = {r.subject_id for r in store.relations} | {r.object_id for r in store.relations}
+    counts = Counter(m.entity_id for m in store.mentions if m.entity_id in related)
+    top_id, n_mentions = counts.most_common(1)[0]
+    name = next(e.canonical_name for e in store.entities.values() if e.entity_id == top_id)
+    look = tools.call("lookup_entity", name=name)
+    if not look.get("success") or not look["entities"] or not look["entities"][0]["related"]:
+        fail(f"lookup_entity({name!r}): {str(look)[:300]}")
+    log(f"routes: /ingest then /query found the new text; /healthz, /stats, /metrics 200; "
+        f"search_knowledge_base {len(search['sources'])} sources; lookup_entity({name!r}, "
+        f"{n_mentions} mentions, the most mentioned entity with relations): "
+        f"{len(look['entities'][0]['related'])} related, e.g. {look['entities'][0]['related'][:3]}")
+    return launches
+
+
+def serve_cli(tmp: str, query: str, want, device, card: str) -> None:
+    """Phase 8(e): ``python -m triple_hybrid_rag_tpu_torch query --json`` over the
+    checkpoint, in a process of its own on the card (its default device): exit 0 and
+    the loaded RAG's ids."""
+    import os
+
+    t0 = time.perf_counter()
+    on = [] if device.type == "cuda" else ["--device", str(device)]
+    out = subprocess.run(
+        [sys.executable, "-m", "triple_hybrid_rag_tpu_torch", "query", "--json", "--index", tmp,
+         *on, query], cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600,
+    )
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"the CLI query exited {out.returncode}: {out.stderr[-2000:]}")
+    got = json.loads(out.stdout)
+    log(f"CLI: python -m triple_hybrid_rag_tpu_torch query --json (a new process: the encoder "
+        f"loaded, the checkpoint read, the indexes built on the card) in {wall:.2f} s wall; "
+        f"{len(got['results'])} results; card {card}")
+    same_ids("CLI query against the loaded RAG's", [want],
+             [[(x["chunk_id"], x["score"]) for x in got["results"]]], 1e-3)
+
+
+def serving_path(ctx, card: str) -> dict:
+    """Phase 8: the serving surface on phase 6's RAG. Returns the launches of the
+    served paths (8b, 8c, 8d) by kernel."""
+    import tempfile
+
+    _, queries, _ = ctx
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(prefix="thr-ckpt-") as tmp:
+        loaded = serve_checkpoint(ctx, tmp, card)
+        add_counts(launches, serve_batched(loaded, queries, card))
+        httpd, part, direct = serve_staged(loaded, queries[:32], card)
+        add_counts(launches, part)
+        try:
+            add_counts(launches, serve_routes(httpd, loaded, queries, direct, card))
+        finally:
+            stop_server(httpd)
+        serve_cli(tmp, queries[0], pairs(direct)[0], loaded.device, card)
+    return launches
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -2068,12 +2507,15 @@ def main() -> int:
     log(f"phase 6 wall time {time.time() - t_phase:.1f} s")
     t_phase = time.time()
     staged = staged_stdlib(stdlib, card)
-    del stdlib
     add_counts(staged, staged_synthetic(run, card))
     add_counts(staged, staged_configs(run, card))
     del run
     torch.cuda.empty_cache()
     log(f"phase 7 wall time {time.time() - t_phase:.1f} s; staged launches {staged}")
+    t_phase = time.time()
+    served = serving_path(stdlib, card)
+    del stdlib
+    log(f"phase 8 wall time {time.time() - t_phase:.1f} s; serve launches {served}")
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2083,6 +2525,7 @@ def main() -> int:
         if k["name"] in ivf_bodies:
             k["ivf_launches"] = launches["ivf"][ivf_bodies[k["name"]]]
         k["staged_launches"] = staged.get(k["name"], 0)
+        k["serve_launches"] = served.get(k["name"], 0)
     log(f"total wall time {time.time() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -161,9 +161,7 @@ def test_unported_facade_calls_raise(cfg):
     # the staged query and rerank_fn are ported (tests/test_torch_staged.py)
     assert rag.query(QUERIES[0]).results and rag.retriever.retrieve(QUERIES[0]).results
     assert RAG(torch_config(cfg), device="cpu", rerank_fn=lambda *a: None)._rerank_fn
-    for call in (lambda: rag.save("x"), lambda: RAG.load("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # save and load are ported (tests/test_torch_checkpoint.py)
     for kw in ({"config": torch_config(cfg.replace(embed_api_base="http://localhost:1"))},
                {"ocr_fn": lambda *a: None}):
         kw.setdefault("config", torch_config(cfg))

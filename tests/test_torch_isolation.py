@@ -53,6 +53,16 @@ def test_staged_path_modules_are_checked():
         assert base + name in mods, name
 
 
+def test_serving_modules_are_checked():
+    """The serving surface's modules are among those the import checks cover."""
+    mods = {m for m, _ in _port_modules()}
+    base = "triple_hybrid_rag_tpu_torch."
+    for name in ("__main__", "cli", "server", "tools", "index.checkpoint", "index.cypher",
+                 "observability.timing", "observability.latency_viz",
+                 "observability.logging_config", "observability.profiling"):
+        assert base + name in mods, name
+
+
 @pytest.mark.parametrize("path", [p for _, p in _port_modules()] + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import(path):
@@ -82,6 +92,54 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_serving_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
+    """The server and the CLI build no RAG on the CPU unless asked to."""
+    from triple_hybrid_rag_tpu_torch.cli import main
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.server import RAGServer, serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RAGServer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(port=0)
+    doc = tmp_path / "a.md"
+    doc.write_text("Acme Corp settles invoices.")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["ingest", str(doc), "--index", str(tmp_path / "idx")])
+    assert not (tmp_path / "idx").exists()
+    cfg = RAGConfig(embedder_backend="bowhash")
+    assert RAGServer(config=cfg, device="cpu").rag.device.type == "cpu"
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """``python -m triple_hybrid_rag_tpu_torch ingest ... --device cpu`` and then
+    ``query --json`` in processes where importing JAX or the JAX package fails."""
+    poison = tmp_path / "poison"
+    for name in FORBIDDEN:
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(f"raise ImportError('{name} imported')\n")
+    docs = tmp_path / "docs"
+    docs.mkdir()
+    (docs / "pay.md").write_text("# Payments\n\nAcme Corp settles invoices within thirty days.")
+    (docs / "wild.md").write_text("# Wildlife\n\nRed foxes inhabit the northern forest.")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=f"{poison}{os.pathsep}{ROOT}", RAG_EMBEDDER_BACKEND="bowhash",
+               RAG_CAPACITY_ROUND="64", RAG_SAFETY_THRESHOLD="0.0")
+    idx = str(tmp_path / "index")
+    cli = [sys.executable, "-m", "triple_hybrid_rag_tpu_torch"]
+    out = subprocess.run(cli + ["ingest", str(docs), "--index", idx, "--device", "cpu", "--json"],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert [json.loads(line)["status"] for line in out.stdout.splitlines()] == ["completed"] * 2
+    out = subprocess.run(cli + ["query", "When", "are", "invoices", "settled?", "--index", idx,
+                                "--device", "cpu", "--json"],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout)
+    assert not got["refused"] and "invoices" in got["results"][0]["text"]
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -281,14 +281,13 @@ def test_ingest_counters_match_reference(cfg):
 
 
 def test_search_by_keywords_graph(cfg):
-    from triple_hybrid_rag_tpu_torch.index.graph_index import search_by_keywords_graph
-
     ref, port = _pair(cfg)
-    gx, st = ref.retriever.graph_index, port.retriever.state
+    gx, port_gx = ref.retriever.graph_index, port.retriever.graph_index
+    assert port_gx.placed is port.retriever.state  # over the placed tables
     found = []
     for kws in (["Acme Corp"], ["Globex Inc", "Recife"], ["nothing here"]):
         want_ids, want_vals = gx.search_by_keywords_graph(kws, 5)
-        got_ids, got_vals = search_by_keywords_graph(st, kws, 5)
+        got_ids, got_vals = port_gx.search_by_keywords_graph(kws, 5)
         np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
         np.testing.assert_array_equal(got_vals.numpy(), np.asarray(want_vals))
         found.append(int((got_ids >= 0).sum()))

@@ -16,6 +16,20 @@ from triple_hybrid_rag_tpu_torch.index.state import IndexState
 from triple_hybrid_rag_tpu_torch.types import Entity as TorchEntity
 
 
+def small_config():
+    """The reference's config of ``tests/conftest.py``'s ``small_config`` fixture,
+    for fixtures of a wider scope than a test."""
+    from triple_hybrid_rag_tpu.config import RAGConfig
+
+    return RAGConfig(
+        lexical_top_k=8, semantic_top_k=8, graph_top_k=8, rerank_top_k=8, final_top_k=5,
+        max_query_terms=8, doc_term_capacity=32, capacity_round=8, embedding_dim=32,
+        embedding_dim_full=64, maxsim_dim=16, maxsim_doc_tokens=16, maxsim_query_tokens=8,
+        graph_max_degree=8, graph_max_entities_per_chunk=8, embedder_backend="bowhash",
+        ner_retry_sleep_cap_s=0.01,
+    )
+
+
 def torch_config(cfg) -> TorchConfig:
     """The port's config with every field of the reference's."""
     return TorchConfig(**dataclasses.asdict(cfg))

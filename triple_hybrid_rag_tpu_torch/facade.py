@@ -7,6 +7,8 @@ The port of the JAX package's ``RAG`` (``facade.py``)::
     rag.ingest_text("Acme Corp pays invoices within 30 days.", name="terms.md")
     result = rag.query("When are invoices paid?")       # the staged path
     results = rag.query_batch(["When are invoices paid?"])  # the batched engine
+    rag.save("./index")                         # checkpoint
+    rag2 = RAG.load("./index")                  # restore, onto the card
 
 The facade owns an :class:`~triple_hybrid_rag_tpu_torch.ingest.Ingestor` (the host
 corpus and entity store) and rebuilds the
@@ -18,9 +20,11 @@ uses; the engine is kept through :meth:`Engine.refresh` while the shapes hold.
 ``rerank_fn(query, texts) -> scores`` reranks the staged path's candidates on the
 host (the engine leaves it out, as the reference's does).
 
-Not ported yet, and raising ``NotImplementedError`` rather than taking another path
-(ROADMAP.md, Queue 1): checkpoints (``save`` and ``load``), the HTTP model clients
-(any ``*_api_base`` setting) and the OCR callable.
+Checkpoints are the JAX package's format (``index/checkpoint.py``): either package
+loads what the other saved. Not ported yet, and raising ``NotImplementedError``
+rather than taking another path (ROADMAP.md, Queue 1): the HTTP model clients (any
+``*_api_base`` setting, also one a trusted checkpoint's config carries) and the OCR
+callable.
 """
 
 from __future__ import annotations
@@ -139,11 +143,36 @@ class RAG:
     # ------------------------------------------------------------------
 
     def save(self, directory: str | Path) -> Path:
-        raise _not_ported("RAG.save (index/checkpoint.py)")
+        from .index.checkpoint import save_ingestor
+
+        return save_ingestor(self.ingestor, directory)
 
     @classmethod
-    def load(cls, directory: str | Path, **kwargs) -> "RAG":
-        raise _not_ported("RAG.load (index/checkpoint.py)")
+    def load(
+        cls, directory: str | Path, config: Optional[RAGConfig] = None,
+        allow_pickle: bool = False, trust_config: bool = False, device=None, **kwargs
+    ) -> "RAG":
+        """Restore from a checkpoint onto ``device`` (the card unless the caller asks
+        for the CPU). ``config`` replaces the saved one (a migration: the indexes are
+        derived again from the stored full-dimension embeddings); ``allow_pickle``
+        opts into loading legacy v1 (pickle) checkpoints; ``trust_config`` keeps the
+        checkpoint's network fields (*_api_base / api_key) instead of stripping them
+        — both only for checkpoints YOU wrote. ``kwargs`` go to :class:`RAG`.
+
+        The restored stores go into the ingestor the new RAG builds, on its device
+        and with its embedder, so the encoder is loaded once."""
+        from .index.checkpoint import load_checkpoint
+        from .models.entity_extractor import EntityStore
+
+        corpus, entity_store, embeddings, saved = load_checkpoint(
+            directory, allow_pickle=allow_pickle, trust_config=trust_config
+        )
+        rag = cls(config=config or saved, device=device, **kwargs)
+        ing = rag.ingestor
+        ing.corpus = corpus
+        ing.entity_store = entity_store or EntityStore()
+        ing.embeddings = embeddings
+        return rag
 
     # ------------------------------------------------------------------
 

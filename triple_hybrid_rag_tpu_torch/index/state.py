@@ -420,17 +420,10 @@ class IndexState:
         return st, ss, lt, ls
 
     def seed_lookup(self, name: str, limit: int = 3) -> List[Entity]:
-        """Entity lookup minus the seed stoplist (stop entities never seed a query's
-        expansion; filtering happens before the limit)."""
-        out: List[Entity] = []
-        for e in self.entity_store.lookup(name, self.config.graph_fuzzy_threshold):
-            row = self.row_of.get(e.entity_id)
-            if row is not None and self.seed_stop is not None and bool(self.seed_stop[row]):
-                continue
-            out.append(e)
-            if len(out) >= limit:
-                break
-        return out
+        """Entity lookup minus the seed stoplist (``graph_index.seed_lookup``)."""
+        from .graph_index import seed_lookup
+
+        return seed_lookup(self.entity_store, self.row_of, self.seed_stop, self.config, name, limit)
 
     def nbytes(self) -> Dict[str, int]:
         """Device bytes per placed component (for reporting)."""

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -62,6 +63,13 @@ def f32_query_tile(b: int) -> int:
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}  # source name -> nvcc's output (register / spill report)
+# Serializes builds and loads within a process. Kernels are launched from several
+# threads of the HTTP server (``server.py``): the micro-batcher's dispatcher
+# ("thr-microbatcher") runs the engine, and the request handler threads run the
+# staged queries and ``/rerank``. Without the lock two first calls could both run
+# nvcc into the same temporary file, or both load the library. (Separate processes
+# write temporary files of their own pid and rename them into place.)
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -86,6 +94,11 @@ def _lib_path(name: str) -> Path:
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, Path]:
     """Compile the named sources that are not built yet, one ``nvcc`` each, all
     started together. Returns name -> library path; raises if any build fails."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(name) for name in names}
     procs = {}
@@ -115,14 +128,18 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use), with the
     argument and return types of its functions declared."""
     lib = _LOADED.get(name)
-    if lib is None:
-        path = build([name])[name]
-        lib = ctypes.CDLL(str(path))
-        for fn, argtypes in SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        _LOADED[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = _build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _LOADED[name] = lib
     return lib
 
 

@@ -386,7 +386,10 @@ class Retriever:
             arrays.update(maxsim_tokens=self.maxsim_index.tokens, maxsim_mask=self.maxsim_index.mask)
         if self.parent_emb is not None and cfg.rerank_backend in ("maxsim", "dot"):
             arrays["parent_emb"] = self.parent_emb
-        return IndexState.from_numpy(arrays, host, cfg, self.device)
+        state = IndexState.from_numpy(arrays, host, cfg, self.device)
+        if gx is not None:
+            gx.placed = state  # its device lookups read the placed tables
+        return state
 
     # ------------------------------------------------------------------ staged query
 
