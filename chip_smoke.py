@@ -81,17 +81,42 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``/stats``, ``/metrics``, and the agent tools (``search_knowledge_base``,
    ``lookup_entity`` of the most mentioned entity with relations); (e) the CLI,
    ``python -m triple_hybrid_rag_tpu_torch query --json`` over the checkpoint in a
-   new process on the card, with the loaded RAG's ids.
+   new process on the card, with the loaded RAG's ids;
+9. the document formats and the model-server boundary: (a) 300 of phase 6's
+   docstrings written as files (100 PDFs with FlateDecode content streams of
+   ``Tj`` and ``TJ`` lines, 100 DOCX, 100 XLSX tables of their lines, built with
+   ``zlib`` and ``zipfile``) and 9 "scans" (8 PNGs and a PDF without a text layer,
+   drawn in a 5x7 bitmap font and built with ``zlib`` and ``struct``): each file
+   loads back to its docstring up to whitespace; the default RAGConfig ingests them
+   through ``RAG(device="cuda").ingest_directory`` with the default OCR ladder (the
+   scans only when it has a recognizer: without PIL it has none, as in the JAX
+   package), failing on a FAILED result; self-retrieval at B = 128 through
+   ``query_batch`` (the bf16 bucket maxima and MaxSim launched) and over 32 queries
+   through ``RAG.query`` (the dense scores at B = 1 and MaxSim launched); a 60-file
+   subset ingested on the card and on the CPU (equal chunk ids, BM25 and graph
+   arrays; dense rows within ``ENCODER_ATOL``); seconds per format and the stage
+   sums; (b) a stub OpenAI-compatible model server in a process of its own on
+   127.0.0.1 (``MODEL_STUB``: the port's ``BowHashEmbedder``, a token-overlap
+   rerank, the rule planner's and extractor's JSON, each scan's text for vision
+   OCR): a RAG with every ``*_api_base`` set ingests (a)'s PDFs and the scans and
+   answers at B = 128 (the host encode, the bf16 bucket maxima, no MaxSim store)
+   and through ``RAG.query`` (the dense scores at B = 1, the HTTP rerank) with the
+   ids of a RAG built in-process with the stub's own models, finds every scan by
+   its text, and sends the stub the expected requests per route; with a dead
+   server the ingest records zero vectors and completes and the staged query
+   answers through the lexical channel.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
-over phase 7, ``serve_launches`` over phase 8's served requests, and per further
+over phase 7, ``serve_launches`` over phase 8's served requests,
+``formats_launches`` and ``http_launches`` over phase 9's queries, and per further
 path), error and times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
 """
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -1538,6 +1563,7 @@ def ivf_path(run, eng_exact, cfg, card):
 # ---------------------------------------------------------------- phase 6
 
 
+@functools.lru_cache(maxsize=None)
 def stdlib_docstrings(min_chars: int = 200):
     """(name, docstring) of every module of this Python's standard library and of
     every class and function whose docstring has at least ``min_chars`` characters,
@@ -1573,19 +1599,13 @@ def ingest_all(rag, docs, label: str):
     """``ingest_text`` of every (name, text), collection = the top-level module.
     Fails on a FAILED result or on an embed that fell back to zero vectors.
     Returns the summed stage ms."""
-    from triple_hybrid_rag_tpu_torch.types import IngestionStatus
-
-    stages = dict.fromkeys(("load_ms", "chunk_ms", "embed_ms", "store_ms", "ner_ms"), 0.0)
+    results = []
     for name, text in docs:
-        res = rag.ingest_text(text, name=f"{name}.txt", collection=name.split(".")[0])
-        if res.status == IngestionStatus.FAILED:
-            fail(f"{label}: ingesting {name} failed: {res.error}")
+        results.append(rag.ingest_text(text, name=f"{name}.txt", collection=name.split(".")[0]))
         if rag.ingestor.embedder.last_errors:
             fail(f"{label}: {name}: the embedder fell back to zero vectors for items "
                  f"{rag.ingestor.embedder.last_errors}")
-        for k in stages:
-            stages[k] += res.timings.get(k, 0.0)
-    return stages
+    return check_results(results, label)[1]
 
 
 def ingest_path(dev, card):
@@ -1593,7 +1613,6 @@ def ingest_path(dev, card):
     facade on the card and serves them. Returns the launches of the bf16 bucket
     maxima and the bf16 MaxSim body over the queries."""
     from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
-    from triple_hybrid_rag_tpu_torch.analyzer import Analyzer
     from triple_hybrid_rag_tpu_torch.models.encoder import EncoderEmbedder
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
 
@@ -1624,10 +1643,8 @@ def ingest_path(dev, card):
     log(f"stdlib ingest: {stats['documents']} documents, {stats['parents']} parents, "
         f"{stats['children']} children, {stats['graph_entities']} entities, "
         f"{stats['graph_relations']} relations, {stats['graph_mentions']} mentions in "
-        f"{ingest_s:.1f} s (stage sums, s: "
-        + ", ".join(f"{k[:-3]} {v / 1e3:.2f}" for k, v in stages.items())
-        + f"); index build and placement {build_s:.2f} s; device GB "
-        + str({k: round(v / 1e9, 4) for k, v in st.nbytes().items()})
+        f"{ingest_s:.1f} s (stage sums, s: {stage_line(stages)}); index build and placement "
+        f"{build_s:.2f} s; device GB " + str({k: round(v / 1e9, 4) for k, v in st.nbytes().items()})
         + f"; n_pad {st.n_pad}, lexical {st.lexical_mode}, graph {st.graph_mode}; documents past "
         f"the term table's {cfg.doc_term_capacity} slots {retriever.bm25_index.overflow_docs}, "
         f"entities past {cfg.graph_max_degree} neighbours {retriever.graph_index.overflow_entities}"
@@ -1635,17 +1652,7 @@ def ingest_path(dev, card):
     if zero:
         fail(f"stdlib ingest: {zero} stored chunks have an all-zero dense row")
 
-    analyzer = Analyzer(cfg)
-    rows = np.linspace(0, n - 1, BATCH).astype(int)
-    queries = [" ".join(analyzer.tokenize(corpus.children[r].text)[:12]) for r in rows]
-    same_text = {}
-    for c in corpus.children:
-        same_text.setdefault(c.text, set()).add(c.chunk_id)
-
-    def hits(results, idx):
-        return sum(any(x.chunk_id in same_text[corpus.children[rows[i]].text] for x in r.results)
-                   for i, r in zip(idx, results))
-
+    queries, hits = chunk_queries(rag, BATCH)
     rag.query_batch(queries[:8])  # warm-up
     torch.cuda.synchronize()
     bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
@@ -1706,20 +1713,27 @@ def ingest_path(dev, card):
         built.append((r.ingestor.corpus, r.retriever.state))
         log(f"subset of {len(subset)} documents ingested and placed on {where} in "
             f"{time.time() - t0:.1f} s")
+    same_ingest("subset", built)
+    return launches, (rag, queries, hits)
+
+
+def same_ingest(label: str, built) -> None:
+    """Fails unless two ingests of the same documents, ``built`` = [(corpus, placed
+    state) on the card, (corpus, placed state) on the CPU], have equal chunk ids and
+    BM25 and graph arrays, and dense rows within ``ENCODER_ATOL``."""
     (c_gpu, s_gpu), (c_cpu, s_cpu) = built
     if [c.chunk_id for c in c_gpu.children] != [c.chunk_id for c in c_cpu.children]:
-        fail("card and CPU ingests gave different chunk ids")
+        fail(f"{label}: card and CPU ingests gave different chunk ids")
     for key in ("lex_offsets", "lex_lengths", "lex_pd", "lex_pt", "nbr", "chunk_entities",
                 "g_offsets", "g_lengths", "g_docs", "parent_of", "collection_of"):
         a, b = getattr(s_gpu, key), getattr(s_cpu, key)
         if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
-            fail(f"card and CPU ingests placed different {key}")
+            fail(f"{label}: card and CPU ingests placed different {key}")
     gap = float((s_gpu.embeddings.float().cpu() - s_cpu.embeddings.float()).abs().max())
-    log(f"subset: chunk ids, BM25 and graph arrays equal on card and CPU; dense rows within "
+    log(f"{label}: chunk ids, BM25 and graph arrays equal on card and CPU; dense rows within "
         f"{gap:.3g} (atol {ENCODER_ATOL}, the card's bf16 encoder against the CPU's)")
     if not gap <= ENCODER_ATOL:
-        fail(f"card and CPU dense rows differ by {gap}")
-    return launches, (rag, queries, hits)
+        fail(f"{label}: card and CPU dense rows differ by {gap}")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2379,6 +2393,674 @@ def serving_path(ctx, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+
+N_FORMAT_DOCS = 300  # docstrings written as files: 100 PDFs, 100 DOCX, 100 XLSX
+N_CPU_SUBSET = 60  # of them ingested on the card and on the CPU (20 of each format)
+N_STAGED_FORMATS = 32  # RAG.query calls a part
+FORMATS = (".pdf", ".docx", ".xlsx")
+# 5x7 bitmap glyphs (a row a hex byte, five bits) of the scans' text
+GLYPHS = {
+    "A": "0E1111 1F111111", "B": "1E11111E11111E", "C": "0E111010 10110E", "D": "1E111111 11111E",
+    "E": "1F10101E10101F", "F": "1F10101E101010", "G": "0E111017 11110F", "H": "1111111F111111",
+    "I": "0E040404 04040E", "J": "07020202 02120C", "K": "11121418 141211", "L": "1010101010101F",
+    "M": "111B1515 111111", "N": "11111915 131111", "O": "0E111111 11110E", "P": "1E11111E101010",
+    "Q": "0E111111 15120D", "R": "1E11111E141211", "S": "0F10100E01011E", "T": "1F040404040404",
+    "U": "1111111111110E", "V": "1111111111 0A04", "W": "11111115 15150A", "X": "11110A04 0A1111",
+    "Y": "11110A04 040404", "Z": "1F010204 08101F", "0": "0E111315 19110E", "1": "040C0404 04040E",
+    "2": "0E110102 04081F", "3": "1F020402 01110E", "4": "02060A12 1F0202", "5": "1F101E01 01110E",
+    "6": "0608101E 11110E", "7": "1F010204 080808", "8": "0E11110E 11110E", "9": "0E11110F 01020C",
+    " ": "00000000000000",
+}
+SCAN_WORDS = ["ZORBLAX", "QUINTESSOR", "GASKET", "LEDGER", "FREIGHT", "MANIFEST", "PORTO",
+              "VEXILLARY", "DRIZZLE", "QUORPLE", "TARIFF", "BOLLARD", "SPINDLE", "HARBOR"]
+
+
+def scan_texts(n: int):
+    """Distinct two-line texts of the scans (capitals and digits: the bitmap font's)."""
+    out = []
+    for k in range(n):
+        w = [SCAN_WORDS[(k * 5 + j) % len(SCAN_WORDS)] for j in range(6)]
+        out.append(f"SCAN {k} {w[0]} {w[1]} {w[2]} {100 + 37 * k}\n{w[3]} {w[4]} {w[5]} INVOICE {k}")
+    return out
+
+
+def render_scan(text: str, scale: int = 3, margin: int = 12):
+    """(width, height, 8-bit gray pixels) of ``text`` drawn in the 5x7 bitmap font,
+    black on white; no image library."""
+    lines = text.split("\n")
+    cw, lh = 6 * scale, 11 * scale
+    w = margin * 2 + cw * max(len(line) for line in lines)
+    h = margin * 2 + lh * len(lines)
+    px = np.full((h, w), 255, np.uint8)
+    for li, line in enumerate(lines):
+        for ci, ch in enumerate(line):
+            rows = bytes.fromhex(GLYPHS[ch].replace(" ", ""))
+            for r, bits in enumerate(rows):
+                for c in range(5):
+                    if bits >> (4 - c) & 1:
+                        y, x = margin + li * lh + r * scale, margin + ci * cw + c * scale
+                        px[y:y + scale, x:x + scale] = 0
+    return w, h, px
+
+
+def png_idat(px) -> bytes:
+    """The zlib stream of 8-bit gray rows, each behind PNG filter byte 0: a PNG's IDAT
+    data and, as is, a PDF image stream with ``/Predictor 15``."""
+    import zlib
+
+    return zlib.compress(b"".join(b"\x00" + row.tobytes() for row in px))
+
+
+def png_bytes(w: int, h: int, idat: bytes) -> bytes:
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", idat) + chunk(b"IEND", b""))
+
+
+def pdf_bytes(content: bytes, image=None) -> bytes:
+    """A one-page PDF: a FlateDecode content stream and, with ``image`` = (w, h,
+    idat), a gray image XObject the page draws."""
+    import zlib
+
+    stream = zlib.compress(content)
+    while stream.endswith(b"\r"):  # the stdlib extractor, reading no /Length, would take
+        content += b" "  # that byte for the line end before "endstream"
+        stream = zlib.compress(content)
+    res = b" /Resources << /XObject << /Im0 5 0 R >> >>" if image else b""
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>", b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+            b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 612 792] /Contents 4 0 R%s >>" % res,
+            b"<< /Filter /FlateDecode /Length %d >>\nstream\n%s\nendstream" % (len(stream), stream)]
+    if image:
+        w, h, idat = image
+        objs.append(b"<< /Type /XObject /Subtype /Image /Width %d /Height %d /ColorSpace "
+                    b"/DeviceGray /BitsPerComponent 8 /Filter /FlateDecode /DecodeParms "
+                    b"<< /Predictor 15 /Colors 1 /BitsPerComponent 8 /Columns %d >> /Length %d >>"
+                    b"\nstream\n%s\nendstream" % (w, h, w, len(idat), idat))
+    body = b"%PDF-1.4\n" + b"".join(b"%d 0 obj\n%s\nendobj\n" % (i + 1, o) for i, o in enumerate(objs))
+    return body + b"trailer\n<< /Root 1 0 R >>\n%%EOF\n"
+
+
+def pdf_string(line: str) -> bytes:
+    """A PDF string operand: a literal where latin-1 holds the line and no ``BT`` /
+    ``ET`` could read as an operator, else UTF-16BE hex behind its byte-order mark."""
+    if "BT" in line or "ET" in line or any(ord(c) > 255 for c in line):
+        return b"<FEFF" + line.encode("utf-16-be").hex().upper().encode() + b">"
+    esc = line.replace("\\", "\\\\").replace("(", "\\(").replace(")", "\\)")
+    return b"(" + esc.encode("latin-1") + b")"
+
+
+def docstring_pdf(text: str) -> bytes:
+    """The docstring's lines, 12 points apart: even lines one ``Tj`` each, odd lines a
+    ``TJ`` array of their words with -300 kerning (an inter-word gap); a blank line is
+    a move alone."""
+    ops = [b"BT /F1 10 Tf 72 760 Td"]
+    for i, line in enumerate(text.split("\n")):
+        if i:
+            ops.append(b"0 -12 Td")
+        if not line:
+            continue
+        if i % 2 and "[" not in line and "]" not in line and pdf_string(line)[:1] == b"(":
+            ops.append(b"[" + b" -300 ".join(pdf_string(w) for w in line.split(" ")) + b"] TJ")
+        else:
+            ops.append(pdf_string(line) + b" Tj")
+    ops.append(b"ET")
+    return pdf_bytes(b"\n".join(ops))
+
+
+def docstring_docx(text: str) -> bytes:
+    """A DOCX whose first line is a Heading1 paragraph and every other line a
+    paragraph."""
+    import io
+    import zipfile
+    from xml.sax.saxutils import escape
+
+    paras = []
+    for i, line in enumerate(text.split("\n")):
+        style = '<w:pPr><w:pStyle w:val="Heading1"/></w:pPr>' if i == 0 else ""
+        paras.append(f'<w:p>{style}<w:r><w:t xml:space="preserve">{escape(line)}</w:t></w:r></w:p>')
+    xml = ('<?xml version="1.0"?><w:document xmlns:w="http://schemas.openxmlformats.org/'
+           'wordprocessingml/2006/main"><w:body>' + "".join(paras) + "</w:body></w:document>")
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr("[Content_Types].xml", "<Types/>")
+        zf.writestr("word/document.xml", xml)
+    return buf.getvalue()
+
+
+def docstring_xlsx(text: str) -> bytes:
+    """An XLSX table of the docstring's lines: column A the line (a shared string),
+    column B its number."""
+    import io
+    import zipfile
+    from xml.sax.saxutils import escape
+
+    lines = text.split("\n")
+    shared = "<sst>" + "".join(f'<si><t xml:space="preserve">{escape(s)}</t></si>' for s in lines) + "</sst>"
+    rows = "".join(f'<row r="{r}"><c r="A{r}" t="s"><v>{r - 1}</v></c><c r="B{r}"><v>{r}</v></c></row>'
+                   for r in range(1, len(lines) + 1))
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr("[Content_Types].xml", "<Types/>")
+        zf.writestr("xl/sharedStrings.xml", shared)
+        zf.writestr("xl/worksheets/sheet1.xml", f"<worksheet><sheetData>{rows}</sheetData></worksheet>")
+    return buf.getvalue()
+
+
+WRITERS = {".pdf": docstring_pdf, ".docx": docstring_docx, ".xlsx": docstring_xlsx}
+
+
+def squash(text: str) -> str:
+    return " ".join(text.split())
+
+
+def loaded_text(doc) -> str:
+    """The docstring a loaded file holds: the pages' text, the DOCX heading's ``#``
+    taken off, the XLSX table's first column read back."""
+    from triple_hybrid_rag_tpu_torch.types import FileType
+
+    text = "\n\n".join(p.text for p in doc.pages)
+    if doc.file_type == FileType.DOCX:
+        return text.removeprefix("# ")
+    if doc.file_type == FileType.XLSX:
+        rows = text.split("\n")
+        return "\n".join(r[2:-2].rsplit(" | ", 1)[0] for i, r in enumerate(rows) if i != 1)
+    return text
+
+
+def format_docs():
+    """``N_FORMAT_DOCS`` of phase 6's docstrings (300 to 3,000 characters, distinct),
+    evenly spaced."""
+    mods, defs = stdlib_docstrings()
+    seen, pool = set(), []
+    for name, text in mods + defs:
+        if 300 <= len(text) <= 3000 and text not in seen:
+            seen.add(text)
+            pool.append((name, text))
+    return [pool[i] for i in np.linspace(0, len(pool) - 1, N_FORMAT_DOCS).astype(int)]
+
+
+def write_format_files(root, docs, scans):
+    """The docstring files (formats in turn), the scans as PNGs and one scan as a
+    PDF without a text layer. Returns {path: docstring}, {path: scan text} and
+    {SHA-256 of each scan's PNG: text}."""
+    import hashlib
+    from pathlib import Path
+
+    root = Path(root)
+    (root / "docs").mkdir()
+    (root / "scans").mkdir()
+    files = {}
+    for i, (name, text) in enumerate(docs):
+        ext = FORMATS[i % 3]
+        path = root / "docs" / f"{i:03d}_{name.replace('.', '_')[:60]}{ext}"
+        path.write_bytes(WRITERS[ext](text))
+        files[path] = text
+    scan_files, ocr_texts = {}, {}
+    for k, text in enumerate(scans):
+        w, h, px = render_scan(text)
+        idat = png_idat(px)
+        png = png_bytes(w, h, idat)
+        if k == len(scans) - 1:  # the loader rebuilds this very PNG from the page's image
+            path = root / "scans" / f"scan_{k}.pdf"
+            path.write_bytes(pdf_bytes(b"q %d 0 0 %d 0 0 cm /Im0 Do Q" % (w, h), (w, h, idat)))
+        else:
+            path = root / "scans" / f"scan_{k}.png"
+            path.write_bytes(png)
+        scan_files[path] = text
+        ocr_texts[hashlib.sha256(png).hexdigest()] = text
+    return files, scan_files, ocr_texts
+
+
+def check_results(results, label: str):
+    """Fails on a FAILED result. Returns the seconds per file suffix and the summed
+    stage ms."""
+    from triple_hybrid_rag_tpu_torch.types import IngestionStatus
+
+    per_format: dict = {}
+    stages = dict.fromkeys(("load_ms", "chunk_ms", "embed_ms", "store_ms", "ner_ms"), 0.0)
+    for res in results:
+        if res.status == IngestionStatus.FAILED:
+            fail(f"{label}: ingesting {res.filename} failed: {res.error}")
+        suffix = "." + res.filename.rsplit(".", 1)[-1]
+        per_format[suffix] = per_format.get(suffix, 0.0) + res.timings.get("total_ms", 0.0) / 1e3
+        for k in stages:
+            stages[k] += res.timings.get(k, 0.0)
+    return per_format, stages
+
+
+def stage_line(stages: dict) -> str:
+    return ", ".join(f"{k[:-3]} {v / 1e3:.2f}" for k, v in stages.items())
+
+
+def chunk_queries(rag, n: int):
+    """``n`` queries made of evenly spaced chunks' own first twelve analyzer tokens,
+    and ``hits(results, idx)``: how many found a chunk of their query's text."""
+    from triple_hybrid_rag_tpu_torch.analyzer import Analyzer
+
+    corpus = rag.ingestor.corpus
+    analyzer = Analyzer(rag.config)
+    rows = np.linspace(0, len(corpus) - 1, n).astype(int)
+    queries = [" ".join(analyzer.tokenize(corpus.children[r].text)[:12]) for r in rows]
+    same_text: dict = {}
+    for c in corpus.children:
+        same_text.setdefault(c.text, set()).add(c.chunk_id)
+
+    def hits(results, idx):
+        return sum(any(x.chunk_id in same_text[corpus.children[rows[i]].text] for x in r.results)
+                   for i, r in zip(idx, results))
+
+    return queries, hits
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made): every counter set to 0 just before, read
+    just after."""
+    torch.cuda.synchronize()
+    staged_counts_reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, staged_counts()
+
+
+def formats_ingest(dev, card, tmp):
+    """Phase 9(a): the docstring files and the scans ingested through
+    ``RAG(device=dev)`` under the default RAGConfig (the encoder, the default OCR
+    ladder), queried at B = 128 and through ``RAG.query``; a subset ingested on the
+    card and on the CPU. Returns (launches, {scan file: text}, {scan PNG's SHA-256:
+    text}, the docstring PDFs)."""
+    from pathlib import Path
+
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+
+    docs = format_docs()
+    files, scan_files, ocr_texts = write_format_files(tmp, docs, scan_texts(9))
+    cfg = RAGConfig()
+    rag = RAG(cfg, device=dev)
+    ocr = rag.ingestor.loader.ocr
+    rung = type(ocr.ocr_fn).__name__ if ocr is not None else None
+    log(f"OCR ladder: {rung} (HTTP vision when ocr_api_base is set, then pytesseract with its "
+        f"binary, then the glyph matcher when PIL imports, else none)")
+    for path, text in files.items():
+        got = loaded_text(rag.ingestor.loader.load(path))
+        if squash(got) != squash(text):
+            fail(f"{path.name}: the loaded text is not its docstring: {got[:200]!r} against "
+                 f"{text[:200]!r}")
+    log(f"format files: {len(files)} docstrings (PDF, DOCX, XLSX in turn) load back to their "
+        f"text up to whitespace; {len(scan_files)} scans (8 PNG, 1 PDF without a text layer)")
+    t0 = time.time()
+    results = rag.ingest_directory(Path(tmp) / "docs")
+    if ocr is not None:  # without a recognizer the scans are phase 9(b)'s alone
+        results += rag.ingest_directory(Path(tmp) / "scans")
+    per_format, stages = check_results(results, "format ingest")
+    torch.cuda.synchronize()
+    ingest_s = time.time() - t0
+    st = rag.retriever.state
+    n = len(rag.ingestor.corpus)
+    zero = int((~(st.embeddings[:n] != 0).any(dim=1)).sum())
+    log(f"format ingest: {len(results)} files, {n} children, {rag.ingestor.corpus.n_parents} "
+        f"parents in {ingest_s:.2f} s (s per format: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(per_format.items()))
+        + f"; stage sums, s: {stage_line(stages)}); card {card}")
+    if zero:
+        fail(f"format ingest: {zero} stored chunks have an all-zero dense row")
+    if ocr is not None:
+        for path in list(scan_files)[::4]:
+            page = rag.ingestor.loader.load(path).pages[0]
+            log(f"  {path.name}: {rung} read {page.text[:60]!r} at confidence "
+                f"{page.ocr_confidence:.3f} (the scan says {scan_files[path][:40]!r})")
+
+    queries, hits = chunk_queries(rag, BATCH)
+    rag.query_batch(queries[:8])  # warm-up
+    res, batch_launches = counted(lambda: rag.query_batch(queries))
+    frac = hits(res, range(BATCH)) / BATCH
+    log(f"format queries B={BATCH}: self-retrieval {frac:.4f} (refused "
+        f"{sum(r.refused for r in res)}); kernel launches {batch_launches}")
+    if frac < 0.95 or batch_launches["fused_bucket_maxima"] < 1 or batch_launches["maxsim_scores"] < 1:
+        fail(f"format queries B={BATCH}: self-retrieval {frac}, launches {batch_launches}")
+    t0 = time.perf_counter()
+    staged, staged_launches = counted(lambda: [rag.query(q) for q in queries[:N_STAGED_FORMATS]])
+    e2e = (time.perf_counter() - t0) / N_STAGED_FORMATS * 1e3
+    one_frac = hits(staged, range(N_STAGED_FORMATS)) / N_STAGED_FORMATS
+    log(f"format queries through RAG.query: self-retrieval {one_frac:.4f} of {N_STAGED_FORMATS}, "
+        f"e2e {e2e:.2f} ms/query; kernel launches {staged_launches}; card {card}")
+    if one_frac < 0.95 or staged_launches["dense_scores"] < 1 or staged_launches["maxsim_scores"] < 1:
+        fail(f"format queries through RAG.query: self-retrieval {one_frac}, launches {staged_launches}")
+
+    subset = [p for p in files if int(p.name[:3]) < N_CPU_SUBSET]
+    built = []
+    for where in (dev, "cpu"):
+        t0 = time.time()
+        r = RAG(cfg, device=where, use_sharded_engine=True)
+        check_results([r.ingest(p) for p in subset], f"format subset on {where}")
+        built.append((r.ingestor.corpus, r.retriever.state))
+        log(f"format subset of {len(subset)} files ingested and placed on {where} in "
+            f"{time.time() - t0:.1f} s")
+    same_ingest("format subset", built)
+    launches: dict = {}
+    add_counts(launches, batch_launches)
+    add_counts(launches, staged_launches)
+    pdfs = [p for p in files if p.suffix == ".pdf"]
+    return launches, scan_files, ocr_texts, pdfs
+
+
+# The stub model server of phase 9(b), run in a process of its own (``python -c``,
+# the repo root its working directory): OpenAI-compatible routes answered by the
+# functions of ``stub_models`` (the same functions serve the in-process comparison).
+# Reads {"ocr": {sha256 hex: text}} as one JSON line on stdin, prints its port,
+# counts requests by route (GET /counts).
+MODEL_STUB = r"""
+import json, sys, threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+import chip_smoke
+
+job = json.loads(sys.stdin.readline())
+models = chip_smoke.stub_models(job["ocr"])
+counts = {}
+lock = threading.Lock()
+
+class Handler(BaseHTTPRequestHandler):
+    def log_message(self, *args):
+        pass
+
+    def _send(self, payload):
+        body = json.dumps(payload).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        with lock:
+            self._send(dict(counts))
+
+    def do_POST(self):
+        payload = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))) or b"{}")
+        route, out = models.answer(self.path, payload)
+        with lock:
+            counts[route] = counts.get(route, 0) + 1
+        self._send(out)
+
+httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+print(httpd.server_address[1], flush=True)
+httpd.serve_forever()
+"""
+
+
+class stub_models:
+    """The stub model server's models: ``/embeddings`` from the port's
+    ``BowHashEmbedder`` on the CPU (the default RAGConfig's width), ``/rerank`` a
+    token-overlap score, ``/chat/completions`` the rule planner's plan as JSON, the
+    rule extractor's entities and relations as JSON, and each scan's text for vision
+    OCR, keyed by the image's SHA-256."""
+
+    def __init__(self, ocr: dict) -> None:
+        from triple_hybrid_rag_tpu_torch.config import RAGConfig
+        from triple_hybrid_rag_tpu_torch.models.embedder import BowHashEmbedder
+        from triple_hybrid_rag_tpu_torch.models.entity_extractor import RuleBasedExtractor
+        from triple_hybrid_rag_tpu_torch.models.planner import RuleBasedPlanner
+
+        cfg = RAGConfig()
+        self.ocr_texts = ocr
+        self.embedder = BowHashEmbedder(cfg.embedding_dim_full, cfg)
+        self.rerank_calls: list = []
+        self.planner = RuleBasedPlanner(cfg)
+        self.extractor = RuleBasedExtractor(cfg)
+
+    def rerank(self, query: str, texts) -> list:
+        self.rerank_calls.append(len(texts))
+        q = set(query.lower().split())
+        return [round(len(q & set(t.lower().split())) / max(1, len(q)), 4) for t in texts]
+
+    def plan(self, query: str) -> dict:
+        p = self.planner.plan(query)
+        return {"keywords": p.keywords, "semantic_query_text": p.semantic_query_text,
+                "intent": p.intent, "requires_graph": p.requires_graph,
+                "graph_entities": p.graph_entities, "graph_query": p.graph_query, "weights": p.weights}
+
+    def ner(self, text: str) -> dict:
+        from triple_hybrid_rag_tpu_torch.types import ParentChunk
+
+        res = self.extractor.extract(ParentChunk(parent_id="p", doc_id="d" * 64, parent_idx=0,
+                                                 text=text), [])
+        name = {e.entity_id: e.canonical_name for e in res.entities}
+        return {"entities": [{"name": e.canonical_name, "type": e.entity_type.value,
+                              "description": e.description} for e in res.entities],
+                "relations": [{"subject": name[r.subject_id], "relation_type": r.relation_type.value,
+                               "object": name[r.object_id], "confidence": r.confidence}
+                              for r in res.relations if r.subject_id in name and r.object_id in name]}
+
+    def ocr(self, image: bytes, mode: str = "base") -> str:
+        import hashlib
+
+        return self.ocr_texts.get(hashlib.sha256(image).hexdigest(), "")
+
+    def answer(self, path: str, payload: dict):
+        """(route, response) of one request."""
+        import base64
+
+        if path.endswith("/embeddings"):
+            vecs = self.embedder.embed_texts([str(x) for x in payload["input"]])
+            return "embeddings", {"data": [{"index": i, "embedding": v.tolist()}
+                                           for i, v in enumerate(vecs)]}
+        if path.endswith("/rerank"):
+            scores = self.rerank(payload["query"], payload["documents"])
+            return "rerank", {"results": [{"index": i, "relevance_score": s}
+                                          for i, s in enumerate(scores)]}
+        system, user = payload["messages"][0]["content"], payload["messages"][-1]["content"]
+        if isinstance(user, list):
+            url = next(p["image_url"]["url"] for p in user if p.get("type") == "image_url")
+            route, content = "ocr", self.ocr(base64.b64decode(url.split(",", 1)[1]))
+        elif "query planner" in system:
+            route, content = "planner", json.dumps(self.plan(user.removeprefix("Query: ")))
+        else:
+            route, content = "ner", json.dumps(self.ner(user.split("\n\n", 1)[1]))
+        return route, {"choices": [{"message": {"content": content}}]}
+
+
+def start_model_stub(ocr: dict):
+    """The stub model server in a new process; (process, base URL). The process is
+    killed at exit, whatever ends this one."""
+    import atexit
+    import os
+
+    proc = subprocess.Popen([sys.executable, "-c", MODEL_STUB], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    atexit.register(proc.kill)
+    proc.stdin.write(json.dumps({"ocr": ocr}) + "\n")
+    proc.stdin.flush()
+    port = proc.stdout.readline().strip()
+    if not port.isdigit():
+        fail(f"the stub model server did not start (exit {proc.poll()})")
+    return proc, f"http://127.0.0.1:{port}/v1"
+
+
+class TextEmbedder:
+    """An embedder's text half, as an HTTP embedder offers it: no token embeddings
+    (so no MaxSim store) and an ``embed_query`` that answers what the server does."""
+
+    def __init__(self, inner) -> None:
+        self.inner, self.dim = inner, inner.dim
+
+    def embed_texts(self, texts):
+        return self.inner.embed_texts(texts)
+
+    def embed_query(self, text: str):
+        return self.inner.embed_texts([text])[0]
+
+
+def http_rags(dev, base: str, models):
+    """(the RAG with every ``*_api_base`` at the stub, the RAG built in-process with
+    the stub's own models), both on ``dev`` under the default RAGConfig otherwise
+    (the HTTP one without retries, so the stub counts each request once)."""
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+    from triple_hybrid_rag_tpu_torch.models.entity_extractor import CallableExtractor
+    from triple_hybrid_rag_tpu_torch.models.planner import CallablePlanner
+
+    cfg = RAGConfig(embed_api_base=base, rerank_api_base=base, llm_api_base=base,
+                    ocr_api_base=base, api_retries=0)
+    local_cfg = RAGConfig()
+    local = RAG(local_cfg, embedder=TextEmbedder(models.embedder), rerank_fn=models.rerank,
+                ocr_fn=models.ocr,
+                planner=CallablePlanner(models.plan, local_cfg),
+                extractor=CallableExtractor(models.ner, local_cfg), device=dev)
+    return RAG(cfg, device=dev), local
+
+
+def http_models(dev, card, pdfs, scan_files, ocr):
+    """Phase 9(b): the stub model server; a RAG with every ``*_api_base`` set ingests
+    phase 9(a)'s PDFs and the scans, and answers at B = 128 and through
+    ``RAG.query`` with the ids of a RAG built in-process with the stub's models; the
+    scans are found by their text; the requests per route are the expected
+    batching; a dead server degrades as the reference's does. Returns the launches
+    of the HTTP RAG's queries."""
+    import math
+
+    from triple_hybrid_rag_tpu_torch.models.http_clients import HTTPEmbedder
+
+    proc, base = start_model_stub(ocr)
+    try:
+        models = stub_models(ocr)
+        rag, local = http_rags(dev, base, models)
+        if type(rag.ingestor.embedder.inner) is not HTTPEmbedder:
+            fail("the *_api_base settings did not wire the HTTP embedder")
+        paths = pdfs + list(scan_files)
+        took = {}
+        for label, r in (("HTTP", rag), ("in-process", local)):
+            t0 = time.time()
+            results = [r.ingest(p) for p in paths]
+            _, stages = check_results(results, f"{label} ingest")
+            torch.cuda.synchronize()
+            took[label] = time.time() - t0
+            log(f"{label} models: {len(results)} files ({r.ingestor.corpus.n_parents} parents, "
+                f"{len(r.ingestor.corpus)} children) ingested in {took[label]:.2f} s (stage sums, "
+                f"s: {stage_line(stages)}); card {card}")
+        n_embed = sum(math.ceil(r.n_children / 20) for r in results if r.n_children)
+        want = {"embeddings": n_embed, "ner": local.ingestor.corpus.n_parents, "ocr": len(scan_files)}
+        if rag.retriever.maxsim_index is not None or rag.retriever.state.parent_emb is None:
+            fail("the HTTP embedder's RAG built a MaxSim store, or no parent embeddings")
+        queries, hits = chunk_queries(local, BATCH)
+        for r in (rag, local):
+            r.query_batch(queries[:8])  # warm-up
+        want["embeddings"] += math.ceil(8 / 20)
+        want["planner"] = 8
+        t0 = time.perf_counter()
+        got, batch_launches = counted(lambda: rag.query_batch(queries))
+        http_ms = (time.perf_counter() - t0) / BATCH * 1e3
+        t0 = time.perf_counter()
+        ref = local.query_batch(queries)
+        local_ms = (time.perf_counter() - t0) / BATCH * 1e3
+        want["embeddings"] += math.ceil(BATCH / 20)
+        want["planner"] += BATCH
+        log(f"HTTP models B={BATCH}: self-retrieval {hits(got, range(BATCH)) / BATCH:.4f}; e2e "
+            f"{http_ms:.3f} ms/query against {local_ms:.3f} in-process; kernel launches "
+            f"{batch_launches}")
+        same_ids(f"HTTP models B={BATCH} against the in-process models", pairs(ref), pairs(got), 1e-5)
+        if batch_launches["fused_bucket_maxima"] < 1 or batch_launches["maxsim_scores"]:
+            fail(f"HTTP models B={BATCH}: launches {batch_launches}: the bf16 bucket maxima and "
+                 "no MaxSim were expected")
+        n = N_STAGED_FORMATS
+        t0 = time.perf_counter()
+        got, staged_launches = counted(lambda: [rag.query(q) for q in queries[:n]])
+        http_ms = (time.perf_counter() - t0) / n * 1e3
+        t0 = time.perf_counter()
+        models.rerank_calls.clear()
+        ref = [local.query(q) for q in queries[:n]]
+        local_ms = (time.perf_counter() - t0) / n * 1e3
+        want["embeddings"] += n
+        want["planner"] += n
+        want["rerank"] = len(models.rerank_calls)  # the in-process RAG's reranks, one a request
+        log(f"HTTP models through RAG.query: self-retrieval {hits(got, range(n)) / n:.4f} of {n}; e2e "
+            f"{http_ms:.2f} ms/query against {local_ms:.2f} in-process; kernel launches "
+            f"{staged_launches}; card {card}")
+        same_ids("HTTP models through RAG.query against the in-process models", pairs(ref),
+                 pairs(got), 1e-5)
+        if staged_launches["dense_scores"] != n or staged_launches["maxsim_scores"]:
+            fail(f"HTTP models through RAG.query: launches {staged_launches}")
+        found = rag.query_batch(list(scan_files.values()))
+        by_path = {r.filename: r.doc_id for r in results}
+        missing = [p.name for p, r in zip(scan_files, found)
+                   if by_path[p.name] not in {x.doc_id for x in r.results}]
+        want["embeddings"] += 1
+        want["planner"] += len(scan_files)
+        if missing:
+            fail(f"scans not found by their text: {missing}")
+        _, counts = stub_get(base)
+        log(f"stub requests by route {dict(sorted(counts.items()))}; expected {dict(sorted(want.items()))}")
+        if counts != want:
+            fail(f"the stub's requests {counts} are not the expected batching {want}")
+        emb = rag.ingestor.embedder.inner
+        texts = [c.text for c in local.ingestor.corpus.children[:20]]
+        t0 = time.perf_counter()
+        for _ in range(5):
+            emb.embed_texts(texts)
+        batch_ms = (time.perf_counter() - t0) / 5 * 1e3
+        t0 = time.perf_counter()
+        for _ in range(5):
+            models.embedder.embed_texts(texts)
+        log(f"HTTP embed: {batch_ms:.2f} ms a batch of 20 against "
+            f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} in-process; ingest {took['HTTP']:.2f} s "
+            f"against {took['in-process']:.2f}; {len(scan_files)} scans found by their text")
+    finally:
+        proc.kill()
+        proc.wait(30)
+    dead_server(dev, pdfs[:3])
+    launches: dict = {}
+    add_counts(launches, batch_launches)
+    add_counts(launches, staged_launches)
+    return launches
+
+
+def stub_get(base: str):
+    return http(base.removesuffix("/v1"), "/counts")
+
+
+def dead_server(dev, pdfs) -> None:
+    """Every ``*_api_base`` at a port nobody listens on: the ingest records zero
+    vectors and completes (rule NER), the staged query answers through the lexical
+    channel (``tests/test_http_clients.py::test_rag_facade_survives_dead_model_server``)."""
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+    from triple_hybrid_rag_tpu_torch.loader import DocumentLoader
+
+    dead = "http://127.0.0.1:9"
+    rag = RAG(RAGConfig(embed_api_base=dead, llm_api_base=dead, rerank_api_base=dead,
+                        api_retries=0, api_timeout_s=0.5, safety_threshold=0.0), device=dev)
+    results = [rag.ingest(p) for p in pdfs]
+    check_results(results, "dead-server ingest")
+    if any(np.any(v) for v in rag.ingestor.embeddings.values()):
+        fail("dead-server ingest: a chunk has a non-zero embedding")
+    text = DocumentLoader().load(pdfs[0]).full_text
+    words = [w for w in text.split() if w.isalpha() and len(w) > 4][:8]
+    out = rag.query(" ".join(words))
+    log(f"dead model server: {len(results)} files completed with zero vectors; the staged query "
+        f"answered {len(out.results)} results (refused {out.refused}), the first from "
+        f"{out.results[0].doc_id[:12] if out.results else None}")
+    if out.refused or not out.results or out.results[0].doc_id != results[0].doc_id:
+        fail("dead-server query did not answer through the lexical channel")
+
+
+def formats_path(dev, card):
+    """Phase 9: (a) the document formats and OCR, (b) the HTTP model clients.
+    Returns the launches of each."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="thr-formats-") as tmp:
+        t0 = time.time()
+        formats, scan_files, ocr_texts, pdfs = formats_ingest(dev, card, tmp)
+        log(f"phase 9(a) wall time {time.time() - t0:.1f} s")
+        t0 = time.time()
+        served = http_models(dev, card, pdfs, scan_files, ocr_texts)
+        log(f"phase 9(b) wall time {time.time() - t0:.1f} s")
+    return formats, served
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -2516,6 +3198,10 @@ def main() -> int:
     served = serving_path(stdlib, card)
     del stdlib
     log(f"phase 8 wall time {time.time() - t_phase:.1f} s; serve launches {served}")
+    t_phase = time.time()
+    formats, http_served = formats_path(dev, card)
+    log(f"phase 9 wall time {time.time() - t_phase:.1f} s; format launches {formats}, HTTP "
+        f"launches {http_served}")
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2526,6 +3212,8 @@ def main() -> int:
             k["ivf_launches"] = launches["ivf"][ivf_bodies[k["name"]]]
         k["staged_launches"] = staged.get(k["name"], 0)
         k["serve_launches"] = served.get(k["name"], 0)
+        k["formats_launches"] = formats.get(k["name"], 0)
+        k["http_launches"] = http_served.get(k["name"], 0)
     log(f"total wall time {time.time() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

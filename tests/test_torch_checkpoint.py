@@ -171,8 +171,10 @@ def test_trusted_network_config_is_not_ported(cfg, tmp_path):
     ckpt.save_checkpoint(d, rag.ingestor.corpus, rag.ingestor.entity_store,
                          rag.ingestor.embeddings, c.replace(embed_api_base="http://localhost:1/v1"))
     assert RAG.load(d, device="cpu").config.embed_api_base == ""  # stripped: loads
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RAG.load(d, device="cpu", trust_config=True)
+    # trusted, the network fields stay and wire the HTTP embedder (ported since)
+    trusted = RAG.load(d, device="cpu", trust_config=True)
+    assert trusted.config.embed_api_base == "http://localhost:1/v1"
+    assert type(trusted.ingestor.embedder.inner).__name__ == "HTTPEmbedder"
 
 
 # --------------------------------------------------------------------------

@@ -219,15 +219,16 @@ def test_encode_queries_device_no_truncation_case():
 
 
 def test_embed_query_raises_without_tokens():
-    _, port = carried("float32")
+    ref_emb, port = carried("float32")
     with pytest.raises(ValueError, match="no tokens"):
         port.embed_query("the of and")
     with pytest.raises(ValueError, match="no tokens"):
         port.embed_query("")
     v = port.embed_query("payment invoice")
     np.testing.assert_allclose(np.linalg.norm(v), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        port.embed_images([b""])
+    # images are ported (tests/test_torch_ocr.py): an undecodable payload embeds by
+    # its content hash, bit-equal to the reference's
+    np.testing.assert_array_equal(port.embed_images([b""]), ref_emb.embed_images([b""]))
 
 
 def test_token_embeddings_truncate_renormalize_and_keep_padding_zero():

@@ -161,10 +161,9 @@ def test_unported_facade_calls_raise(cfg):
     # the staged query and rerank_fn are ported (tests/test_torch_staged.py)
     assert rag.query(QUERIES[0]).results and rag.retriever.retrieve(QUERIES[0]).results
     assert RAG(torch_config(cfg), device="cpu", rerank_fn=lambda *a: None)._rerank_fn
-    # save and load are ported (tests/test_torch_checkpoint.py)
-    for kw in ({"config": torch_config(cfg.replace(embed_api_base="http://localhost:1"))},
-               {"ocr_fn": lambda *a: None}):
-        kw.setdefault("config", torch_config(cfg))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RAG(device="cpu", **kw)
+    # save and load are ported (tests/test_torch_checkpoint.py); so are the HTTP model
+    # clients and the OCR callable (tests/test_torch_http_clients.py, test_torch_ocr.py)
+    wired = RAG(torch_config(cfg.replace(embed_api_base="http://localhost:1")), device="cpu")
+    assert type(wired.ingestor.embedder.inner).__name__ == "HTTPEmbedder"
+    assert RAG(torch_config(cfg), device="cpu", ocr_fn=lambda *a: "").ingestor.loader.ocr
     assert rag.query_batch([]) == []

@@ -29,7 +29,7 @@ from torch_port_helpers import torch_config
 from triple_hybrid_rag_tpu_torch.chunker import HierarchicalChunker
 from triple_hybrid_rag_tpu_torch.corpus import CorpusStore
 from triple_hybrid_rag_tpu_torch.index.cypher import CypherTranslationError, translate_cypher
-from triple_hybrid_rag_tpu_torch.index.graph_index import build_graph_index
+from triple_hybrid_rag_tpu_torch.index.graph_index import build_graph_index, graph_search_plan
 from triple_hybrid_rag_tpu_torch.models.entity_extractor import EntityStore, RuleBasedExtractor
 from triple_hybrid_rag_tpu_torch.retrieval import Retriever
 
@@ -175,3 +175,33 @@ def test_device_lookups_read_the_placed_tables(graphs):
         assert got[0].device == ret.state.device
         _same_khop(want[n], got)
         assert port.entity_distances(n) == ref.entity_distances(n)
+
+
+# (graph_entities, keywords, graph_top_k) of the plans the staged channel gets
+PLANS = [(["Acme Corp"], [], 8), (["John Smith", "Lisbon"], ["acme"], 6),
+         ([], ["cloudstack", "beta"], 8), ([], ["nobody"], 8),
+         (["nobody here at all"], ["porto", "maria"], 3), ([], [], 8)]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all-rows", "row-mask"])
+@pytest.mark.parametrize("entities,keywords,top_k", PLANS, ids=range(len(PLANS)))
+def test_search_plan_matches_reference(graphs, entities, keywords, top_k, masked):
+    """``GraphIndex.search_plan(plan, row_mask)``: seeds from the plan's entities
+    (three each), else its keywords (two each); the reference's chunk rows and
+    scores bit for bit, over the host tables and over the placed ones."""
+    import jax.numpy as jnp
+    import torch
+
+    from triple_hybrid_rag_tpu.types import QueryPlan as RefPlan
+    from triple_hybrid_rag_tpu_torch.types import QueryPlan
+
+    ref, port, corpus = graphs
+    kw = dict(original_query="q", keywords=keywords, graph_entities=entities, graph_top_k=top_k)
+    mask = np.arange(port.chunk_entities.shape[0]) % 3 != 1 if masked else None
+    want = ref.search_plan(RefPlan(**kw), None if mask is None else jnp.asarray(mask))
+    _same_khop(want, port.search_plan(QueryPlan(**kw), None if mask is None else torch.from_numpy(mask)))
+    ret = Retriever(corpus, port.config, graph_index=port, device="cpu")
+    assert port.placed is ret.state
+    row_mask = None if mask is None else torch.from_numpy(mask)
+    _same_khop(want, port.search_plan(QueryPlan(**kw), row_mask))
+    _same_khop(want, graph_search_plan(ret.state, QueryPlan(**kw), row_mask))

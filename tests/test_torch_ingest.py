@@ -138,8 +138,11 @@ def test_text_loaders_match_reference(tmp_path):
         with pytest.raises(ref_loader.UnsupportedFormatError if ld is ref else loader.UnsupportedFormatError):
             ld.load(bad)
     pdf = _write(tmp_path, "scan.pdf", b"%PDF-1.4 not really")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        got.load(pdf)
+    with pytest.raises(ref_loader.UnsupportedFormatError) as want:
+        ref.load(pdf)
+    with pytest.raises(loader.UnsupportedFormatError, match="no text extractable") as err:
+        got.load(pdf)  # the PDF loader is ported (tests/test_torch_formats.py)
+    assert str(err.value) == str(want.value)
     assert loader.detect_file_type("x.png", b"\x89PNG\r\n\x1a\n") == ref_loader.detect_file_type(
         "x.png", b"\x89PNG\r\n\x1a\n"
     )

@@ -63,6 +63,113 @@ def test_serving_modules_are_checked():
         assert base + name in mods, name
 
 
+def test_format_and_http_modules_are_checked():
+    """The document formats', OCR's and the HTTP clients' modules are among those
+    the import checks cover."""
+    mods = {m for m, _ in _port_modules()}
+    base = "triple_hybrid_rag_tpu_torch."
+    for name in ("pdf_text", "office_text", "ocr", "ocr_glyph", "models.http_clients",
+                 "models.planner", "models.entity_extractor", "models.embedder"):
+        assert base + name in mods, name
+
+
+def test_exports_cover_the_reference():
+    """Each ``__all__`` of the reference (root, ``index``, ``ops``, ``models``) is
+    a subset of the port's, and every exported name resolves; ``from
+    triple_hybrid_rag_tpu_torch import Retriever, Ingestor`` works in a process
+    with no JAX."""
+    import importlib
+
+    for sub in ("", ".index", ".ops", ".models"):
+        ref = importlib.import_module("triple_hybrid_rag_tpu" + sub)
+        port = importlib.import_module("triple_hybrid_rag_tpu_torch" + sub)
+        assert set(ref.__all__) <= set(port.__all__), sub
+        for name in port.__all__:
+            assert getattr(port, name) is not None, (sub, name)
+    code = (
+        "import json, sys\n"
+        "from triple_hybrid_rag_tpu_torch import RAG, Retriever, Ingestor, Engine, IndexState\n"
+        "from triple_hybrid_rag_tpu_torch import *\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "print(json.dumps([Retriever.__module__, Ingestor.__module__, bad]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [
+        "triple_hybrid_rag_tpu_torch.retrieval", "triple_hybrid_rag_tpu_torch.ingest", []]
+
+
+def test_http_and_ocr_settings_no_longer_raise():
+    """``RAG`` takes every ``*_api_base`` and ``ocr_fn``: the matching clients are
+    wired (nothing is contacted before a call), explicit arguments win."""
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+    from triple_hybrid_rag_tpu_torch.models.http_clients import HTTPRerankerFn, HTTPVisionOCR
+
+    dead = "http://127.0.0.1:9/v1"
+    cfg = RAGConfig(embedder_backend="bowhash", embed_api_base=dead, rerank_api_base=dead,
+                    llm_api_base=dead, ocr_api_base=dead)
+    rag = RAG(cfg, device="cpu")
+    assert type(rag.ingestor.embedder.inner).__name__ == "HTTPEmbedder"
+    assert isinstance(rag._rerank_fn, HTTPRerankerFn)
+    assert type(rag._planner).__name__ == "CallablePlanner"
+    assert type(rag.ingestor.extractor).__name__ == "CallableExtractor"
+    assert isinstance(rag.ingestor.loader.ocr.ocr_fn, HTTPVisionOCR)
+    assert type(RAG(cfg.replace(ner_enabled=False), device="cpu").ingestor.extractor).__name__ == \
+        "RuleBasedExtractor"
+
+    def mine(image, mode):
+        return "text"
+
+    own = RAG(cfg, device="cpu", ocr_fn=mine, rerank_fn=len)
+    assert own.ingestor.loader.ocr.ocr_fn is mine and own._rerank_fn is len
+
+
+def test_cli_ingests_pdf_and_docx_without_jax(tmp_path):
+    """``python -m triple_hybrid_rag_tpu_torch ingest`` of a PDF and a DOCX (the
+    stdlib extractors, the default OCR ladder built) and a query over them, in
+    processes where importing JAX or the JAX package fails."""
+    import io
+    import zipfile
+    import zlib
+
+    poison = tmp_path / "poison"
+    for name in FORBIDDEN:
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(f"raise ImportError('{name} imported')\n")
+    docs = tmp_path / "docs"
+    docs.mkdir()
+    stream = zlib.compress(b"BT 72 720 Td (Acme Corp settles invoices) Tj 0 -14 Td "
+                           b"(within thirty days.) Tj ET")
+    (docs / "pay.pdf").write_bytes(
+        b"%%PDF-1.4\n4 0 obj\n<< /Filter /FlateDecode /Length %d >>\nstream\n%s\nendstream\n"
+        b"endobj\ntrailer\n<< /Root 1 0 R >>\n%%%%EOF\n" % (len(stream), stream))
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w") as zf:
+        zf.writestr("word/document.xml", '<w:document xmlns:w="x"><w:body><w:p><w:r><w:t>Red foxes '
+                    'inhabit the northern forest.</w:t></w:r></w:p></w:body></w:document>')
+    (docs / "wild.docx").write_bytes(buf.getvalue())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=f"{poison}{os.pathsep}{ROOT}", RAG_EMBEDDER_BACKEND="bowhash",
+               RAG_CAPACITY_ROUND="64", RAG_SAFETY_THRESHOLD="0.0")
+    idx = str(tmp_path / "index")
+    cli = [sys.executable, "-m", "triple_hybrid_rag_tpu_torch"]
+    out = subprocess.run(cli + ["ingest", str(docs), "--index", idx, "--device", "cpu", "--json"],
+                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert [json.loads(line)["status"] for line in out.stdout.splitlines()] == ["completed"] * 2
+    for query, want in (("When does Acme Corp settle invoices?", "thirty days"),
+                        ("Where do red foxes live?", "northern forest")):
+        out = subprocess.run(cli + ["query", query, "--index", idx, "--device", "cpu", "--json"],
+                             cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        got = json.loads(out.stdout)
+        assert not got["refused"] and want in got["results"][0]["text"]
+
+
 @pytest.mark.parametrize("path", [p for _, p in _port_modules()] + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_import(path):

@@ -113,6 +113,7 @@ class Engine:
         embedder=None,
         planner=None,
         device=None,
+        dot_rerank: bool = True,
     ) -> None:
         self.device = resolve_device(device)
         cfg = config or state.config
@@ -134,6 +135,10 @@ class Engine:
         # encode query batches on the device when the embedder can (False: the
         # host path, embed_texts + token_embeddings)
         self.device_query_encode = True
+        # without a MaxSim store, rerank by the parents' mean embeddings; the
+        # reference's engine does so only when its retriever's reranker holds them
+        # (not under a host rerank_fn: parallel/engine.py:430)
+        self.dot_rerank = dot_rerank
 
     def refresh(self, state: IndexState) -> bool:
         """Swap in an updated index state when every static statistic the program
@@ -468,7 +473,7 @@ class Engine:
                 ),
                 self.maxsim_calibration,
             )
-        elif cfg.rerank_enabled and st.parent_emb is not None:
+        elif cfg.rerank_enabled and self.dot_rerank and st.parent_emb is not None:
             # cosine against the parents' mean embeddings, mapped to [0, 1]
             pe = st.parent_emb[parent_ids.clamp(0, st.parent_emb.shape[0] - 1)]
             cos = torch.bmm(pe, args.q_vec.float()[:, :, None])[..., 0]

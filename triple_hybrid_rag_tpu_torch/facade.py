@@ -21,10 +21,14 @@ uses; the engine is kept through :meth:`Engine.refresh` while the shapes hold.
 host (the engine leaves it out, as the reference's does).
 
 Checkpoints are the JAX package's format (``index/checkpoint.py``): either package
-loads what the other saved. Not ported yet, and raising ``NotImplementedError``
-rather than taking another path (ROADMAP.md, Queue 1): the HTTP model clients (any
-``*_api_base`` setting, also one a trusted checkpoint's config carries) and the OCR
-callable.
+loads what the other saved.
+
+External model servers: any ``*_api_base`` config field activates the matching
+OpenAI-compatible HTTP client (``models/http_clients.wire_http_models``): the
+embedder, the LLM planner and NER extractor (the latter only with ``ner_enabled``),
+the reranker and the vision OCR; explicit arguments always win. ``ocr_fn(image,
+mode)`` makes the loader an OCR processor's (``ocr.OCRProcessor``); without one the
+ingestor builds the default OCR ladder (``ocr_glyph.get_default_ocr_fn``).
 """
 
 from __future__ import annotations
@@ -37,13 +41,6 @@ from .engine import Engine
 from .ingest import Ingestor
 from .retrieval import Retriever
 from .types import IngestionResult, RetrievalResult
-
-_API_FIELDS = ("embed_api_base", "rerank_api_base", "llm_api_base", "ocr_api_base")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
-
 
 class RAG:
     def __init__(
@@ -58,15 +55,35 @@ class RAG:
         device=None,
     ) -> None:
         self.config = config or get_settings()
-        wired = [f for f in _API_FIELDS if getattr(self.config, f)]
-        if wired:
-            raise _not_ported(f"the HTTP model clients ({', '.join(wired)})")
-        if ocr_fn is not None:
-            raise _not_ported("OCR (ocr_fn)")
+
+        # external model servers: any *_api_base field wires the matching HTTP
+        # client; explicit arguments always win
+        from .models.http_clients import wire_http_models
+
+        wired = wire_http_models(self.config)
+        embedder = embedder or wired.get("embedder")
+        if extractor is None and "extractor_fn" in wired and self.config.ner_enabled:
+            from .models.entity_extractor import CallableExtractor
+
+            extractor = CallableExtractor(wired["extractor_fn"], self.config)
+        if planner is None and "planner_fn" in wired:
+            from .models.planner import CallablePlanner
+
+            planner = CallablePlanner(wired["planner_fn"], self.config)
         self._planner = planner
-        self._rerank_fn = rerank_fn
+        self._rerank_fn = rerank_fn or wired.get("rerank_fn")
+
+        loader = None
+        ocr_fn = ocr_fn or wired.get("ocr_fn")
+        if ocr_fn is not None:
+            from .loader import DocumentLoader
+            from .ocr import OCRProcessor
+
+            loader = DocumentLoader(ocr_processor=OCRProcessor(ocr_fn))
+
         self.ingestor = Ingestor(
-            config=self.config, embedder=embedder, extractor=extractor, device=device
+            config=self.config, embedder=embedder, extractor=extractor, loader=loader,
+            device=device,
         )
         self.device = self.ingestor.device
         self.use_sharded_engine = use_sharded_engine
@@ -135,6 +152,7 @@ class RAG:
             self._engine = Engine(
                 retriever.state, embedder=retriever.embedder, planner=retriever.planner,
                 device=self.device,
+                dot_rerank=getattr(retriever.reranker, "parent_embeddings", None) is not None,
             )
         return self._engine
 

@@ -12,7 +12,8 @@ reference's graph-backend policy.
 The staged retriever's graph channel (:func:`graph_search_plan`, the port of
 ``GraphIndex.search_plan``) reads the placed
 :class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState`: its seed lookup,
-neighbour table and ``chunk_entities``.
+neighbour table and ``chunk_entities``; :meth:`GraphIndex.search_plan` runs the same
+function over the index's own tables.
 
 :class:`GraphIndex` keeps the reference's lookup API (the agent tools'
 ``lookup_entity`` and the Cypher executor read it): :meth:`~GraphIndex.entity_lookup`,
@@ -143,6 +144,13 @@ class GraphIndex:
         for kw in keywords:
             seeds.extend(self.seed_lookup(kw, 3))
         return self._khop_top_k(seeds, self.config.graph_hops, top_k or self.config.graph_top_k)
+
+    def search_plan(
+        self, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The staged graph channel's entry point (:func:`graph_search_plan`) over
+        the placed tables, else over the host tables on the CPU."""
+        return graph_search_plan(self, plan, row_mask, tables=self._tables())
 
     def execute_query(self, query: dict) -> dict:
         """Structured graph-query executor (the op a planner emits, or
@@ -345,10 +353,12 @@ def seeds_top_k(
 
 
 def graph_search_plan(
-    state, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None
+    state, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The staged graph channel (the reference's ``GraphIndex.search_plan``) over the
-    placed state: seeds from the plan's entities (three each), else from its
+    placed state, or over ``tables`` (nbr, chunk_entities) with ``state`` a
+    :class:`GraphIndex`: seeds from the plan's entities (three each), else from its
     keywords (two each)."""
     seeds: List[Entity] = []
     for name in plan.graph_entities:
@@ -357,5 +367,6 @@ def graph_search_plan(
         for kw in plan.keywords:
             seeds.extend(state.seed_lookup(kw, 2))
     cfg = state.config
-    return seeds_top_k(state.nbr, state.chunk_entities, state.row_of, seeds, cfg.graph_hops,
+    nbr, chunk_entities = tables if tables is not None else (state.nbr, state.chunk_entities)
+    return seeds_top_k(nbr, chunk_entities, state.row_of, seeds, cfg.graph_hops,
                        plan.graph_top_k or cfg.graph_top_k, row_mask)

@@ -6,7 +6,7 @@ The port of the JAX package's ``Ingestor`` (``ingest.py``):
     2. skip a document already completed in its collection (the same bytes in
        another collection become a distinct document with a collection-scoped id)
     3. register the document, status 'processing'
-    4. load (``loader.py``)
+    4. load (``loader.py``; OCR for scans and images)
     5. hierarchical chunk (``chunker.py``: stable ids, page provenance)
     6. bulk embed (``FailSoftEmbedder``: failed items become zero vectors and are
        listed in its ``last_errors``)
@@ -20,7 +20,8 @@ from the corpus, incrementally where it can (dense and MaxSim rows are appended
 into spare capacity on the device), and :meth:`Ingestor.make_retriever` places them.
 The reference's counters go to ``observability.rag_metrics``: documents skipped,
 ingested and failed, chunks stored, ingest time, and parents whose entity
-extraction failed. The PDF, office and image loaders raise (``loader.py``).
+extraction failed. The default loader is OCR-capable (the ``ocr_glyph`` ladder), so
+PDF, office and image files ingest as the reference's do.
 """
 
 from __future__ import annotations
@@ -91,7 +92,17 @@ class Ingestor:
         self.embedder = FailSoftEmbedder(
             embedder or get_default_embedder(self.config, device=self.device)
         )
-        self.loader = loader or DocumentLoader()  # text formats; no OCR yet
+        if loader is None:
+            # OCR-capable by default: HTTP vision (when configured) -> pytesseract ->
+            # built-in glyph recognizer -> no OCR (the ocr_glyph ladder)
+            from .ocr import OCRProcessor
+            from .ocr_glyph import get_default_ocr_fn
+
+            ocr_fn = get_default_ocr_fn(self.config)
+            loader = DocumentLoader(
+                ocr_processor=OCRProcessor(ocr_fn) if ocr_fn is not None else None
+            )
+        self.loader = loader
         self.chunker = HierarchicalChunker(self.config)
         self.extractor = extractor or RuleBasedExtractor(self.config)
         self.entity_store = entity_store or EntityStore()

@@ -1,11 +1,18 @@
 """Document loader: file -> pages of text (host-side ingestion stage).
 
-A copy of the JAX package's ``loader.py`` for the text family: file-type detection
-by extension and magic bytes, and the text, Markdown, HTML (headings and tables
-kept as markdown), CSV (a markdown table, paginated by rows) and JSON (flattened
-key paths) loaders, with the same pages. PDF, office and image files need the
-PDF and office text extractors and OCR, which are not ported yet (ROADMAP.md,
-Queue 1 item 5): their loaders raise ``NotImplementedError``.
+A copy of the JAX package's ``loader.py``, with the same pages for the same bytes:
+file-type detection by extension and magic bytes; the text, Markdown, HTML (headings
+and tables kept as markdown), CSV (a markdown table, paginated by rows) and JSON
+(flattened key paths) loaders; PDF through PyMuPDF or pypdf when installed, else the
+stdlib extractor (``pdf_text.py``), with OCR for pages without a text layer; DOCX and
+XLSX through python-docx when installed, else the stdlib extractor
+(``office_text.py``); images through the OCR processor (``ocr.py``), their bytes kept
+on the page.
+
+One addition: a PDF with no text layer at all, read by the stdlib extractor while an
+OCR processor is configured, has its page images OCR'd
+(``pdf_text.extract_pdf_images``) where the JAX package raises
+``UnsupportedFormatError`` unless PyMuPDF renders the pages. Without OCR both raise.
 """
 
 from __future__ import annotations
@@ -77,6 +84,9 @@ def detect_file_type(path: str | Path, data: Optional[bytes] = None) -> FileType
 
 class DocumentLoader:
     """file path/bytes -> LoadedDocument (pages of text + modality)."""
+
+    def __init__(self, ocr_processor=None) -> None:
+        self.ocr = ocr_processor
 
     def load(self, path: str | Path, data: Optional[bytes] = None) -> LoadedDocument:
         path = Path(path)
@@ -219,19 +229,155 @@ class DocumentLoader:
         return LoadedDocument(filename=path.name, file_type=FileType.JSON, pages=pages)
 
     def _load_pdf(self, path: Path, data: bytes) -> LoadedDocument:
-        raise NotImplementedError(
-            f"{path.name}: PDF text extraction (pdf_text.py) and OCR are not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)"
+        """PDF via optional PyMuPDF/pypdf; scanned pages routed to OCR when available
+        (reference loader.py:199-256 text-density heuristic).
+
+        The try covers ONLY the import: an ImportError raised mid-extraction
+        (e.g. an OCR callable lazily importing a missing dep) previously
+        discarded every extracted page and silently re-ran via pypdf WITHOUT
+        OCR — wrong content with no error surfaced."""
+        try:
+            import fitz  # PyMuPDF
+        except ImportError:
+            fitz = None
+        if fitz is not None:
+            try:
+                doc = fitz.open(stream=data, filetype="pdf")
+            except Exception as e:  # corrupt-for-fitz: try the simpler extractors
+                doc = None
+                if not data.startswith(b"%PDF"):
+                    raise UnsupportedFormatError(
+                        f"cannot open {path.name} as PDF: {e}"
+                    ) from e
+            if doc is not None:
+                pages = []
+                for i, page in enumerate(doc):
+                    text = page.get_text()
+                    area = max(page.rect.width * page.rect.height, 1.0)
+                    if len(text) / area < 0.001 and self.ocr is not None:
+                        pix = page.get_pixmap(dpi=300)
+                        ocr_res = self.ocr.process_image(pix.tobytes("png"))
+                        pages.append(
+                            PageContent(
+                                page_number=i + 1, text=ocr_res.text,
+                                ocr_confidence=ocr_res.confidence,
+                            )
+                        )
+                    else:
+                        pages.append(PageContent(page_number=i + 1, text=text))
+                return LoadedDocument(
+                    filename=path.name, file_type=FileType.PDF, pages=pages
+                )
+        try:
+            from pypdf import PdfReader
+
+            reader = PdfReader(io.BytesIO(data))
+            pages = [
+                PageContent(page_number=i + 1, text=p.extract_text() or "")
+                for i, p in enumerate(reader.pages)
+            ]
+            return LoadedDocument(filename=path.name, file_type=FileType.PDF, pages=pages)
+        except ImportError:
+            pass
+        # built-in minimal extractor (stdlib zlib): digitally-generated simple PDFs
+        from .pdf_text import extract_pdf_images, extract_pdf_text
+
+        texts = extract_pdf_text(data)
+        if texts:
+            pages = [
+                PageContent(page_number=i + 1, text=t) for i, t in enumerate(texts)
+            ]
+            return LoadedDocument(filename=path.name, file_type=FileType.PDF, pages=pages)
+        # no text layer at all: OCR the page images (one page per image), as the
+        # PyMuPDF branch above OCRs a rendered page
+        images = extract_pdf_images(data) if self.ocr is not None else []
+        if images:
+            pages = []
+            for i, image in enumerate(images):
+                res = self.ocr.process_image(image)
+                pages.append(PageContent(
+                    page_number=i + 1, text=res.text, ocr_confidence=res.confidence,
+                ))
+            return LoadedDocument(filename=path.name, file_type=FileType.PDF, pages=pages)
+        raise UnsupportedFormatError(
+            f"no text extractable from {path.name}: install PyMuPDF/pypdf for complex "
+            "PDFs, or configure OCR for scanned documents"
         )
 
     def _load_image(self, path: Path, data: bytes) -> LoadedDocument:
-        raise NotImplementedError(
-            f"{path.name}: images need OCR (ocr.py, ocr_glyph.py), which is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)"
+        if self.ocr is None:
+            raise UnsupportedFormatError(
+                f"image {path.name} requires an OCR processor (none configured)"
+            )
+        res = self.ocr.process_image(data)
+        page = PageContent(
+            page_number=1, text=res.text, modality=Modality.IMAGE,
+            image_bytes=data, ocr_confidence=res.confidence,
         )
+        return LoadedDocument(filename=path.name, file_type=FileType.IMAGE, pages=[page])
 
     def _load_office(self, path: Path, data: bytes, ftype: FileType) -> LoadedDocument:
-        raise NotImplementedError(
-            f"{path.name}: DOCX/XLSX extraction (office_text.py) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)"
-        )
+        if ftype == FileType.DOCX:
+            text = ""
+            try:
+                import docx  # python-docx (optional: richer extraction)
+            except ImportError:
+                docx = None
+            if docx is not None:
+                try:
+                    d = docx.Document(io.BytesIO(data))
+                    parts = []
+                    for para in d.paragraphs:
+                        style = (para.style.name or "").lower()
+                        if style.startswith("heading"):
+                            level = int(re.sub(r"\D", "", style) or 1)
+                            parts.append("#" * level + " " + para.text)
+                        else:
+                            parts.append(para.text)
+                    # python-docx's .paragraphs EXCLUDES tables — append them as
+                    # markdown (the stdlib fallback already did; installing the
+                    # optional dep must not make table extraction worse)
+                    for table in getattr(d, "tables", []):
+                        rows = [
+                            "| " + " | ".join(c.text.strip() for c in row.cells) + " |"
+                            for row in table.rows
+                        ]
+                        if rows:
+                            header_sep = "|" + "---|" * len(table.rows[0].cells)
+                            parts.append("\n".join([rows[0], header_sep] + rows[1:]))
+                    text = "\n\n".join(p for p in parts if p.strip())
+                except Exception:
+                    text = ""  # corrupt-for-docx: fall through to the stdlib extractor
+            if not text.strip():
+                from .office_text import extract_docx_text
+
+                try:
+                    text = extract_docx_text(data)
+                except Exception as e:
+                    raise UnsupportedFormatError(
+                        f"cannot extract DOCX text from {path.name}: {e}"
+                    ) from e
+            if not text.strip():
+                raise UnsupportedFormatError(f"no text extractable from {path.name}")
+            pages = [
+                PageContent(page_number=i + 1, text=t)
+                for i, t in enumerate(self._paginate(text))
+            ]
+            return LoadedDocument(filename=path.name, file_type=ftype, pages=pages)
+
+        # XLSX -> one markdown table page per sheet (reference loader.py:439 semantics)
+        from .office_text import extract_xlsx_tables
+
+        try:
+            tables = extract_xlsx_tables(data)
+        except Exception as e:
+            raise UnsupportedFormatError(
+                f"cannot extract XLSX sheets from {path.name}: {e}"
+            ) from e
+        if not tables:
+            raise UnsupportedFormatError(f"no sheets extractable from {path.name}")
+        pages = [
+            PageContent(page_number=i + 1, text=t, modality=Modality.TABLE)
+            for i, t in enumerate(tables)
+        ]
+        return LoadedDocument(filename=path.name, file_type=FileType.XLSX, pages=pages)

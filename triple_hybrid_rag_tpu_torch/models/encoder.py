@@ -37,6 +37,7 @@ from torch import nn
 from ..analyzer import Analyzer, stem_family
 from ..config import RAGConfig, get_settings
 from ..device import resolve_device
+from .embedder import _ImageHashMixin
 
 PAD_ID = 0  # reserved token id
 
@@ -384,7 +385,7 @@ def encoder_params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.
     return out
 
 
-class EncoderEmbedder:
+class EncoderEmbedder(_ImageHashMixin):
     """Embedder-protocol adapter over :class:`Encoder` on one device.
 
     ``params`` is the state dict of trained weights (:func:`encoder_params_from_flax`
@@ -392,7 +393,12 @@ class EncoderEmbedder:
     ``embed_texts``/``token_embeddings`` run the forward and blend the anchors on
     the host, as the reference does; ``encode_queries_device`` blends, truncates
     and casts to the engine's f16 wire on the device and leaves the result there.
-    Images are not ported (ROADMAP.md, Queue 1 item 5)."""
+    Images go through the mixin's OCR-then-embed path (document images embed as
+    their recognized text, through this encoder). Trained weights define the space
+    a visual aligner maps into, so this class opts into that rung
+    (``_aligner_compatible``), which raises if aligner weights appear (none ship)."""
+
+    _aligner_compatible = True
 
     def __init__(
         self,
@@ -456,11 +462,6 @@ class EncoderEmbedder:
         if not mask.any():
             raise ValueError(f"query produced no tokens to embed: {text!r}")
         return self._run([text])[0][0]
-
-    def embed_images(self, images, *args, **kwargs):
-        raise NotImplementedError(
-            "image embedding is not ported (ROADMAP.md, Queue 1 item 5: the OCR/image mixin)"
-        )
 
     def token_embeddings(
         self, texts: Sequence[str], max_tokens: Optional[int] = None, dim: Optional[int] = None

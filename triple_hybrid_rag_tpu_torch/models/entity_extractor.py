@@ -13,8 +13,9 @@ so entity ids, relations and mentions come out equal in both packages:
   mentions deduped per (entity, chunk), the trigram lookup that seeds the graph
   channel, and the global mention-linking sweep.
 
-The LLM-backed ``CallableExtractor`` waits with the HTTP model clients (ROADMAP.md,
-Queue 1 item 5).
+- :class:`CallableExtractor`: the LLM-backed adapter over ``fn(parent_text) ->
+  {"entities": [...], "relations": [...]}`` (``models/http_clients.make_extractor_fn``),
+  falling back to the rules on any failure or malformed payload.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import dataclasses
 import re
 import uuid
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 from ..analyzer import strip_accents, trigrams
 from ..config import RAGConfig, get_settings
@@ -155,6 +156,13 @@ def _fold_ws(text: str) -> str:
     """accent-strip + lowercase + whitespace-collapse: canonical_key's text space
     (double spaces/tabs from OCR or justified text must not break matching)."""
     return " ".join(strip_accents(text.lower()).split())
+
+
+def _safe_conf(raw) -> float:
+    try:
+        return min(max(float(raw), 0.0), 1.0)
+    except (TypeError, ValueError):
+        return 0.8
 
 
 def canonical_key(name: str) -> str:
@@ -394,6 +402,91 @@ class RuleBasedExtractor:
                     )
 
         return ExtractionResult(entities=ent_list, mentions=mentions, relations=relations)
+
+
+class CallableExtractor:
+    """LLM-backed extraction adapter: ``fn(parent_text) -> {"entities": [...],
+    "relations": [...]}`` in the reference prompt's JSON shape
+    (entity_extraction.py:104-148); rule fallback on failure."""
+
+    def __init__(self, fn: Callable[[str], dict], config: Optional[RAGConfig] = None) -> None:
+        self.fn = fn
+        self.config = config or get_settings()
+        self._fallback = RuleBasedExtractor(self.config)
+
+    def extract(self, parent: ParentChunk, children: Sequence[ChildChunk]) -> ExtractionResult:
+        try:
+            data = self.fn(parent.text)
+            assert isinstance(data, dict)
+            return self._parse(data, parent, children)
+        except Exception:
+            # the documented ladder covers MALFORMED payloads too (a list of
+            # strings under "entities", "confidence": "high", ...) — any shape
+            # violation degrades to rules instead of crashing the NER retry loop
+            return self._fallback.extract(parent, children)
+
+    def _parse(
+        self, data: dict, parent: ParentChunk, children: Sequence[ChildChunk]
+    ) -> ExtractionResult:
+        entities: Dict[str, Entity] = {}
+        for e in data.get("entities", []):
+            name = str(e.get("name", "")).strip()
+            if not name:
+                continue
+            key = canonical_key(name)
+            try:
+                etype = EntityType(str(e.get("type", "other")).lower())
+            except ValueError:
+                etype = EntityType.OTHER
+            entities.setdefault(
+                key,
+                Entity(
+                    entity_id=str(uuid.uuid5(uuid.NAMESPACE_OID, "thr-ent:" + key)),
+                    canonical_name=name,
+                    entity_type=etype,
+                    description=str(e.get("description", "")),
+                ),
+            )
+
+        relations: List[Relation] = []
+        for r in data.get("relations", []):
+            s = entities.get(canonical_key(str(r.get("subject", ""))))
+            o = entities.get(canonical_key(str(r.get("object", ""))))
+            if s is None or o is None or s is o:
+                continue
+            try:
+                # the reference's JSON shape uses "relation_type"
+                # (entity_extraction.py:286); accept "type" as an alias
+                raw_type = r.get("relation_type", r.get("type", "related_to"))
+                rtype = RelationType(str(raw_type).lower())
+            except ValueError:
+                rtype = RelationType.RELATED_TO
+            relations.append(
+                Relation(
+                    relation_id=str(uuid.uuid4()),
+                    subject_id=s.entity_id,
+                    object_id=o.entity_id,
+                    relation_type=rtype,
+                    confidence=_safe_conf(r.get("confidence", 0.8)),
+                    source_chunk_id=parent.parent_id,
+                )
+            )
+
+        mentions: List[EntityMention] = []
+        for child in children:
+            lowered = _fold_ws(child.text)
+            for key, ent in entities.items():
+                if key in lowered:
+                    mentions.append(
+                        EntityMention(
+                            entity_id=ent.entity_id,
+                            chunk_id=child.chunk_id,
+                            surface_form=ent.canonical_name,
+                        )
+                    )
+        return ExtractionResult(
+            entities=list(entities.values()), mentions=mentions, relations=relations
+        )
 
 
 @dataclass

@@ -1,8 +1,11 @@
-"""Rule-based query planner: query -> multi-channel retrieval plan.
+"""Query planners: query -> multi-channel retrieval plan.
 
-A copy of the JAX package's ``RuleBasedPlanner`` (rules backend only): keywords for the
-lexical channel, the semantic query text, graph requirement and entity candidates,
-intent, and per-channel weights. Deterministic host code, microseconds per query."""
+Copies of the JAX package's ``RuleBasedPlanner`` (keywords for the lexical channel,
+the semantic query text, graph requirement and entity candidates, intent, and
+per-channel weights; deterministic host code, microseconds per query) and
+``CallablePlanner``, the LLM-backed adapter over ``fn(query) -> plan dict``
+(``models/http_clients.make_planner_fn``) that falls back to the rules on any
+failure or malformed payload."""
 
 from __future__ import annotations
 
@@ -201,6 +204,77 @@ class RuleBasedPlanner:
         return out
 
 
-def get_planner(config: Optional[RAGConfig] = None) -> QueryPlanner:
-    """The rules backend (the only one the port has)."""
-    return RuleBasedPlanner(config or get_settings())
+class CallablePlanner:
+    """Adapter for LLM-backed planning: wraps a host callable ``fn(query) -> dict`` with
+    the JSON plan fields the reference's GPT planner returns (query_planner.py:152-178);
+    falls back to rules on any failure (the reference's degradation ladder)."""
+
+    def __init__(self, fn, config: Optional[RAGConfig] = None) -> None:
+        self.fn = fn
+        self.config = config or get_settings()
+        self._fallback = RuleBasedPlanner(self.config)
+
+    def plan(self, query: str, collection: Optional[str] = None) -> QueryPlan:
+        base = self._fallback.plan(query, collection)
+        try:
+            data = self.fn(query)
+            if not isinstance(data, dict):
+                return base
+            return self._parse(query, data, base)
+        except Exception:
+            # shape violations in the payload (weights as a list, "high" as a
+            # weight, ...) degrade to the rule plan too — the LLM boundary has
+            # no schema guarantee (reference fallback, query_planner.py:180-190)
+            return base
+
+    def _parse(self, query: str, data: dict, base: QueryPlan) -> QueryPlan:
+        weights = data.get("weights") or base.weights
+        graph_query = data.get("graph_query")
+        graph_entities = list(data.get("graph_entities") or base.graph_entities)
+        requires_graph = bool(data.get("requires_graph", base.requires_graph))
+        cypher = data.get("cypher_query")
+        if graph_query is None and cypher:
+            # the reference's planner emits raw Cypher in this field
+            # (query_planner.py:78,167); lower it to the structured op the
+            # device graph executes (index/cypher.py). Untranslatable Cypher
+            # degrades to the rule seeds, not to a failed plan.
+            try:
+                from ..index.cypher import translate_cypher
+
+                graph_query = translate_cypher(str(cypher))
+                requires_graph = True
+                for key in ("entity", "from", "to"):
+                    name = graph_query.get(key)
+                    if name and name not in graph_entities:
+                        graph_entities.append(str(name))
+                for kw in graph_query.get("keywords", ()):
+                    if kw not in graph_entities:
+                        graph_entities.append(str(kw))
+            except Exception:
+                graph_query = None
+        return QueryPlan(
+            original_query=query,
+            keywords=list(data.get("keywords") or base.keywords),
+            lexical_top_k=self.config.lexical_top_k,
+            semantic_query_text=data.get("semantic_query_text") or query,
+            semantic_top_k=self.config.semantic_top_k,
+            graph_entities=graph_entities,
+            graph_query=graph_query,
+            graph_top_k=self.config.graph_top_k,
+            weights={
+                "lexical": float(weights.get("lexical", base.weights["lexical"])),
+                "semantic": float(weights.get("semantic", base.weights["semantic"])),
+                "graph": float(weights.get("graph", base.weights["graph"])),
+            },
+            intent=data.get("intent", base.intent),
+            requires_graph=requires_graph and self.config.graph_enabled,
+        )
+
+
+def get_planner(config: Optional[RAGConfig] = None, llm_fn=None) -> QueryPlanner:
+    """``CallablePlanner`` over ``llm_fn`` under ``planner_backend="llm"``, else the
+    rules."""
+    config = config or get_settings()
+    if config.planner_backend == "llm" and llm_fn is not None:
+        return CallablePlanner(llm_fn, config)
+    return RuleBasedPlanner(config)

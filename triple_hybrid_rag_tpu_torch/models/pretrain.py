@@ -5,7 +5,7 @@ encoder's identity anchors take their synonym keys from it, so the copy must sta
 equal to the reference's), :data:`DEFAULT_PARAMS` and :func:`load_default_encoder`.
 The weights are the reference's own ``models/data/encoder.npz``, read with numpy
 from its place in the checkout; the port ships no copy of them. Training and the
-corpus generators are not ported (ROADMAP.md, Queue 1 item 7).
+corpus generators are not ported (ROADMAP.md, Queue 1: training).
 """
 
 from __future__ import annotations
