@@ -104,13 +104,38 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ids of a RAG built in-process with the stub's own models, finds every scan by
    its text, and sends the stub the expected requests per route; with a dead
    server the ingest records zero vectors and completes and the staged query
-   answers through the lexical channel.
+   answers through the lexical channel;
+10. the quality evaluation, the tool harness, the RAG 1.0 searcher and the native
+   BM25 build: (a) ``eval.evaluate_baseline_configs()`` at its defaults (five
+   configurations, float32 rows, the packaged encoder) with tests/test_eval.py's
+   gates, the ids against the same call on the host CPU up to near ties
+   (``EVAL_TIE_ATOL``), one f32 dense-scores launch (B = 1) per query with the
+   semantic channel on and one MaxSim launch per query of the full pipeline;
+   (b) ``evaluate_stdlib()`` at its defaults (500 docstrings of this Python's
+   stdlib, 150 queries, four configurations) beside
+   ``eval_results/stdlib_500_fixed.json``, build and evaluate seconds;
+   (c) ``evaluate_batched`` over ``Engine`` against ``evaluate`` over ``Retriever``
+   on tests/test_eval.py's corpus (equal within 1e-9), then on (b)'s corpus
+   (printed), one f32 bucket-maxima launch per batch of 64; (d)
+   ``evaluate_code_graph()`` (oracle graph, 200 modules), graph_on against
+   graph_off; (e) ``make_bigcorpus_eval`` cut to ``N_BIGCORPUS_DOCS`` documents with
+   the training-content exclusion, through the full pipeline; (f) the tool harness:
+   ``default_scenarios()`` and tests/test_harness.py's scenarios over a small RAG
+   of that file's fixture text, and ``default_scenarios()`` over phase 6's RAG on
+   the card and (loaded from its checkpoint) on the host CPU with equal outcomes;
+   (h) ``native.build_library()`` into ``build/native/``, the native BM25 arrays
+   over phase 6's child texts bit-equal to the Python build, both timed; (g) the
+   RAG 1.0 ``HybridSearcher`` over phase 6's corpus on the card (one dense-scores
+   launch per query) against the host CPU's; (i) ``python -m
+   triple_hybrid_rag_tpu_torch eval --json`` in a new process with (a)'s metrics.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
 over phase 7, ``serve_launches`` over phase 8's served requests,
-``formats_launches`` and ``http_launches`` over phase 9's queries, and per further
-path), error and times; the last line is
+``formats_launches`` and ``http_launches`` over phase 9's queries,
+``eval_launches`` over phase 10(a)-(f) (``eval_f32_launches``: of them, the f32-row
+body's) and ``legacy_launches`` over phase 10(g), and per further path), error and
+times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
 """
@@ -1746,13 +1771,15 @@ def staged_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
 
     dense_scores.launches = 0
+    dense_scores.launches_by_rows = dict.fromkeys(dense_scores.launches_by_rows, 0)
     score_termtable_batch.launches = 0
     bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
     maxsim_counts_reset()
 
 
 def staged_counts() -> dict:
-    """Kernel launches since :func:`staged_counts_reset`, by the kernels line's names."""
+    """Kernel launches since :func:`staged_counts_reset`, by the kernels line's names,
+    and those of the f32-row bodies apart (``*_f32``)."""
     from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
     from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
@@ -1767,6 +1794,8 @@ def staged_counts() -> dict:
         "fused_bucket_maxima": by_rows["bf16"] + by_rows["f32"],
         "fused_bucket_maxima_int8": by_rows["int8"],
         "fused_bucket_maxima_int4": by_rows["int4"],
+        "dense_scores_f32": dense_scores.launches_by_rows["f32"],
+        "fused_bucket_maxima_f32": by_rows["f32"],
     }
 
 
@@ -3061,6 +3090,414 @@ def formats_path(dev, card):
     return formats, served
 
 
+# ---------------------------------------------------------------- phase 10
+
+N_BIGCORPUS_DOCS = 3000  # the corpus-scale eval cut to this many documents (eval_results/: 33,000)
+N_BIGCORPUS_QUERIES = 200
+N_LEGACY_QUERIES = 64
+NATIVE_DOCS = 20_000  # README's size for the native build's speed-up
+# card against the host CPU: the bf16 encoder's rows differ by about one bf16 ulp
+# (9.8e-4 near 0.5, phase 6) and final scores where the ids agree by up to 3.75e-3
+# (phase 10(a) on an H100), so two results may swap where their scores lie within
+# twice that
+EVAL_TIE_ATOL = 1e-2
+EVAL_METRIC_ATOL = 1e-9  # batched against staged (tests/test_eval.py's bound), CLI against (a)
+LEGACY_TIE_ATOL = 1e-5  # bf16 rows: the dense-scores kernel's f32 sums in another order
+LADDER = ("1_lexical_only", "2_dense_only", "3_dual_hybrid_rrf", "4_triple_hybrid",
+          "5_full_pipeline")
+HARNESS_TEXT = "Acme Corp settles invoices within thirty days. Maria Silva works for Acme Corp."
+
+
+def stdlib_eval_config():
+    """``evaluate_stdlib``'s default configuration at k = 10 (float32 rows)."""
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+
+    return RAGConfig(capacity_round=64, embedding_dtype="float32", safety_threshold=0.0,
+                     final_top_k=10, rerank_top_k=20, denoise_alpha=0.0, graph_enabled=False)
+
+
+def metric_line(m: dict, k: int = 10) -> str:
+    return (f"recall@{k} {m[f'recall@{k}']:.4f}, ndcg@{k} {m[f'ndcg@{k}']:.4f}, mrr "
+            f"{m['mrr']:.4f} ({int(m['n_queries'])} queries)")
+
+
+def recorded(name: str) -> dict:
+    """The ``results`` of an ``eval_results/`` file (not this port's: printed beside
+    its numbers, never compared), or {} when the checkout lacks it."""
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "eval_results" / name
+    return json.loads(path.read_text())["results"] if path.exists() else {}
+
+
+def expect_launches(label: str, launches: dict, want: dict) -> None:
+    """Fails unless ``launches`` equal ``want`` (kernels not named there: 0)."""
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full:
+        fail(f"{label}: kernel launches {launches}, expected {full}")
+
+
+def eval_ladder(dev, card):
+    """Phase 10(a): ``evaluate_baseline_configs()`` at its defaults (five
+    configurations, float32 rows, the packaged encoder) on the card and on the host
+    CPU. Gates of tests/test_eval.py; ids card against CPU up to near ties; one f32
+    dense-scores launch per query with the semantic channel on, MaxSim in
+    5_full_pipeline. Returns (metrics, launches)."""
+    from triple_hybrid_rag_tpu_torch.eval import evaluate_baseline_configs
+
+    res, res_cpu = {}, {}
+    t0 = time.time()
+    m, launches = counted(lambda: evaluate_baseline_configs(device=dev, results=res))
+    card_s = time.time() - t0
+    t0 = time.time()
+    m_cpu = evaluate_baseline_configs(device="cpu", results=res_cpu)
+    cpu_s = time.time() - t0
+    n = int(m[LADDER[0]]["n_queries"])
+    for name in LADDER:
+        log(f"BASELINE {name}: card {metric_line(m[name])}; host CPU {metric_line(m_cpu[name])}")
+        same_ids(f"BASELINE {name}, card against the host CPU", pairs(res_cpu[name]),
+                 pairs(res[name]), EVAL_TIE_ATOL)
+    log(f"BASELINE ladder: {card_s:.1f} s on the card (five retrievers built, {5 * n} staged "
+        f"queries), {cpu_s:.1f} s on the host CPU; kernel launches {launches}; card {card}")
+    r = {name: m[name]["recall@10"] for name in LADDER}
+    if min(r["1_lexical_only"], r["3_dual_hybrid_rrf"], r["5_full_pipeline"]) <= 0.3:
+        fail(f"BASELINE ladder: recall@10 {r} at or below 0.3")
+    if r["3_dual_hybrid_rrf"] < min(r["1_lexical_only"], r["2_dense_only"]) - 1e-6:
+        fail(f"BASELINE ladder: dual hybrid below the weaker single channel: {r}")
+    expect_launches("BASELINE ladder", launches,
+                    {"dense_scores": 4 * n, "dense_scores_f32": 4 * n, "maxsim_scores": n})
+    return m, launches
+
+
+def eval_stdlib(dev, card):
+    """Phase 10(b): ``evaluate_stdlib()`` at its defaults (500 docstrings of this
+    Python's stdlib, 150 queries, four configurations) beside
+    eval_results/stdlib_500_fixed.json's. Returns (the corpus, launches)."""
+    from triple_hybrid_rag_tpu_torch.eval import evaluate_stdlib, make_stdlib_eval
+
+    t0 = time.time()
+    data = make_stdlib_eval(stdlib_eval_config())
+    build_s = time.time() - t0
+    t0 = time.time()
+    m, launches = counted(lambda: evaluate_stdlib(device=dev))
+    eval_s = time.time() - t0
+    old = recorded("stdlib_500_fixed.json")
+    for name, mm in m.items():
+        was = metric_line(old[name]) if name in old else "absent"
+        log(f"stdlib {name}: card {metric_line(mm)}; eval_results/stdlib_500_fixed.json (another "
+            f"Python build, an older encoder) {was}")
+    n = int(m["full_pipeline"]["n_queries"])
+    log(f"stdlib eval: corpus built in {build_s:.1f} s (harvest, cloze, chunking: "
+        f"make_stdlib_eval); evaluate_stdlib {eval_s:.1f} s (the corpus again, four retrievers "
+        f"built, {4 * n} staged queries); {len(data.corpus)} chunks; kernel launches {launches}; "
+        f"card {card}")
+    expect_launches("stdlib eval", launches,
+                    {"dense_scores": 3 * n, "dense_scores_f32": 3 * n, "maxsim_scores": n})
+    return data, launches
+
+
+def batched_against_staged(dev, card, stdlib_data):
+    """Phase 10(c): ``evaluate_batched`` over ``Engine`` against ``evaluate`` over
+    ``Retriever`` on tests/test_eval.py's corpus (equal within 1e-9, as the reference's
+    two paths are on it), then on (b)'s corpus under its full pipeline (printed).
+    Returns the launches."""
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.engine import Engine
+    from triple_hybrid_rag_tpu_torch.eval import evaluate, evaluate_batched, make_eval_corpus
+    from triple_hybrid_rag_tpu_torch.index.graph_index import build_graph_index
+    from triple_hybrid_rag_tpu_torch.retrieval import Retriever
+
+    cfg = RAGConfig(capacity_round=64, embedding_dim=128, embedding_dim_full=256,
+                    embedding_dtype="float32", safety_threshold=0.0, final_top_k=10,
+                    rerank_top_k=20, denoise_alpha=0.0, embedder_backend="bowhash")
+    data = make_eval_corpus(cfg, docs_per_topic=2, distractors=10)
+    total: dict = {}
+    for label, corpus, queries, c, gidx in (
+        ("make_eval_corpus", data.corpus, data.queries, cfg,
+         build_graph_index(data.entity_store, data.corpus, cfg)),
+        ("stdlib full pipeline", stdlib_data.corpus, stdlib_data.queries, stdlib_eval_config(),
+         None),
+    ):
+        ret = Retriever(corpus, c, graph_index=gidx, device=dev)
+        eng = Engine.from_retriever(ret)
+        t0 = time.time()
+        staged, l_staged = counted(
+            lambda: evaluate(lambda q: ret.retrieve(q, top_k=10), queries, k=10))
+        staged_s = time.time() - t0
+        t0 = time.time()
+        batched, l_batched = counted(lambda: evaluate_batched(eng, queries, k=10))
+        batched_s = time.time() - t0
+        gap = {key: abs(batched[key] - staged[key]) for key in ("recall@10", "ndcg@10", "mrr")}
+        log(f"{label}: staged {metric_line(staged)} in {staged_s:.2f} s, launches {l_staged}; "
+            f"batched (B = 64) {metric_line(batched)} in {batched_s:.2f} s, launches {l_batched}; "
+            f"gaps {gap}; card {card}")
+        n = len(queries)
+        if l_staged["dense_scores_f32"] != n or l_batched["fused_bucket_maxima_f32"] != -(-n // 64):
+            fail(f"{label}: expected {n} f32 dense-scores launches staged and one f32 "
+                 f"bucket-maxima launch per batch of 64")
+        if label == "make_eval_corpus" and max(gap["recall@10"], gap["ndcg@10"]) > EVAL_METRIC_ATOL:
+            fail(f"{label}: batched and staged metrics differ by {gap}")
+        add_counts(total, l_staged)
+        add_counts(total, l_batched)
+    return total
+
+
+def eval_code_graph(dev, card):
+    """Phase 10(d): ``evaluate_code_graph()`` (oracle graph, 200 modules): graph_on
+    against graph_off, beside eval_results/code_graph_240.json (240 modules).
+    Returns the launches."""
+    from triple_hybrid_rag_tpu_torch.eval import evaluate_code_graph
+
+    t0 = time.time()
+    m, launches = counted(lambda: evaluate_code_graph(device=dev))
+    secs = time.time() - t0
+    old = recorded("code_graph_240.json")
+    for name, mm in m.items():
+        kinds = ", ".join(f"{k[len('recall@10_'):]} {v:.4f}" for k, v in mm.items()
+                          if k.startswith("recall@10_"))
+        was = metric_line(old[name]) if name in old else "absent"
+        log(f"code graph {name}: card {metric_line(mm)}, recall@10 by kind {kinds}; "
+            f"eval_results/code_graph_240.json {was}")
+    n = int(m["graph_on"]["n_queries"])
+    gain = m["graph_on"]["recall@10"] - m["graph_off"]["recall@10"]
+    log(f"code graph: graph_on minus graph_off recall@10 {gain:+.4f}; {secs:.1f} s (corpus, "
+        f"three retrievers, {3 * n} staged queries); kernel launches {launches}; card {card}")
+    expect_launches("code graph", launches,
+                    {"dense_scores": 2 * n, "dense_scores_f32": 2 * n, "maxsim_scores": 2 * n})
+    return launches
+
+
+def eval_bigcorpus(dev, card):
+    """Phase 10(e): ``make_bigcorpus_eval`` cut to N_BIGCORPUS_DOCS documents, the
+    training-content exclusion on, through the full pipeline. Returns the launches."""
+    from triple_hybrid_rag_tpu_torch.eval import evaluate, make_bigcorpus_eval
+    from triple_hybrid_rag_tpu_torch.retrieval import Retriever
+
+    cfg = stdlib_eval_config()
+    t0 = time.time()
+    data = make_bigcorpus_eval(cfg, n_docs=N_BIGCORPUS_DOCS, n_queries=N_BIGCORPUS_QUERIES)
+    build_s = time.time() - t0
+    t0 = time.time()
+    ret = Retriever(data.corpus, cfg, device=dev)
+    torch.cuda.synchronize()
+    index_s = time.time() - t0
+    t0 = time.time()
+    m, launches = counted(lambda: evaluate(lambda q: ret.retrieve(q, top_k=10), data.queries, k=10))
+    eval_s = time.time() - t0
+    old = recorded("bigcorpus.json").get("full_pipeline")
+    log(f"bigcorpus (cut to {N_BIGCORPUS_DOCS} documents of 33,000; {len(data.corpus)} chunks, "
+        f"{data.corpus.n_parents} parents): full pipeline {metric_line(m)}; "
+        f"eval_results/bigcorpus.json at 33,000 documents "
+        f"{metric_line(old) if old else 'absent'}; corpus {build_s:.1f} s (exclusion harvest, "
+        f"AST walk, cloze, chunking), retriever {index_s:.1f} s (embed, index, place), "
+        f"evaluate {eval_s:.1f} s; kernel launches {launches}; card {card}")
+    n = int(m["n_queries"])
+    expect_launches("bigcorpus", launches,
+                    {"dense_scores": n, "dense_scores_f32": n, "maxsim_scores": n})
+    return launches
+
+
+def outcomes(summary: dict) -> list:
+    return [(r["scenario"], r["ok"], r["failures"]) for r in summary["results"]]
+
+
+def harness_check(dev, card, rag6):
+    """Phase 10(f): the tool harness on the card: ``default_scenarios()`` (all four
+    must pass) and tests/test_harness.py's three scenarios (their outcomes) over a
+    small RAG of that file's fixture text; ``default_scenarios()`` over phase 6's RAG
+    on the card and, loaded from its checkpoint, on the host CPU (equal outcomes).
+    Returns the launches."""
+    import tempfile
+
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+    from triple_hybrid_rag_tpu_torch.harness import (
+        HarnessRunner, Scenario, default_scenarios, expect_refusal, expect_sources,
+        expect_success, expect_text_contains)
+    from triple_hybrid_rag_tpu_torch.tools import make_knowledge_tools
+
+    cfg = RAGConfig(graph_enabled=True, embedding_dtype="float32", safety_threshold=0.6,
+                    rerank_backend="maxsim")
+    small = RAG(cfg, device=dev)
+    small.ingest_text(HARNESS_TEXT, name="pay.md")
+    runner = HarnessRunner(make_knowledge_tools(small))
+    summary, launches = counted(lambda: runner.run(default_scenarios()))
+    log(f"harness, default scenarios over the fixture's RAG: {summary['passed']} of "
+        f"{summary['total']} passed {outcomes(summary)}; kernel launches {launches}")
+    if summary["passed"] != summary["total"] or launches["dense_scores_f32"] < 1:
+        fail(f"harness: default scenarios {outcomes(summary)}, launches {launches}")
+    three = runner.run([
+        Scenario("hit", "search_knowledge_base", {"query": "invoice settlement days"},
+                 [expect_success, expect_sources(1), expect_text_contains("invoices")]),
+        Scenario("refusal", "search_knowledge_base", {"query": "qqq zzz gibberish"},
+                 [expect_refusal]),
+        Scenario("entity", "lookup_entity", {"name": "Acme Corp"}, [expect_success]),
+    ])
+    wrong = runner.run([Scenario("wrong_expectation", "search_knowledge_base",
+                                 {"query": "invoice settlement days"}, [expect_refusal])])
+    unknown = runner.run([Scenario("nope", "no_such_tool", {}, [expect_success])])
+    log(f"harness, tests/test_harness.py's scenarios: {outcomes(three)}, {outcomes(wrong)}, "
+        f"{outcomes(unknown)}; ms {[r['duration_ms'] for r in three['results']]}")
+    if (three["passed"], wrong["failed"], unknown["failed"]) != (3, 1, 1) \
+            or not wrong["results"][0]["failures"]:
+        fail("harness: tests/test_harness.py's scenarios gave other outcomes")
+    on_card = HarnessRunner(make_knowledge_tools(rag6)).run(default_scenarios())
+    with tempfile.TemporaryDirectory(prefix="thr-harness-") as tmp:
+        rag6.save(tmp)
+        t0 = time.time()
+        cpu = RAG.load(tmp, device="cpu")
+        on_cpu = HarnessRunner(make_knowledge_tools(cpu)).run(default_scenarios())
+        cpu_s = time.time() - t0
+    log(f"harness, default scenarios over phase 6's RAG: card {outcomes(on_card)}; host CPU "
+        f"(loaded from its checkpoint, {cpu_s:.1f} s) {outcomes(on_cpu)}")
+    if outcomes(on_card) != outcomes(on_cpu):
+        fail("harness: phase 6's RAG gave other outcomes on the card than on the host CPU")
+    return launches
+
+
+def native_check(texts, card):
+    """Phase 10(h): ``native.build_library()`` into build/native/, then the native
+    BM25 build over phase 6's child texts bit-equal to the Python build; both builds
+    timed there and at NATIVE_DOCS documents (host CPU). Returns the Python build."""
+    from triple_hybrid_rag_tpu_torch import native
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.index.bm25_index import build_bm25_index
+
+    t0 = time.time()
+    if not native.build_library() or not native.available():
+        fail(f"native library: {native.load_error()}")
+    log(f"native library built and loaded in {time.time() - t0:.1f} s "
+        f"({native.library_path().relative_to(native.library_path().parents[2])})")
+    cfg = RAGConfig()
+    out = None
+    for docs in (texts, (texts * (NATIVE_DOCS // max(len(texts), 1) + 1))[:NATIVE_DOCS]):
+        t0 = time.time()
+        nat = build_bm25_index(docs, cfg)
+        nat_s = time.time() - t0
+        t0 = time.time()
+        py = build_bm25_index(docs, cfg.replace(use_native=False))
+        py_s = time.time() - t0
+        out = out or py
+        for key, arr in py.arrays().items():
+            mine = nat.arrays()[key]
+            if mine.dtype != arr.dtype or mine.shape != arr.shape or \
+                    mine.tobytes() != arr.tobytes():
+                fail(f"native BM25 build over {len(docs)} texts: {key} differs from the Python build")
+        if nat.vocab.to_list() != py.vocab.to_list() or (nat.l_max, nat.overflow_docs) != (
+                py.l_max, py.overflow_docs):
+            fail(f"native BM25 build over {len(docs)} texts: vocabulary or statistics differ")
+        log(f"native BM25 build over {len(docs)} texts: {nat_s:.2f} s against the Python "
+            f"build's {py_s:.2f} s ({py_s / nat_s:.2f}x), every array bit-equal (host CPU of "
+            f"the card's machine; README: 10.6x at 20k documents)")
+    return out
+
+
+def legacy_check(dev, card, rag6, queries, bm25):
+    """Phase 10(g): the RAG 1.0 ``HybridSearcher`` over phase 6's corpus on the card
+    (bf16 rows: one dense-scores launch per query) against the same searcher on the
+    host CPU: equal results, or channels that differ by near ties of the vector
+    scores only. Returns the launches."""
+    from triple_hybrid_rag_tpu_torch.index.dense_index import build_dense_index, truncate_matryoshka
+    from triple_hybrid_rag_tpu_torch.legacy import HybridSearcher
+    from triple_hybrid_rag_tpu_torch.models.embedder import BowHashEmbedder
+
+    corpus, cfg = rag6.ingestor.corpus, rag6.config
+    emb = BowHashEmbedder(dim=cfg.embedding_dim_full, config=cfg)
+    t0 = time.time()
+    vecs = emb.embed_texts(corpus.child_texts())
+    embed_s = time.time() - t0
+    card_hs, cpu_hs = (
+        HybridSearcher(corpus, cfg, embedder=emb, bm25_index=bm25,
+                       dense_index=build_dense_index(vecs, cfg, where), device=where)
+        for where in (dev, "cpu"))
+    qs = queries[:N_LEGACY_QUERIES]
+    card_hs.search_query(qs[0])  # warm-up
+    t0 = time.perf_counter()
+    got, launches = counted(lambda: [card_hs.search_query(q) for q in qs])
+    ms = (time.perf_counter() - t0) / len(qs) * 1e3
+    want = [cpu_hs.search_query(q) for q in qs]
+    same, near = 0, 0
+    k = card_hs.search_config.vector_top_k
+    for q, a, b in zip(qs, got, want):
+        if [x.chunk_id for x in a] == [x.chunk_id for x in b]:
+            same += 1
+            if max([abs(x.rrf_score - y.rrf_score) for x, y in zip(a, b)] + [0.0]) > 1e-6:
+                fail(f"legacy searcher: RRF scores differ for {q!r}")
+            continue
+        # the results may differ only through near ties of the vector channel
+        qv = truncate_matryoshka(emb.embed_query(q)[None], cfg.embedding_dim)[0]
+        ids_c, _ = card_hs.dense_index.search(torch.from_numpy(qv).to(dev), k)
+        ids_h, s_h = cpu_hs.dense_index.search(torch.from_numpy(qv), k)
+        if near_ties_only(ids_c.cpu()[None], ids_h[None], s_h[None], LEGACY_TIE_ATOL) < 0:
+            fail(f"legacy searcher: {q!r} differs beyond near ties of the vector channel")
+        near += 1
+    log(f"legacy HybridSearcher over phase 6's {len(corpus)} chunks (bf16 rows, BowHash {emb.dim} "
+        f"-> {cfg.embedding_dim}, embedded in {embed_s:.1f} s): {ms:.3f} ms a query on the card; "
+        f"{same} of {len(qs)} queries equal to the host CPU's, {near} differ by near ties of the "
+        f"vector channel; kernel launches {launches}; card {card}")
+    expect_launches("legacy searcher", launches, {"dense_scores": len(qs)})
+    return launches
+
+
+def cli_eval(card, ladder: dict, device) -> None:
+    """Phase 10(i): ``python -m triple_hybrid_rag_tpu_torch eval --json`` in a new
+    process on the card (its default device) must give (a)'s metrics."""
+    import os
+
+    t0 = time.time()
+    on = [] if torch.device(device).type == "cuda" else ["--device", str(device)]
+    out = subprocess.run(
+        [sys.executable, "-m", "triple_hybrid_rag_tpu_torch", "eval", "--json", *on],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=900,
+    )
+    if out.returncode != 0:
+        fail(f"thr-torch eval exited {out.returncode}: {out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    gap = max(abs(got[name][key] - v) for name in LADDER for key, v in ladder[name].items())
+    log(f"CLI: python -m triple_hybrid_rag_tpu_torch eval --json in {time.time() - t0:.1f} s "
+        f"(a new process on the card); largest metric gap to (a) {gap:.3g}; card {card}")
+    if list(got) != list(LADDER) or gap > EVAL_METRIC_ATOL:
+        fail(f"thr-torch eval gave other metrics than (a): {got}")
+
+
+def eval_path(dev, card, ctx):
+    """Phase 10: the quality evaluation, the tool harness, the RAG 1.0 searcher and
+    the native BM25 build, on the card. Returns (eval launches, legacy launches)."""
+    rag6, queries, _ = ctx
+    evals: dict = {}
+    t0 = time.time()
+    ladder, part = eval_ladder(dev, card)
+    add_counts(evals, part)
+    log(f"phase 10(a) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    stdlib_data, part = eval_stdlib(dev, card)
+    add_counts(evals, part)
+    log(f"phase 10(b) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    add_counts(evals, batched_against_staged(dev, card, stdlib_data))
+    del stdlib_data
+    log(f"phase 10(c) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    add_counts(evals, eval_code_graph(dev, card))
+    log(f"phase 10(d) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    add_counts(evals, eval_bigcorpus(dev, card))
+    log(f"phase 10(e) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    add_counts(evals, harness_check(dev, card, rag6))
+    log(f"phase 10(f) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    bm25 = native_check(rag6.ingestor.corpus.child_texts(), card)
+    log(f"phase 10(h) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    legacy = legacy_check(dev, card, rag6, queries, bm25)
+    log(f"phase 10(g) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cli_eval(card, ladder, dev)
+    log(f"phase 10(i) wall time {time.time() - t0:.1f} s")
+    return evals, legacy
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -3196,12 +3633,16 @@ def main() -> int:
     log(f"phase 7 wall time {time.time() - t_phase:.1f} s; staged launches {staged}")
     t_phase = time.time()
     served = serving_path(stdlib, card)
-    del stdlib
     log(f"phase 8 wall time {time.time() - t_phase:.1f} s; serve launches {served}")
     t_phase = time.time()
     formats, http_served = formats_path(dev, card)
     log(f"phase 9 wall time {time.time() - t_phase:.1f} s; format launches {formats}, HTTP "
         f"launches {http_served}")
+    t_phase = time.time()
+    evals, legacy = eval_path(dev, card, stdlib)
+    del stdlib
+    log(f"phase 10 wall time {time.time() - t_phase:.1f} s; eval launches {evals}, legacy "
+        f"launches {legacy}")
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3214,6 +3655,10 @@ def main() -> int:
         k["serve_launches"] = served.get(k["name"], 0)
         k["formats_launches"] = formats.get(k["name"], 0)
         k["http_launches"] = http_served.get(k["name"], 0)
+        k["eval_launches"] = evals.get(k["name"], 0)
+        k["legacy_launches"] = legacy.get(k["name"], 0)
+        if k["name"] in ("dense_scores", "fused_bucket_maxima"):  # of them, the f32 body's
+            k["eval_f32_launches"] = evals.get(k["name"] + "_f32", 0)
     log(f"total wall time {time.time() - T_START:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -166,7 +166,7 @@ def test_unported_subcommands_exit_2_without_jax(tmp_path):
 import contextlib, io, json, sys
 from triple_hybrid_rag_tpu_torch.cli import main
 out = {}
-for argv in (["bench", "--n", "10"], ["eval", "--k", "5"], ["train-encoder", "--steps", "1"]):
+for argv in (["bench", "--n", "10"], ["train-encoder", "--steps", "1"]):
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         out[argv[0]] = [main(argv), err.getvalue()]

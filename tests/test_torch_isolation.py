@@ -73,6 +73,15 @@ def test_format_and_http_modules_are_checked():
         assert base + name in mods, name
 
 
+def test_eval_modules_are_checked():
+    """The quality evaluation's, the harness's, the RAG 1.0 searcher's and the native
+    build's modules are among those the import checks cover."""
+    mods = {m for m, _ in _port_modules()}
+    base = "triple_hybrid_rag_tpu_torch."
+    for name in ("eval", "harvest", "harness", "legacy", "native", "models.pretrain"):
+        assert base + name in mods, name
+
+
 def test_exports_cover_the_reference():
     """Each ``__all__`` of the reference (root, ``index``, ``ops``, ``models``) is
     a subset of the port's, and every exported name resolves; ``from

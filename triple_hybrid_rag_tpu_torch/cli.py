@@ -1,5 +1,5 @@
-"""``thr-torch`` command-line interface: ingest / query / stats / metrics / migrate /
-serve, on the card.
+"""``thr-torch`` command-line interface: ingest / query / stats / metrics / eval /
+migrate / serve, on the card.
 
 The port of the JAX package's ``cli.py``, with its arguments, output and exit codes::
 
@@ -8,11 +8,12 @@ The port of the JAX package's ``cli.py``, with its arguments, output and exit co
     thr-torch query --interactive --index ./index   # REPL
     thr-torch stats --index ./index
     thr-torch serve --port 8400 --index ./index     # HTTP server (--engine: micro-batched)
+    thr-torch eval [--stdlib] [--json]              # retrieval-quality ladder
 
 (``python -m triple_hybrid_rag_tpu_torch ...`` is the same.) Every subcommand that
-builds a RAG runs it on the card; ``--device cpu`` runs the plain PyTorch path on
-the CPU instead. ``bench``, ``eval`` and ``train-encoder`` drive modules that are
-not ported yet: they exit 2 and say so.
+builds a RAG or a retriever runs it on the card; ``--device cpu`` runs the plain
+PyTorch path on the CPU instead. ``bench`` and ``train-encoder`` drive modules that
+are not ported yet: they exit 2 and say so.
 """
 
 from __future__ import annotations
@@ -166,9 +167,36 @@ def cmd_metrics(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_eval(args: argparse.Namespace) -> int:
+    """Quality ladder over the five BASELINE configs; ``--stdlib`` switches to the
+    independent inverse-cloze corpus of docstrings (``--sources``: the standard
+    library and/or installed package names)."""
+    if args.stdlib:
+        from .eval import evaluate_stdlib
+
+        sources = tuple(s.strip() for s in args.sources.split(",") if s.strip())
+        results = evaluate_stdlib(
+            k=args.k, n_docs=args.stdlib_docs, sources=sources, device=args.device
+        )
+    else:
+        from .eval import evaluate_baseline_configs
+
+        results = evaluate_baseline_configs(
+            k=args.k, distractors=args.distractors, hard_negatives=args.hard_negatives,
+            device=args.device,
+        )
+    if args.json:
+        print(json.dumps(results))
+        return 0
+    for name, m in results.items():
+        print(f"{name}: recall@{args.k}={m[f'recall@{args.k}']:.3f} "
+              f"ndcg@{args.k}={m[f'ndcg@{args.k}']:.3f} mrr={m['mrr']:.3f}")
+    return 0
+
+
 def cmd_not_ported(args: argparse.Namespace) -> int:
-    """``bench``, ``eval`` and ``train-encoder``: their modules (the TPU's
-    ``bench.py``, ``eval.py``, ``models/training.py``) are not ported yet."""
+    """``bench`` and ``train-encoder``: their modules (the TPU's ``bench.py`` and
+    ``models/training.py``) are not ported yet."""
     print(f"thr-torch {args.command}: not ported yet (ROADMAP.md, Queue 1)", file=sys.stderr)
     return 2
 
@@ -284,7 +312,7 @@ def main(argv=None) -> int:
     p.add_argument("--n", type=int, default=None, help="corpus size")
     p.set_defaults(fn=cmd_not_ported)
 
-    p = sub.add_parser("eval", help="retrieval-quality ladder (not ported yet)")
+    p = sub.add_parser("eval", help="retrieval-quality ladder")
     p.add_argument("--k", type=int, default=10)
     p.add_argument("--distractors", type=int, default=30)
     p.add_argument("--hard-negatives", type=int, default=0,
@@ -296,7 +324,8 @@ def main(argv=None) -> int:
                    help="comma list of docstring corpora for --stdlib: stdlib "
                         "and/or installed package names (numpy,jax,torch,...)")
     p.add_argument("--json", action="store_true")
-    p.set_defaults(fn=cmd_not_ported)
+    _add_device(p)
+    p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser(
         "migrate", help="backfill/migrate a checkpoint (new dims/dtype, --reembed)"

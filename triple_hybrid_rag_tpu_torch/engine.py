@@ -140,6 +140,18 @@ class Engine:
         # (not under a host rerank_fn: parallel/engine.py:430)
         self.dot_rerank = dot_rerank
 
+    @classmethod
+    def from_retriever(cls, retriever) -> "Engine":
+        """The engine over a :class:`~triple_hybrid_rag_tpu_torch.retrieval.Retriever`'s
+        placed state, with its embedder and planner, on its device (the reference's
+        ``ShardedEngine(retriever)`` at one device). It reranks by the parents' mean
+        embeddings where the retriever's reranker holds them."""
+        return cls(
+            retriever.state, embedder=retriever.embedder, planner=retriever.planner,
+            device=retriever.device,
+            dot_rerank=getattr(retriever.reranker, "parent_embeddings", None) is not None,
+        )
+
     def refresh(self, state: IndexState) -> bool:
         """Swap in an updated index state when every static statistic the program
         depends on is unchanged (capacity, windows, graph mode and entity capacity,

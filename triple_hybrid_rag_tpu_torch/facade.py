@@ -149,11 +149,7 @@ class RAG:
     def _get_engine(self) -> Engine:
         retriever = self.retriever  # may drop self._engine via the rebuild
         if self._engine is None:
-            self._engine = Engine(
-                retriever.state, embedder=retriever.embedder, planner=retriever.planner,
-                device=self.device,
-                dot_rerank=getattr(retriever.reranker, "parent_embeddings", None) is not None,
-            )
+            self._engine = Engine.from_retriever(retriever)
         return self._engine
 
     # ------------------------------------------------------------------

@@ -17,6 +17,8 @@ The staged retriever's semantic channel (:func:`semantic_scores`,
 :func:`semantic_search`, the ports of ``DenseIndex.score`` / ``search``) scans the
 rows of the placed :class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState`,
 the engine's own copy: bf16 and f32 rows through the dense-scores kernel on CUDA.
+:meth:`DenseIndex.score` and :meth:`DenseIndex.search` run the same functions over
+the index's own rows.
 """
 
 from __future__ import annotations
@@ -118,6 +120,39 @@ class DenseIndex:
     dim: int
     config: RAGConfig
     scales: Optional[torch.Tensor] = None  # f32[n_pad] (int8 / int4 only)
+
+    # the names of IndexState's that the staged semantic channel reads
+    ivf_mode = False
+
+    @property
+    def dense_scales(self) -> Optional[torch.Tensor]:
+        return self.scales
+
+    @property
+    def is_int4(self) -> bool:
+        """Packed-nibble rows (u8[n_pad, D/2] with per-row scales)."""
+        return self.embeddings.dtype == torch.uint8
+
+    def score(self, query_vec) -> torch.Tensor:
+        """Cosine scores f32[n_pad] of one unit query vector (numpy or a tensor)
+        against every row: bf16 and f32 rows through the dense-scores kernel on
+        CUDA, int8 and packed int4 through the exact integer scores."""
+        return semantic_scores(self, self._query(query_vec))
+
+    def search(
+        self, query_vec, top_k: Optional[int] = None, row_mask: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The semantic channel: (ids i64[k], scores f32[k]) of the exact top-k over
+        the occupied rows, ``row_mask`` bool[n_pad] scoping them; scores <= -2 never
+        surface, so a negative cosine still can."""
+        mask = None if row_mask is None else torch.as_tensor(row_mask, device=self.valid.device)
+        return semantic_search(self, self._query(query_vec), top_k, mask)
+
+    def _query(self, query_vec) -> torch.Tensor:
+        dev = self.embeddings.device
+        if torch.is_tensor(query_vec):
+            return query_vec.to(dev)
+        return torch.as_tensor(np.asarray(query_vec, np.float32), device=dev)
 
     def append(self, vectors: np.ndarray) -> "DenseIndex":
         """Write new rows into spare capacity (the reference's in-place update);

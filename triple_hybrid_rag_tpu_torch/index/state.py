@@ -27,8 +27,9 @@ import torch
 from ..analyzer import Vocabulary
 from ..config import RAGConfig
 from ..models.entity_extractor import EntityStore
-from ..ops.bm25 import DOC_PAD, QUERY_PAD
+from ..ops.bm25 import DOC_PAD
 from ..types import Entity
+from .bm25_index import encode_query, encode_query_tiered
 from .ivf import ivf_build_local
 
 
@@ -378,46 +379,16 @@ class IndexState:
 
     def encode_query(self, keywords: Sequence[str]) -> np.ndarray:
         """Keywords -> padded i32[max_query_terms] term ids (OOV / pad = -1)."""
-        q = self.config.max_query_terms
-        ids: List[int] = []
-        seen: set = set()
-        for kw in keywords:
-            tid = self.vocab.get(kw)
-            if tid >= 0 and tid not in seen:
-                seen.add(tid)
-                ids.append(tid)
-            if len(ids) >= q:
-                break
-        out = np.full((q,), QUERY_PAD, dtype=np.int32)
-        out[: len(ids)] = ids
-        return out
+        return encode_query(self.vocab, keywords, self.config.max_query_terms)
 
     def encode_query_tiered(
         self, keywords: Sequence[str]
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        """(small_terms, small_slots, large_terms, large_slots): terms with stored df
-        <= bm25_small_window go to the small tier; the large tier keeps the
-        bm25_large_slots rarest (by idf). Slots are the original query positions."""
-        qt = self.encode_query(keywords)
-        cfg = self.config
-        small, large = [], []
-        for slot, t in enumerate(qt):
-            if t < 0:
-                continue
-            (small if self.stored_df[t] <= cfg.bm25_small_window else large).append((int(t), slot))
-        large.sort(key=lambda ts: -float(self.idf[ts[0]]))
-        large = large[: cfg.bm25_large_slots]
-
-        def pad(pairs, cap):
-            terms = np.full((cap,), -1, np.int32)
-            slots = np.zeros((cap,), np.int32)
-            for i, (t, s) in enumerate(pairs[:cap]):
-                terms[i], slots[i] = t, s
-            return terms, slots
-
-        st, ss = pad(small, cfg.max_query_terms)
-        lt, ls = pad(large, cfg.bm25_large_slots)
-        return st, ss, lt, ls
+        """(small_terms, small_slots, large_terms, large_slots) of the df-tiered
+        sorted path (``bm25_index.encode_query_tiered``)."""
+        return encode_query_tiered(
+            self.encode_query(keywords), self.stored_df, self.idf, self.config
+        )
 
     def seed_lookup(self, name: str, limit: int = 3) -> List[Entity]:
         """Entity lookup minus the seed stoplist (``graph_index.seed_lookup``)."""

@@ -1,11 +1,14 @@
-"""The packaged query encoder: its concept lexicon and its loader.
+"""The packaged query encoder: its concept lexicon, its loader, the real-text pool.
 
 A subset of the JAX package's ``models/pretrain.py``: :data:`CONCEPTS` (verbatim; the
 encoder's identity anchors take their synonym keys from it, so the copy must stay
-equal to the reference's), :data:`DEFAULT_PARAMS` and :func:`load_default_encoder`.
-The weights are the reference's own ``models/data/encoder.npz``, read with numpy
-from its place in the checkout; the port ships no copy of them. Training and the
-corpus generators are not ported (ROADMAP.md, Queue 1: training).
+equal to the reference's), :data:`DEFAULT_PARAMS` and :func:`load_default_encoder`,
+and the real-text harvest (:data:`TRAIN_TEXT_SOURCES`,
+:data:`TRAIN_TEXT_SOURCES_DEEP`, :func:`realtext_documents`,
+:func:`realtext_documents_deep`), which the corpus-scale evals exclude from their
+documents. The weights are the reference's own ``models/data/encoder.npz``, read
+with numpy from its place in the checkout; the port ships no copy of them. Training
+and the pair generators are not ported (ROADMAP.md, Queue 1: training).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import json
 import zipfile
 import zlib
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -201,3 +204,63 @@ def load_default_encoder(rag_cfg: Optional[RAGConfig] = None, path=None, device=
     )
     _ENCODER_CACHE[cache_key] = emb
     return emb
+
+
+#: Installed packages whose docstrings form the real-text training corpus. Chosen
+#: disjoint from every quality-evaluation source (``eval._PACKAGE_SOURCES`` plus
+#: "stdlib"), so the independent evals stay independent: the encoder never sees an
+#: eval-corpus sentence in training, only same-register prose by other authors.
+#: (Not included: the stdlib, an eval source; PIL, whose import prints.)
+TRAIN_TEXT_SOURCES = (
+    "sklearn", "matplotlib", "sympy", "networkx", "requests", "urllib3",
+    "flax", "optax", "setuptools", "jinja2", "yaml",
+    "pygments", "click", "attrs", "dateutil", "psutil", "rich", "tornado",
+    "IPython", "lxml", "bs4", "cryptography", "absl", "toolz", "fsspec",
+    "tqdm", "jsonschema", "cloudpickle",
+)
+
+#: The deep-harvest training pool: the import list above plus large packages
+#: harvested by parsing their source files (``eval._ast_documents``, full depth).
+#: Still disjoint from every eval source, and ``make_bigcorpus_eval`` excludes
+#: everything here by directory and by content.
+TRAIN_TEXT_SOURCES_DEEP = TRAIN_TEXT_SOURCES + (
+    "google", "tensorflow", "tf_keras", "keras", "nltk", "OpenGL", "PIL",
+    "pygame", "mujoco", "mpmath", "huggingface_hub", "libcst", "tensorboard",
+    "more_itertools", "babel", "prompt_toolkit", "pyparsing", "hypothesis",
+    "werkzeug", "oauthlib",
+)
+
+_REALTEXT_CACHE: Dict[tuple, List[str]] = {}
+
+
+def realtext_documents(
+    max_docs: int = 6000, sources: Sequence[str] = TRAIN_TEXT_SOURCES
+) -> List[str]:
+    """Harvested real-prose training documents (cached per argument set). The
+    packages are imported in a child process (``eval._stdlib_documents``)."""
+    key = (max_docs, tuple(sources))
+    if key not in _REALTEXT_CACHE:
+        from ..eval import _stdlib_documents
+
+        _REALTEXT_CACHE[key] = [
+            t for _, t in _stdlib_documents(max_docs=max_docs, sources=sources)
+        ]
+    return _REALTEXT_CACHE[key]
+
+
+def realtext_documents_deep(
+    max_docs: int = 40000,
+    sources: Sequence[str] = TRAIN_TEXT_SOURCES_DEEP,
+    min_len: int = 300,
+) -> List[str]:
+    """The deep training pool: full-depth AST harvest over the training packages'
+    source trees (no imports, no side effects). Cached per argument set."""
+    key = ("deep", max_docs, tuple(sources), min_len)
+    if key not in _REALTEXT_CACHE:
+        from ..eval import _ast_documents
+
+        self_docs = _ast_documents(
+            min_len=min_len, max_docs=max_docs, include_top=sources
+        )
+        _REALTEXT_CACHE[key] = [t for _, t in self_docs]
+    return _REALTEXT_CACHE[key]

@@ -53,6 +53,7 @@ def _launch_dense_scores(embeddings, query_vecs):
     )
     check(err, fn)
     dense_scores.launches += 1
+    dense_scores.launches_by_rows["bf16" if emb.dtype == torch.bfloat16 else "f32"] += 1
     return out
 
 
@@ -70,3 +71,4 @@ def dense_scores(
 
 
 dense_scores.launches = 0  # kernel launches (CUDA tensors only)
+dense_scores.launches_by_rows = {"bf16": 0, "f32": 0}  # the same, by row dtype
