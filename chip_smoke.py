@@ -128,13 +128,33 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    RAG 1.0 ``HybridSearcher`` over phase 6's corpus on the card (one dense-scores
    launch per query) against the host CPU's; (i) ``python -m
    triple_hybrid_rag_tpu_torch eval --json`` in a new process with (a)'s metrics.
+11. encoder training, the visual aligner and constrained decoding: (a) the shipped
+   npz at the scaled config (43M parameters) warm-started on the card and on the
+   host CPU, three steps of ``make_train_step`` on the same ``make_mixed_pairs``
+   batches: step 0 (lr 0) leaves the weights bit-equal, the losses agree within
+   ``STEP0_RTOL`` and then ``LATER_RTOL``; (b) ``train_default_encoder`` at the
+   scaled config, warm-started, ``TRAIN_STEPS`` steps of B = 128 over this host's
+   real-text harvest: ms/step on the wall, the host's batch building and the
+   device's span per step, peak memory, the losses; then five steps on prepared
+   batches under the profiler (device busy, kernels a step); (c) ``python -m
+   triple_hybrid_rag_tpu_torch train-encoder`` cold at the default configuration in
+   a new process: its last 50 steps' mean loss at most 0.8 of its first 50's, its
+   file in the packaged scheme and loadable, its paraphrase recall; (d) the default
+   RAGConfig serving (b)'s file: the paraphrase holdout through ``query_batch`` (the
+   bf16 bucket maxima and MaxSim launched), recall@10, and the shipped and the
+   fine-tuned weights' ``paraphrase_recall_at_k``; (e) ``train_visual_aligner`` at
+   its default config on 256 stdlib docstrings x 2 renders against the packaged
+   encoder, image->text top-1 on held-out renders, the weights saved and loaded,
+   ``embed_images`` through the aligner rung; (f) constrained decoding over a random
+   byte-level causal LM on the card, 20 of 20 outputs valid JSON.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
 over phase 7, ``serve_launches`` over phase 8's served requests,
 ``formats_launches`` and ``http_launches`` over phase 9's queries,
 ``eval_launches`` over phase 10(a)-(f) (``eval_f32_launches``: of them, the f32-row
-body's) and ``legacy_launches`` over phase 10(g), and per further path), error and
+body's), ``legacy_launches`` over phase 10(g) and ``train_launches`` over phase
+11(d), and per further path), error and
 times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
@@ -3498,6 +3518,416 @@ def eval_path(dev, card, ctx):
     return evals, legacy
 
 
+# ---------------------------------------------------------------- phase 11
+
+TRAIN_STEPS = 200  # (b): the shipped encoder's warm-started fine-tune
+TRAIN_LR = 2e-4  # a low-LR fine-tune, the reference's warm-start recipe (docs/STATUS.md)
+CHECK_BATCH = 64  # (a): pairs per batch, card against host
+CHECK_STEPS = 3
+# (a) step 0: the same weights in f32 on both, f32 sums in another order
+STEP0_RTOL = 1e-4
+# (a) later steps: after one or two Adam steps of 1e-5 and 2e-5, in which a
+# gradient entry near zero may take either sign on the two devices
+LATER_RTOL = 1e-3
+CLI_STEPS = 300
+CLI_BAR = 0.8  # the reference's test_training_step_learns bar
+N_ALIGNER_TEXTS = 256  # (e): stdlib docstrings x 2 renders
+N_ALIGNER_HELDOUT = 64
+ALIGNER_STEPS = 200
+N_JSON = 20  # (f): constrained outputs that must parse
+
+
+def train_batches(cfg, n: int, batch: int, seed: int):
+    """``n`` batches of ``make_mixed_pairs`` (the recipe's mixture over this host's
+    real-text harvest) hashed at 32 tokens a side, anchors in f16: numpy arrays."""
+    from triple_hybrid_rag_tpu_torch.config import get_settings
+    from triple_hybrid_rag_tpu_torch.models.encoder import TextHasher, anchor_arrays
+    from triple_hybrid_rag_tpu_torch.models.pretrain import make_mixed_pairs, realtext_documents
+
+    docs = realtext_documents()
+    hasher = TextHasher(cfg, get_settings())
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        pairs = make_mixed_pairs(batch, rng, overlap_frac=0.3, realtext_frac=0.35, realtext_docs=docs)
+        arrs = []
+        for texts in ([q for q, _ in pairs], [d for _, d in pairs]):
+            ids, mask = hasher.encode(texts, max_tokens=32)
+            ap, at = anchor_arrays(texts, cfg, hasher.analyzer, max_tokens=32)
+            arrs += [ids, mask, ap.astype(np.float16), at.astype(np.float16)]
+        out.append(arrs)
+    return out, len(docs)
+
+
+def train_config(steps: int, lr: float, cfg):
+    """``train_default_encoder``'s TrainConfig for ``steps`` steps."""
+    from triple_hybrid_rag_tpu_torch.models.training import TrainConfig
+
+    return TrainConfig(learning_rate=lr, warmup_steps=max(20, steps // 20), decay_steps=max(steps, 100),
+                       matryoshka_dims=(cfg.out_dim, cfg.out_dim // 2, cfg.out_dim // 4),
+                       maxsim_weight=0.25)
+
+
+def train_card_host(dev, card):
+    """Phase 11(a): the shipped npz at the scaled config, warm-started on the card
+    and on the host CPU, ``CHECK_STEPS`` steps of ``make_train_step`` on the same
+    batches: step 0 (lr 0) leaves the weights bit-equal and its loss agrees within
+    STEP0_RTOL, the later losses within LATER_RTOL."""
+    from triple_hybrid_rag_tpu_torch.models.pretrain import (
+        DEFAULT_PARAMS, load_encoder_weights_, scaled_encoder_config)
+    from triple_hybrid_rag_tpu_torch.models.training import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(scaled_encoder_config(), dtype="float32")
+    tc = train_config(TRAIN_STEPS, TRAIN_LR, cfg)
+    data, n_docs = train_batches(cfg, CHECK_STEPS, CHECK_BATCH, seed=7)
+    losses, params = {}, {}
+    for where in (dev, "cpu"):
+        model, state = create_train_state(cfg, tc, device=where)
+        load_encoder_weights_(model, DEFAULT_PARAMS)
+        start = {k: p.detach().clone() for k, p in model.named_parameters()}
+        step = make_train_step(model, tc)
+        losses[str(where)] = []
+        t0 = time.time()
+        for i, arrs in enumerate(data):
+            state, m = step(state, *[torch.from_numpy(a).to(where) for a in arrs])
+            losses[str(where)].append((float(m["loss"]), float(m["accuracy"])))
+            if i == 0 and any(not torch.equal(p, start[k]) for k, p in model.named_parameters()):
+                fail(f"phase 11(a) on {where}: step 0 (lr 0) changed the weights")
+        log(f"phase 11(a) on {where}: {CHECK_STEPS} steps of B = {CHECK_BATCH} in "
+            f"{time.time() - t0:.2f} s; (loss, accuracy) {losses[str(where)]}")
+        params[str(where)] = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    got, want = losses[str(dev)], losses["cpu"]
+    rel = [abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want)]
+    drift = max(float((params[str(dev)][k] - params["cpu"][k]).abs().max()) for k in params["cpu"])
+    log(f"phase 11(a): card against host CPU, relative loss gaps {[f'{r:.3g}' for r in rel]} "
+        f"(limits {STEP0_RTOL} at step 0, {LATER_RTOL} after), largest weight gap after "
+        f"{CHECK_STEPS} steps {drift:.3g}; {n_docs} harvested documents; card {card}")
+    if rel[0] > STEP0_RTOL or max(rel[1:]) > LATER_RTOL:
+        fail(f"phase 11(a): the card's losses {got} differ from the host's {want}")
+
+
+def train_throughput(dev, card, tmp):
+    """Phase 11(b): ``train_default_encoder`` at the scaled config warm-started from
+    the shipped npz for TRAIN_STEPS steps at B = 128 on the card: ms/step on the
+    wall, the host's batch building and the device's span per step, peak memory,
+    first and last losses. Returns the saved path."""
+    from triple_hybrid_rag_tpu_torch.models.pretrain import (
+        DEFAULT_PARAMS, scaled_encoder_config, train_default_encoder)
+
+    stats: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    path, metrics = train_default_encoder(
+        f"{tmp}/finetuned.npz", steps=TRAIN_STEPS, enc_cfg=scaled_encoder_config(), lr=TRAIN_LR,
+        init_params_path=DEFAULT_PARAMS, log_every=0, device=dev, stats=stats)
+    wall = time.time() - t0
+    skip = min(10, TRAIN_STEPS // 4)  # the first steps warm the allocator and the libraries up
+    step_ms = np.diff(stats["t"][skip:]) * 1e3
+    host = np.array(stats["host_s"][skip:]) * 1e3
+    device = np.array(stats["device_ms"][skip:])
+    loss, acc = stats["loss"], stats["accuracy"]
+    log(f"phase 11(b): {TRAIN_STEPS} steps of B = 128 at the scaled config (43M parameters, "
+        f"warm-started, lr {TRAIN_LR}) in {wall:.1f} s with the start and the saves; per step "
+        f"(median after {skip}) wall {np.median(step_ms):.2f} ms, host batch building "
+        f"{np.median(host):.2f} ms ({100 * np.median(host) / np.median(step_ms):.1f} % of the wall), "
+        f"device span {np.median(device):.2f} ms (mean {device.mean():.2f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; loss {loss[0]:.4f} -> {loss[-1]:.4f}, "
+        f"accuracy {acc[0]:.3f} -> {acc[-1]:.3f}; card {card}")
+    first, last = float(np.mean(loss[:50])), float(np.mean(loss[-50:]))
+    log(f"phase 11(b): mean loss of the first 50 steps {first:.4f}, of the last 50 {last:.4f}")
+    if not np.isfinite(loss).all() or last > 2 * first:
+        fail(f"phase 11(b): the fine-tune diverged: {first} -> {last}")
+    return path
+
+
+def train_profile(dev, card, steps: int = 5) -> None:
+    """Phase 11(b), second part: ``steps`` steps of ``make_train_step`` at the scaled
+    config and B = 128 on batches built beforehand, under torch.profiler: the
+    step's wall without the host's batch building, the device's busy time (the
+    kernels' own times) and the kernels a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from triple_hybrid_rag_tpu_torch.models.pretrain import scaled_encoder_config
+    from triple_hybrid_rag_tpu_torch.models.training import create_train_state, make_train_step
+
+    cfg = dataclasses.replace(scaled_encoder_config(), dtype="float32")
+    tc = train_config(TRAIN_STEPS, TRAIN_LR, cfg)
+    model, state = create_train_state(cfg, tc, device=dev)
+    step = make_train_step(model, tc)
+    data, _ = train_batches(cfg, steps + 1, 128, seed=11)
+    batches = [[torch.from_numpy(a).to(dev) for a in arrs] for arrs in data]
+    state, _ = step(state, *batches[0])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1:]:
+            state, _ = step(state, *b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(device_self_ms(e) for e in kernels) / steps
+    launches = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=device_self_ms, reverse=True)[:5]
+    log(f"phase 11(b) profile: {steps} steps of B = 128 on prepared batches: wall {wall:.2f} ms/step "
+        f"(profiler on), device busy {busy:.2f} ms/step ({100 * busy / wall:.1f} % of the wall, "
+        f"idle {100 * max(0.0, 1 - busy / wall):.1f} %), {launches:.0f} kernels a step; longest: "
+        + "; ".join(f"{device_self_ms(e) / steps:.2f} ms x{e.count // steps} {e.key[:60]}" for e in top)
+        + f"; card {card}")
+
+
+def train_cli(card, tmp, device):
+    """Phase 11(c): ``python -m triple_hybrid_rag_tpu_torch train-encoder --steps
+    CLI_STEPS`` cold at the default configuration in a new process on the card; the
+    mean loss of its last 50 steps at most CLI_BAR of its first 50's; the file in
+    ``save_packaged_encoder``'s scheme, loadable. Returns its recall line."""
+    import os
+    import re
+
+    from triple_hybrid_rag_tpu_torch.models.encoder import encoder_params_to_flax, init_encoder
+    from triple_hybrid_rag_tpu_torch.models.pretrain import default_encoder_config, load_default_encoder
+
+    out = f"{tmp}/cli_encoder.npz"
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "triple_hybrid_rag_tpu_torch", "train-encoder", "--steps",
+         str(CLI_STEPS), "--out", out, "--log-every", "1", "--device", str(device)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if res.returncode != 0:
+        fail(f"thr-torch train-encoder exited {res.returncode}: {res.stderr[-2000:]}")
+    losses = [float(x) for x in re.findall(r"^step \d+: loss=([0-9.]+)", res.stdout, re.M)]
+    recall = [x for x in res.stdout.splitlines() if "paraphrase recall" in x]
+    first, last = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+    log(f"phase 11(c): thr-torch train-encoder --steps {CLI_STEPS} in {wall:.1f} s (a new process: "
+        f"start, harvest, training, save, recall) on the card; mean loss {first:.4f} over the first "
+        f"50 steps, {last:.4f} over the last 50 ({last / first:.3f}, limit {CLI_BAR}); "
+        f"{recall[-1] if recall else 'no recall line'}; card {card}")
+    if len(losses) != CLI_STEPS or not recall or last > CLI_BAR * first:
+        fail(f"phase 11(c): the CLI did not learn or report: {res.stdout[-2000:]}")
+    cfg = default_encoder_config()
+    want = encoder_params_to_flax(init_encoder(cfg, device="cpu").state_dict(), cfg.n_heads)
+    with np.load(out) as npz:
+        meta = json.loads(bytes(npz["__meta__"]).decode())
+        names = [k for k in npz.files if k != "__meta__"]
+        bad = [k for k in names if k not in want or npz[k].shape != want[k].shape
+               or npz[k].dtype != np.float16]
+    if (sorted(names) != sorted(want) or bad or meta["encoder_config"] != dataclasses.asdict(cfg)
+            or meta["format"] != 1 or set(meta["metrics"]) != {"loss", "accuracy"}):
+        fail(f"phase 11(c): the CLI's file is not in the packaged scheme: {bad} {meta}")
+    if load_default_encoder(path=out, device=device) is None:
+        fail("phase 11(c): load_default_encoder could not read the CLI's file")
+    return recall[-1]
+
+
+def serve_trained(dev, card, path):
+    """Phase 11(d): the default RAGConfig with ``encoder_params_path`` = (b)'s file
+    on the card: the paraphrase holdout's 64 documents ingested, its 64 queries
+    through ``query_batch``; recall@10, and ``paraphrase_recall_at_k`` of the
+    shipped and the fine-tuned weights. Returns the launches."""
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+    from triple_hybrid_rag_tpu_torch.models.pretrain import (
+        load_default_encoder, make_paraphrase_holdout, paraphrase_recall_at_k)
+
+    docs, queries, rel = make_paraphrase_holdout()
+    cfg = RAGConfig().replace(encoder_params_path=str(path))
+    rag = RAG(cfg, device=dev)
+    for i, d in enumerate(docs):
+        rag.ingest_text(d, name=f"holdout_{i}.md")
+    inner = getattr(rag.ingestor.embedder, "inner", rag.ingestor.embedder)
+    if type(inner).__name__ != "EncoderEmbedder" or inner.enc_cfg.d_model != 512:
+        fail(f"phase 11(d): the RAG embeds with {type(inner).__name__}, not the fine-tuned encoder")
+    t0 = time.time()
+    results, launches = counted(lambda: rag.query_batch(queries, top_k=10))
+    ms = (time.time() - t0) * 1e3
+    hits = sum(any(docs[rel[i]] in x.text for x in r.results[:10]) for i, r in enumerate(results))
+    refused = sum(bool(r.refused) for r in results)
+    shipped = paraphrase_recall_at_k(load_default_encoder(cfg.replace(encoder_params_path=None), device=dev))
+    tuned = paraphrase_recall_at_k(load_default_encoder(cfg, device=dev))
+    log(f"phase 11(d): the fine-tuned checkpoint served by the default RAGConfig: recall@10 "
+        f"{hits / len(queries):.4f} over {len(queries)} paraphrase queries through query_batch "
+        f"({refused} refused by the 0.6 gate; {ms:.1f} ms for the batch); dense-only "
+        f"paraphrase_recall_at_k(10): shipped {shipped:.4f}, fine-tuned {tuned:.4f}; launches "
+        f"{launches['fused_bucket_maxima']} bf16 bucket maxima, {launches['maxsim_scores']} "
+        f"MaxSim bf16; card {card}")
+    if launches["fused_bucket_maxima"] < 1 or launches["maxsim_scores"] < 1:
+        fail(f"phase 11(d): the trained checkpoint was not served through both kernels: {launches}")
+    return launches
+
+
+def noise_png(seed: int) -> bytes:
+    """A random RGB image with no text: the OCR ladder finds none."""
+    from PIL import Image
+    import io
+
+    arr = np.random.default_rng(seed).integers(0, 255, (40, 56, 3)).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def aligner_path(dev, card, tmp):
+    """Phase 11(e): ``train_visual_aligner`` at its default config against the
+    packaged encoder's text vectors, on N_ALIGNER_TEXTS stdlib docstrings x 2
+    renders for ALIGNER_STEPS steps; image->text top-1 on held-out renders; save
+    and load; the encoder's ``embed_images`` through the aligner rung."""
+    from triple_hybrid_rag_tpu_torch.models import embedder as emb_mod
+    from triple_hybrid_rag_tpu_torch.models import visual_align as va
+    from triple_hybrid_rag_tpu_torch.models.pretrain import load_default_encoder
+
+    _, defs = stdlib_docstrings()
+    texts = [t for _, t in defs if len(t.split()) >= 6]
+    pick = np.linspace(0, len(texts) - 1, N_ALIGNER_TEXTS + N_ALIGNER_HELDOUT).astype(int)
+    chosen = [texts[i] for i in pick]
+    train, held = chosen[:N_ALIGNER_TEXTS], chosen[N_ALIGNER_TEXTS:]
+    enc = load_default_encoder(device=dev)
+    marks = {}
+
+    def note(msg: str) -> None:
+        marks.setdefault("pairs" if msg.startswith("training pairs") else "other", time.time())
+
+    t0 = time.time()
+    params, cfg = va.train_visual_aligner(train, enc, steps=ALIGNER_STEPS, batch=64, seed=0,
+                                          log=note, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    render_s = marks["pairs"] - t0
+    step_ms = (t1 - marks["pairs"]) / ALIGNER_STEPS * 1e3
+    va_emb = va.VisualAlignEmbedder(params, cfg, device=dev)
+    rng = np.random.default_rng(123)
+    top1 = {}
+    for name, group in (("held-out texts", held), ("fresh renders of training texts", train[:N_ALIGNER_HELDOUT])):
+        grids = [va.render_training_pair(t, rng, cfg.image_size) for t in group]
+        keep = [i for i, g in enumerate(grids) if g is not None]
+        iv = va_emb.embed_grids(np.stack([grids[i] for i in keep]))
+        tv = np.asarray(enc.embed_texts([group[i] for i in keep]), np.float32)
+        tv /= np.maximum(np.linalg.norm(tv, axis=1, keepdims=True), 1e-9)
+        top1[name] = (float(np.mean(np.argmax(iv @ tv.T, axis=1) == np.arange(len(keep)))), len(keep))
+    log(f"phase 11(e): the visual aligner (96 px, patch 8, d 256, 4 layers, B = 64) on "
+        f"{len(train)} docstrings x 2 renders: rendering and text vectors {render_s:.1f} s, "
+        f"{ALIGNER_STEPS} steps at {step_ms:.2f} ms/step on the wall; image->text top-1 "
+        + ", ".join(f"{k} {v:.4f} of {n} (chance {1 / n:.4f})" for k, (v, n) in top1.items())
+        + f"; card {card}")
+    if not all(np.isfinite(v) for v, _ in top1.values()):
+        fail("phase 11(e): the aligner's vectors are not finite")
+    weights = f"{tmp}/visual_aligner.npz"
+    va.save_aligner(params, cfg, weights)
+    loaded, lcfg = va.load_aligner(weights)
+    if lcfg != cfg or any(not torch.equal(loaded[k], params[k].cpu()) for k in params):
+        fail("phase 11(e): the aligner's weights did not load back bit for bit")
+    old = va.DEFAULT_ALIGNER_PATH
+    va.DEFAULT_ALIGNER_PATH = weights
+    emb_mod._ImageHashMixin._aligner_cache.clear()
+    try:
+        photos = [noise_png(s) for s in range(4)]
+        got = enc.embed_images(photos)
+        want = np.stack([va_emb.embed_image_bytes(p) for p in photos])
+        percept = np.stack([enc._visual_image_vec(p) for p in photos])
+    finally:
+        va.DEFAULT_ALIGNER_PATH = old
+        emb_mod._ImageHashMixin._aligner_cache.clear()
+    gap, other = float(np.abs(got - want).max()), float(np.abs(got - percept).min(axis=1).max())
+    log(f"phase 11(e): EncoderEmbedder.embed_images of 4 text-free images through the aligner "
+        f"rung: largest gap to VisualAlignEmbedder {gap:.3g}; weights saved and loaded bit for bit")
+    if gap > 1e-5 or np.allclose(got, percept):
+        fail("phase 11(e): embed_images did not take the aligner rung")
+
+
+class TinyLM(torch.nn.Module):
+    """A randomly initialised byte-level causal transformer (2 layers, width 64)."""
+
+    def __init__(self, d: int = 64, layers: int = 2, heads: int = 4, ctx: int = 512) -> None:
+        super().__init__()
+        self.ctx = ctx
+        self.emb = torch.nn.Embedding(256, d)
+        self.pos = torch.nn.Embedding(ctx, d)
+        self.layers = torch.nn.ModuleList(
+            torch.nn.TransformerEncoderLayer(d, heads, 4 * d, dropout=0.0, batch_first=True)
+            for _ in range(layers))
+        self.head = torch.nn.Linear(d, 256)
+
+    @torch.no_grad()
+    def logprobs(self, ids) -> np.ndarray:
+        dev = self.head.weight.device
+        ids = torch.tensor([list(ids)[-(self.ctx - 1):] or [0]], device=dev)
+        t = ids.shape[1]
+        x = self.emb(ids) + self.pos(torch.arange(t, device=dev))
+        mask = torch.nn.Transformer.generate_square_subsequent_mask(t, device=dev)
+        for layer in self.layers:
+            x = layer(x, src_mask=mask, is_causal=True)
+        return torch.log_softmax(self.head(x[0, -1]).float(), dim=-1).cpu().numpy()
+
+
+def constrained_path(dev, card):
+    """Phase 11(f): ``constrained_generate``, ``make_constrained_planner_fn`` and
+    ``make_choice_reranker_fn`` over TinyLM on the card: N_JSON outputs, each valid
+    JSON; plans and [0, 1] scores."""
+    from triple_hybrid_rag_tpu_torch.models.constrained import (
+        Choice, Lit, constrained_generate, make_choice_reranker_fn, make_constrained_planner_fn)
+
+    torch.manual_seed(0)
+    lm = TinyLM().to(dev).eval()
+    calls = [0]
+
+    def fn(ids):
+        calls[0] += 1
+        return lm.logprobs(ids)
+
+    entities = ["Acme Corp", "Beta Labs", "Zenith project", "Maria Silva"]
+    template = [Lit('{"op": "'), Choice(["neighborhood", "path", "related"], name="op"),
+                Lit('", "hops": '), Choice(["1", "2", "3"], name="hops"),
+                Lit(', "entity": "'), Choice(entities, name="entity"), Lit('"}')]
+    t0 = time.time()
+    valid = 0
+    for i in range(N_JSON):
+        text, chosen = constrained_generate(fn, template, prompt=f"query {i}: how is {entities[i % 4]} linked?\n")
+        try:
+            data = json.loads(text)
+            valid += data["op"] == chosen["op"] and data["entity"] == chosen["entity"]
+        except (ValueError, KeyError):
+            pass
+    planner = make_constrained_planner_fn(fn, entities)
+    plans = [planner(q) for q in ("How is Acme Corp connected to the Zenith project?",
+                                  "who is Maria Silva")]
+    scores = make_choice_reranker_fn(fn)("invoice terms", ["Acme Corp settles invoices in 30 days.",
+                                                           "Red foxes live in forests."])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    log(f"phase 11(f): constrained decoding over a random 2-layer byte LM on the card: {valid} of "
+        f"{N_JSON} outputs valid JSON; plans {plans}; rerank scores {[round(s, 4) for s in scores]}; "
+        f"{calls[0]} model calls in {wall:.2f} s ({wall / calls[0] * 1e3:.2f} ms each); card {card}")
+    if valid != N_JSON or not all("intent" in p for p in plans) or not all(0 <= s <= 1 for s in scores):
+        fail("phase 11(f): constrained decoding gave an invalid output")
+
+
+def training_path(dev, card):
+    """Phase 11: encoder training, the trained checkpoint served, the visual
+    aligner and constrained decoding, on the card. Returns the launches of (d)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        train_card_host(dev, card)
+        log(f"phase 11(a) wall time {time.time() - t0:.1f} s")
+        t0 = time.time()
+        path = train_throughput(dev, card, tmp)
+        train_profile(dev, card)
+        log(f"phase 11(b) wall time {time.time() - t0:.1f} s")
+        t0 = time.time()
+        train_cli(card, tmp, dev)
+        log(f"phase 11(c) wall time {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches = serve_trained(dev, card, path)
+        log(f"phase 11(d) wall time {time.time() - t0:.1f} s")
+        t0 = time.time()
+        aligner_path(dev, card, tmp)
+        log(f"phase 11(e) wall time {time.time() - t0:.1f} s")
+        t0 = time.time()
+        constrained_path(dev, card)
+        log(f"phase 11(f) wall time {time.time() - t0:.1f} s")
+    return launches
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -3643,6 +4073,9 @@ def main() -> int:
     del stdlib
     log(f"phase 10 wall time {time.time() - t_phase:.1f} s; eval launches {evals}, legacy "
         f"launches {legacy}")
+    t_phase = time.time()
+    trained = training_path(dev, card)
+    log(f"phase 11 wall time {time.time() - t_phase:.1f} s; trained-checkpoint launches {trained}")
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3657,6 +4090,7 @@ def main() -> int:
         k["http_launches"] = http_served.get(k["name"], 0)
         k["eval_launches"] = evals.get(k["name"], 0)
         k["legacy_launches"] = legacy.get(k["name"], 0)
+        k["train_launches"] = trained.get(k["name"], 0)
         if k["name"] in ("dense_scores", "fused_bucket_maxima"):  # of them, the f32 body's
             k["eval_f32_launches"] = evals.get(k["name"] + "_f32", 0)
     log(f"total wall time {time.time() - T_START:.1f} s")

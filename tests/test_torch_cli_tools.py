@@ -162,15 +162,25 @@ def test_cli_migrate_retruncate_and_reembed(cfg, docs_dir, tmp_path, capsys):
 
 
 def test_unported_subcommands_exit_2_without_jax(tmp_path):
-    code = """
+    """``bench`` still exits 2 and says so; ``train-encoder --device cpu`` at a tiny
+    configuration trains, saves the file where ``--out`` says and reports the
+    paraphrase recall, exit 0; the process never imports JAX."""
+    out_path = tmp_path / "enc.npz"
+    code = f"""
 import contextlib, io, json, sys
 from triple_hybrid_rag_tpu_torch.cli import main
-out = {}
-for argv in (["bench", "--n", "10"], ["train-encoder", "--steps", "1"]):
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        out[argv[0]] = [main(argv), err.getvalue()]
-out["bad"] = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "triple_hybrid_rag_tpu")]
+from triple_hybrid_rag_tpu_torch.models import encoder, pretrain
+pretrain.default_encoder_config = lambda: encoder.EncoderConfig(
+    vocab_buckets=512, d_model=32, n_layers=1, n_heads=2, d_mlp=64, max_tokens=16,
+    out_dim=32, token_dim=16)
+out = {{}}
+for argv in (["bench", "--n", "10"],
+             ["train-encoder", "--steps", "2", "--device", "cpu", "--batch-size", "8",
+              "--realtext-frac", "0", "--out", {str(out_path)!r}]):
+    err, std = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(std):
+        out[argv[0]] = [main(argv), err.getvalue(), std.getvalue()]
+out["bad"] = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "triple_hybrid_rag_tpu")]
 print(json.dumps(out))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -179,8 +189,14 @@ print(json.dumps(out))
     assert res.returncode == 0, res.stderr
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got.pop("bad") == []
-    for name, (rc, err) in got.items():
-        assert rc == 2 and "not ported yet (ROADMAP.md, Queue 1)" in err, name
+    rc, err, _ = got["bench"]
+    assert rc == 2 and "not ported yet (ROADMAP.md, Queue 1)" in err
+    rc, err, std = got["train-encoder"]
+    assert rc == 0, err
+    assert f"saved {out_path}" in std and "held-out paraphrase recall@10 (dense-only): " in std
+    with np.load(out_path) as npz:
+        meta = json.loads(bytes(npz["__meta__"]))
+        assert meta["encoder_config"]["d_model"] == 32 and npz["params/pos_embed"].dtype == np.float16
 
 
 # ------------------------------------------------------------------ tools

@@ -15,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "triple_hybrid_rag_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "triple_hybrid_rag_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "triple_hybrid_rag_tpu")
 
 
 def _port_modules():
@@ -79,6 +79,15 @@ def test_eval_modules_are_checked():
     mods = {m for m, _ in _port_modules()}
     base = "triple_hybrid_rag_tpu_torch."
     for name in ("eval", "harvest", "harness", "legacy", "native", "models.pretrain"):
+        assert base + name in mods, name
+
+
+def test_training_modules_are_checked():
+    """Encoder training's, the visual aligner's and constrained decoding's modules
+    are among those the import checks cover."""
+    mods = {m for m, _ in _port_modules()}
+    base = "triple_hybrid_rag_tpu_torch."
+    for name in ("models.training", "models.visual_align", "models.constrained"):
         assert base + name in mods, name
 
 

@@ -8,7 +8,8 @@ equal; ``GlyphOCR`` must give the same text and confidence for the same rendered
 image (both packages build the atlas from this machine's PIL font).
 ``embed_images`` and ``embed_mixed`` of the hash and bow-hash embedders are equal
 bit for bit (OCR'd text, perceptual features, content hash); the encoder's within
-1e-5, the f32 forward's tolerance of ``tests/test_torch_encoder.py``. A scanned
+1e-5, the f32 forward's tolerance of ``tests/test_torch_encoder.py``; through a
+visual aligner's weights within 2e-3 (its bf16 blocks). A scanned
 page ingests through both facades' default OCR ladder and is found by its text
 with equal ids.
 """
@@ -37,6 +38,8 @@ from triple_hybrid_rag_tpu_torch.facade import RAG
 from triple_hybrid_rag_tpu_torch.models import embedder
 
 ENCODER_ATOL = 1e-5
+# the aligner's bf16 blocks (tests/test_torch_visual_align.py's forward tolerance)
+ALIGNER_ATOL = 2e-3
 
 
 def make_png(w, h):
@@ -235,17 +238,48 @@ def test_embed_images_and_mixed_match_reference(kind):
 
 
 def test_encoder_refuses_aligner_weights(monkeypatch, tmp_path):
-    """No aligner weights ship, so the encoder takes the perceptual path as the
-    reference does; weights at the aligner's path make it raise, never diverge."""
-    _, port = carried("float32")
-    assert not embedder.ALIGNER_PATH.exists()
-    assert port._aligned_image_vec(_photo(0)) is None
-    fake = tmp_path / "visual_aligner.npz"
-    fake.write_bytes(b"")
-    monkeypatch.setattr(embedder, "ALIGNER_PATH", fake)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.embed_images([_photo(0)])
-    assert embedder.BowHashEmbedder(64, RAGConfig())._aligned_image_vec(_photo(0)) is None
+    """The aligner rung against the reference's. With no aligner weights (none
+    ship) the encoder takes the perceptual path in both packages; with a tiny
+    aligner of the encoder's width saved at a temporary path in each package
+    (the reference's file read by the port's loader and the port's by the
+    reference's), ``embed_images`` embeds the photos through it in both, within
+    the aligner's bf16 forward tolerance; an unreadable file disables the rung;
+    a hash embedder never takes it."""
+    import jax
+    import jax.numpy as jnp
+
+    from triple_hybrid_rag_tpu.models import visual_align as ref_va
+    from triple_hybrid_rag_tpu_torch.models import visual_align as va
+
+    ref, port = carried("float32")
+    photos = [_photo(0), _photo(1)]
+    for cls in (ref_embedder._ImageHashMixin, embedder._ImageHashMixin):
+        monkeypatch.setattr(cls, "_aligner_cache", {})
+    assert not __import__("os").path.exists(va.DEFAULT_ALIGNER_PATH)
+    assert port._aligned_image_vec(photos[0]) is None
+    perceptual = port.embed_images(photos)
+    np.testing.assert_array_equal(perceptual, ref.embed_images(photos))
+
+    cfg = dict(image_size=32, patch=8, d_model=32, n_layers=2, n_heads=4, d_ff=64, out_dim=port.dim)
+    params = ref_va.VisualEncoder(ref_va.VisualAlignerConfig(**cfg)).init(
+        jax.random.PRNGKey(0), jnp.zeros((2, 32, 32)))
+    ref_path, port_path = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
+    ref_va.save_aligner(params, ref_va.VisualAlignerConfig(**cfg), ref_path)
+    va.save_aligner(*va.load_aligner(ref_path), port_path)
+    monkeypatch.setattr(ref_va, "load_aligner", lambda path=port_path, _f=ref_va.load_aligner: _f(path))
+    monkeypatch.setattr(va, "DEFAULT_ALIGNER_PATH", ref_path)
+    for cls in (ref_embedder._ImageHashMixin, embedder._ImageHashMixin):
+        monkeypatch.setattr(cls, "_aligner_cache", {})
+    want, got = ref.embed_images(photos), port.embed_images(photos)
+    np.testing.assert_allclose(got, want, atol=ALIGNER_ATOL, rtol=0)
+    assert np.abs(got - perceptual).max() > 0.1  # the aligner answered, not the features
+    assert embedder.BowHashEmbedder(64, RAGConfig())._aligned_image_vec(photos[0]) is None
+
+    broken = tmp_path / "broken.npz"
+    broken.write_bytes(b"")
+    monkeypatch.setattr(va, "DEFAULT_ALIGNER_PATH", str(broken))
+    monkeypatch.setattr(embedder._ImageHashMixin, "_aligner_cache", {})
+    np.testing.assert_array_equal(port.embed_images(photos), perceptual)
 
 
 def test_scanned_page_ingests_and_is_found(small_config, tmp_path):

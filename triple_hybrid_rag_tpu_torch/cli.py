@@ -1,5 +1,5 @@
 """``thr-torch`` command-line interface: ingest / query / stats / metrics / eval /
-migrate / serve, on the card.
+migrate / serve / train-encoder, on the card.
 
 The port of the JAX package's ``cli.py``, with its arguments, output and exit codes::
 
@@ -9,11 +9,12 @@ The port of the JAX package's ``cli.py``, with its arguments, output and exit co
     thr-torch stats --index ./index
     thr-torch serve --port 8400 --index ./index     # HTTP server (--engine: micro-batched)
     thr-torch eval [--stdlib] [--json]              # retrieval-quality ladder
+    thr-torch train-encoder --steps 2000            # -> build/models/encoder.npz
 
 (``python -m triple_hybrid_rag_tpu_torch ...`` is the same.) Every subcommand that
 builds a RAG or a retriever runs it on the card; ``--device cpu`` runs the plain
-PyTorch path on the CPU instead. ``bench`` and ``train-encoder`` drive modules that
-are not ported yet: they exit 2 and say so.
+PyTorch path on the CPU instead. ``bench`` drives a module that is not ported
+yet: it exits 2 and says so.
 """
 
 from __future__ import annotations
@@ -195,10 +196,34 @@ def cmd_eval(args: argparse.Namespace) -> int:
 
 
 def cmd_not_ported(args: argparse.Namespace) -> int:
-    """``bench`` and ``train-encoder``: their modules (the TPU's ``bench.py`` and
-    ``models/training.py``) are not ported yet."""
+    """``bench``: its module (the TPU's ``bench.py``) is not ported yet."""
     print(f"thr-torch {args.command}: not ported yet (ROADMAP.md, Queue 1)", file=sys.stderr)
     return 2
+
+
+def cmd_train_encoder(args: argparse.Namespace) -> int:
+    """Train the default encoder configuration cold and save it to ``--out``
+    (``build/models/encoder.npz`` in the checkout by default, never the packaged
+    file); then print the saved file's held-out paraphrase recall@10."""
+    from .models.pretrain import (
+        TRAINED_PARAMS,
+        load_default_encoder,
+        paraphrase_recall_at_k,
+        train_default_encoder,
+    )
+
+    out = args.out or TRAINED_PARAMS
+    path, metrics = train_default_encoder(
+        out_path=out, steps=args.steps, batch_size=args.batch_size, seed=args.seed,
+        overlap_frac=args.overlap_frac, realtext_frac=args.realtext_frac,
+        log_every=args.log_every, device=args.device,
+    )
+    print(f"saved {path} (final loss {metrics['loss']:.4f}, acc {metrics['accuracy']:.3f})")
+    emb = load_default_encoder(path=path, device=args.device)
+    if emb is not None:
+        r = paraphrase_recall_at_k(emb, k=10)
+        print(f"held-out paraphrase recall@10 (dense-only): {r:.3f}")
+    return 0
 
 
 def cmd_migrate(args: argparse.Namespace) -> int:
@@ -347,9 +372,11 @@ def main(argv=None) -> int:
 
     p = sub.add_parser(
         "train-encoder",
-        help="train the packaged default encoder (not ported yet)",
+        help="train the default encoder on generated paraphrase pairs",
     )
-    p.add_argument("--out", default=None, help="output npz (default: packaged path)")
+    p.add_argument("--out", default=None,
+                   help="output npz (default: build/models/encoder.npz in the checkout; "
+                        "serve it with RAGConfig.encoder_params_path)")
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--seed", type=int, default=0)
@@ -358,7 +385,10 @@ def main(argv=None) -> int:
     p.add_argument("--realtext-frac", type=float, default=0.35,
                    help="fraction of real-prose inverse-cloze pairs (harvested from "
                         "TRAIN_TEXT_SOURCES packages, disjoint from eval corpora)")
-    p.set_defaults(fn=cmd_not_ported)
+    p.add_argument("--log-every", type=int, default=100,
+                   help="print the loss and accuracy every this many steps (0: never)")
+    _add_device(p)
+    p.set_defaults(fn=cmd_train_encoder)
 
     p = sub.add_parser("serve", help="HTTP serving host (/query /ingest /metrics)")
     p.add_argument("--host", default="127.0.0.1")

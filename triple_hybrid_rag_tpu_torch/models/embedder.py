@@ -14,7 +14,8 @@ is the ingestion side's degradation ladder.
 from __future__ import annotations
 
 import hashlib
-from pathlib import Path
+import zipfile
+import zlib
 from typing import List, Optional, Protocol, Sequence
 
 import numpy as np
@@ -39,13 +40,6 @@ class Embedder(Protocol):
 
 def _seed_from(text: str) -> int:
     return int.from_bytes(hashlib.sha256(text.encode("utf-8")).digest()[:8], "little")
-
-
-# where the JAX package packages the visual aligner's weights (none ship)
-ALIGNER_PATH = (
-    Path(__file__).resolve().parents[2] / "triple_hybrid_rag_tpu" / "models" / "data"
-    / "visual_aligner.npz"
-)
 
 
 class _ImageHashMixin:
@@ -158,24 +152,34 @@ class _ImageHashMixin:
         n = float(np.linalg.norm(v))
         return v / n if n > 1e-9 else None
 
-    # trained cross-modal aligner (the JAX package's models/visual_align.py): pixels
-    # -> text space, the rung between OCR and perceptual features. Only the trained
-    # EncoderEmbedder opts in (_aligner_compatible): the aligner was trained against
-    # THAT text space. No aligner weights are packaged, so the reference's rung
-    # returns None and the perceptual features answer; the port has no aligner
-    # (ROADMAP.md, Queue 1: training) and refuses rather than diverge if weights
-    # appear.
+    # trained cross-modal aligner (models/visual_align.py): pixels -> text space,
+    # the rung between OCR and perceptual features. Loaded once per width (and
+    # device) from visual_align.DEFAULT_ALIGNER_PATH; absent weights disable the
+    # rung. Only the trained EncoderEmbedder opts in (_aligner_compatible): the
+    # aligner was trained against THAT text space. An unreadable or mismatched
+    # weights file disables the rung too; any other error (torch, CUDA) raises.
+    _aligner_cache: dict = {}
     _aligner_compatible = False
 
     def _aligned_image_vec(self, data: bytes) -> Optional[np.ndarray]:
         if not self._aligner_compatible:
             return None
-        if ALIGNER_PATH.exists():
-            raise NotImplementedError(
-                f"visual-aligner weights found at {ALIGNER_PATH}, but the aligner is not "
-                "ported (ROADMAP.md, Queue 1: training)"
+        device = getattr(self, "device", None)
+        key = (self.dim, str(device))
+        if key not in self._aligner_cache:
+            from .visual_align import VisualAlignEmbedder, load_aligner
+
+            try:
+                loaded = load_aligner()
+            except (OSError, EOFError, KeyError, ValueError, zipfile.BadZipFile, zlib.error):
+                loaded = None
+            self._aligner_cache[key] = (
+                VisualAlignEmbedder(*loaded, out_dim=self.dim, device=device)
+                if loaded is not None and loaded[1].out_dim >= self.dim
+                else None
             )
-        return None
+        va = self._aligner_cache[key]
+        return None if va is None else va.embed_image_bytes(data)
 
     def embed_images(self, images: Sequence[bytes]) -> np.ndarray:
         if not images:

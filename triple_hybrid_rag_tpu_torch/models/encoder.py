@@ -19,7 +19,10 @@ PyTorch's (``F.linear``, ``torch.matmul``): the reference computes the encoder
 with XLA ops and no Pallas kernel.
 
 :func:`encoder_params_from_flax` maps the reference's flat parameter names (the
-packaged npz's, or a flattened flax tree's) onto this module's state dict.
+packaged npz's, or a flattened flax tree's) onto this module's state dict, and
+:func:`encoder_params_to_flax` maps them back. :func:`init_encoder` draws fresh
+weights from flax's initializers (in distribution, not in bits); the forward stays
+differentiable, and ``models/training.py`` trains it through autograd.
 """
 
 from __future__ import annotations
@@ -228,15 +231,18 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> tor
     return ((xf - mu) * mul + bias.float()).to(x.dtype)
 
 
-def _const(value: float, dtype: torch.dtype, device) -> torch.Tensor:
-    """A scalar rounded to ``dtype`` first, as JAX rounds a weakly typed constant."""
-    return torch.tensor(value, dtype=torch.float64).to(device=device, dtype=dtype)
+def _const(value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A scalar rounded to ``dtype`` first, as JAX rounds a weakly typed constant.
+
+    It stays a 0-dim host tensor: an operand of a CUDA op as a scalar, with no copy
+    to the device (a copy from pageable memory would wait on the stream)."""
+    return torch.tensor(value, dtype=torch.float64).to(dtype)
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(approximate=True)``, op for op in x's dtype."""
-    c = _const(np.sqrt(2 / np.pi), x.dtype, x.device)
-    k = _const(0.044715, x.dtype, x.device)
+    c = _const(np.sqrt(2 / np.pi), x.dtype)
+    k = _const(0.044715, x.dtype)
     cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
     return x * cdf
 
@@ -281,7 +287,7 @@ class Attention(nn.Module):
         dh = d // h
         dt = x.dtype
         q, k, v = (m(x).view(b, t, h, dh).transpose(1, 2) for m in (self.query, self.key, self.value))
-        q = q / _const(math.sqrt(dh), dt, x.device)
+        q = q / _const(math.sqrt(dh), dt)
         scores = torch.matmul(q, k.transpose(-1, -2))  # [B, H, Tq, Tk]
         scores = torch.where(mask[:, None, None, :], scores, torch.finfo(dt).min)
         # jax.nn.softmax in the compute dtype; its sum accumulates in f32
@@ -292,8 +298,13 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-norm attention and MLP sub-layers, each computed in the config's compute
+    dtype (flax's ``dtype=``) and added to the residual stream in x's dtype: an f32
+    stream stays f32 under bf16 sub-layers, as in the visual aligner."""
+
     def __init__(self, cfg: EncoderConfig) -> None:
         super().__init__()
+        self.dtype = cfg.compute_dtype
         self.ln_attn = _LayerNorm(cfg.d_model)
         self.attn = Attention(cfg.d_model, cfg.n_heads)
         self.ln_mlp = _LayerNorm(cfg.d_model)
@@ -301,8 +312,9 @@ class Block(nn.Module):
         self.mlp_out = _Dense(cfg.d_mlp, cfg.d_model)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_attn(x), mask)
-        return x + self.mlp_out(_gelu_tanh(self.mlp_in(self.ln_mlp(x))))
+        dt = self.dtype
+        x = x + self.attn(self.ln_attn(x).to(dt), mask)
+        return x + self.mlp_out(_gelu_tanh(self.mlp_in(self.ln_mlp(x).to(dt))))
 
 
 class Encoder(nn.Module):
@@ -350,6 +362,50 @@ class Encoder(nn.Module):
         return self
 
 
+_LECUN_TRUNC = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated at two deviations, scaled so the
+    result has variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _LECUN_TRUNC
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def init_params_(module: nn.Module, gen: torch.Generator) -> None:
+    """Fill a module built of :class:`_Dense` and :class:`_LayerNorm` layers and
+    ``*_embed`` tables with flax's default initializers: dense kernels (the
+    attention's q/k/v/out included, whose fan-in is the model width) by
+    ``lecun_normal``, biases zero, LayerNorm ones and zeros, a ``tok_embed``
+    table by ``variance_scaling(1, "fan_in", "normal", out_axis=0)`` (std
+    1/sqrt(width)) and a ``pos_embed`` by ``normal(0.02)``."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight":
+                _lecun_normal_(p, p.shape[1], gen)
+            elif leaf == "bias":
+                p.zero_()
+            elif leaf == "scale":
+                p.fill_(1.0)
+            elif leaf == "tok_embed":
+                p.normal_(0.0, math.sqrt(1.0 / p.shape[1]), generator=gen)
+            elif leaf == "pos_embed":
+                p.normal_(0.0, 0.02, generator=gen)
+            else:
+                raise KeyError(f"no initializer for parameter {name}")
+
+
+def init_encoder(cfg: EncoderConfig, seed: int = 0, device=None) -> Encoder:
+    """A fresh :class:`Encoder` with f32 parameters on ``device`` (CUDA unless
+    ``device="cpu"``), drawn on the host from ``torch.Generator(seed)`` so a seed
+    gives the same weights on every device."""
+    dev = resolve_device(device)
+    model = Encoder(cfg)
+    init_params_(model, torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
+
 def encoder_params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """The reference's flat parameter names -> this module's state dict.
 
@@ -385,18 +441,50 @@ def encoder_params_from_flax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.
     return out
 
 
+def encoder_params_to_flax(
+    params: Mapping[str, torch.Tensor], n_heads: int
+) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`encoder_params_from_flax`: a state dict (of
+    :class:`Encoder`, or of any module named alike) -> flax's flat names with the
+    ``params/`` prefix, sorted as flax flattens its tree. ``F.linear`` weights
+    [out, in] become kernels [in, out]; the attention's q/k/v weights go back to
+    [d, H, Dh] with biases [H, Dh], its out weight to [H, Dh, d]. Values keep
+    their dtype."""
+    out: Dict[str, np.ndarray] = {}
+    for key, t in params.items():
+        a = t.detach().cpu().numpy()
+        parts = key.split(".")
+        if parts[0] == "blocks":
+            parts = [f"block_{parts[1]}"] + parts[2:]
+        leaf = parts[-1]
+        attn = len(parts) >= 3 and parts[-3] == "attn"
+        if parts == ["tok_embed"]:
+            parts = ["tok_embed", "embedding"]
+        elif leaf == "weight":
+            a = a.T  # [in, out]
+            if attn and parts[-2] == "out":
+                a = a.reshape(n_heads, -1, a.shape[-1])
+            elif attn:
+                a = a.reshape(a.shape[0], n_heads, -1)
+            parts = parts[:-1] + ["kernel"]
+        elif leaf == "bias" and attn and parts[-2] != "out":
+            a = a.reshape(n_heads, -1)
+        out["/".join(["params"] + parts)] = np.ascontiguousarray(a)
+    return dict(sorted(out.items()))
+
+
 class EncoderEmbedder(_ImageHashMixin):
     """Embedder-protocol adapter over :class:`Encoder` on one device.
 
     ``params`` is the state dict of trained weights (:func:`encoder_params_from_flax`
-    of the packaged npz, or of a flax tree); the port has no random init.
+    of the packaged npz, or of a flax tree, or a trained :class:`Encoder`'s).
     ``embed_texts``/``token_embeddings`` run the forward and blend the anchors on
     the host, as the reference does; ``encode_queries_device`` blends, truncates
     and casts to the engine's f16 wire on the device and leaves the result there.
     Images go through the mixin's OCR-then-embed path (document images embed as
     their recognized text, through this encoder). Trained weights define the space
     a visual aligner maps into, so this class opts into that rung
-    (``_aligner_compatible``), which raises if aligner weights appear (none ship)."""
+    (``_aligner_compatible``, ``models/visual_align.py``)."""
 
     _aligner_compatible = True
 
