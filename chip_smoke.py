@@ -148,18 +148,36 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``embed_images`` through the aligner rung; (f) constrained decoding over a random
    byte-level causal LM on the card, 20 of 20 outputs valid JSON.
 
+12. the sharded engine and the training mesh on the one card, every mesh entry
+   ``cuda:0`` (the code that would place one shard per card; only the gathers stay
+   on one device): (a) the mesh helpers over ``[cuda:0] * 4`` and their errors; (b)
+   phase 3's 1M-row bf16 corpus as 1x2, 1x4 and 2x2 meshes, the shards views of
+   the placed rows, 128 of phase 3's queries at 1x4 and 2x2 against phase 3's
+   1-shard engine (final ids up to near ties, scores within ``FUSED_ATOL``,
+   refusals equal, the lexical lists bit-equal); (c) the same for the int8 rows and
+   the term table at 1x4; (d) IVF at 1x4 (each shard clusters its own rows): the
+   semantic recall against the exact 1x4 scan beside phase 5's; (e) phase 6's
+   stdlib RAG (the default ``RAGConfig``, the trained encoder) through a 1x2
+   ``ShardedEngine`` against ``query_batch``; (f) one bucket-maxima launch a shard
+   and one MaxSim launch a data row in a batch, and each shard's bucket maxima at
+   its own shape (250,112 rows at 1x4) against the plain version; (g) program wall,
+   device busy, the stage split and peak memory a batch at 1x1, 1x2, 1x4 and 2x2;
+   (h) phase 11(a)'s three steps over dp 2 x tp 2 against 11(a)'s unsharded card
+   steps.
+
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
 over phase 7, ``serve_launches`` over phase 8's served requests,
 ``formats_launches`` and ``http_launches`` over phase 9's queries,
 ``eval_launches`` over phase 10(a)-(f) (``eval_f32_launches``: of them, the f32-row
-body's), ``legacy_launches`` over phase 10(g) and ``train_launches`` over phase
-11(d), and per further path), error and
+body's), ``legacy_launches`` over phase 10(g), ``train_launches`` over phase
+11(d) and ``sharded_launches`` over phase 12(b)-(e), and per further path), error and
 times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
 """
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -1077,7 +1095,7 @@ def dense_kernel_path(run, eng) -> int:
                                          invalid_score_floor=-2.0)
     torch.cuda.synchronize()
     launches = dense_scores.launches
-    ids_e, vals_e = eng._dense(args, None, False)
+    ids_e, vals_e = eng._dense(args)
     n_diff = near_ties_only(ids, ids_e, vals_e, FUSED_ATOL)
     if n_diff < 0:
         fail("the dense-scores kernel's top-k differs from the engine's dense channel beyond near ties")
@@ -1177,8 +1195,8 @@ def termtable_path(run, eng_sorted, cfg) -> int:
     for r in run.rows[:BATCH]:
         terms = [int(t) for t in dict.fromkeys(syn.term_ids[r].tolist()) if uncut[t]]
         texts.append(" ".join(term_str(t) for t in terms[:cfg.bm25_large_slots]))
-    ids_s, vals_s = eng_sorted._lexical(eng_sorted.prepare_queries(texts)[1], None)
-    ids_t, vals_t = eng._lexical(eng.prepare_queries(texts)[1], None)
+    ids_s, vals_s = eng_sorted._lexical(eng_sorted.prepare_queries(texts)[1])
+    ids_t, vals_t = eng._lexical(eng.prepare_queries(texts)[1])
     n_diff = near_ties_only(ids_t, ids_s, vals_s, LEXICAL_ATOL)
     gap = max_err(vals_t, vals_s)
     log(f"termtable vs sorted lexical channel on {BATCH} queries of uncut terms: {n_diff} of "
@@ -1564,10 +1582,11 @@ def ivf_path(run, eng_exact, cfg, card):
         # the semantic channel against the exact scan of the same rows
         eng_x = run.engine(base, cfg_k.replace(semantic_backend="exact"))
         a = eng.prepare_queries(texts[:BATCH])[1]
-        ids_i, _ = eng._dense(a, None, False)
-        ids_e, _ = eng_x._dense(a, None, False)
+        ids_i, _ = eng._dense(a)
+        ids_e, _ = eng_x._dense(a)
         found = [len(set(x.tolist()) & set(y[y >= 0].tolist())) / max(int((y >= 0).sum()), 1)
                  for x, y in zip(ids_i.cpu(), ids_e.cpu())]
+        IVF_RECALL[kind] = float(np.mean(found))
         log(f"{label}: semantic channel recall@{cfg.semantic_top_k} against the exact scan "
             f"{float(np.mean(found)):.4f} (min {min(found):.4f}) over {BATCH} queries")
         torch.cuda.synchronize()
@@ -3596,6 +3615,7 @@ def train_card_host(dev, card):
         log(f"phase 11(a) on {where}: {CHECK_STEPS} steps of B = {CHECK_BATCH} in "
             f"{time.time() - t0:.2f} s; (loss, accuracy) {losses[str(where)]}")
         params[str(where)] = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    TRAIN_CHECK.update(data=data, losses=losses[str(dev)], params=params[str(dev)])
     got, want = losses[str(dev)], losses["cpu"]
     rel = [abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(got, want)]
     drift = max(float((params[str(dev)][k] - params["cpu"][k]).abs().max()) for k in params["cpu"])
@@ -3928,6 +3948,349 @@ def training_path(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+# (n_shards, data rows) of the meshes phase 12 places on the one card
+MESHES = {"1x1": (1, 1), "1x2": (2, 1), "1x4": (4, 1), "2x2": (2, 2)}
+# 12(h): the three checked steps' learning rates (0, 1e-5, 2e-5) summed. An Adam step
+# moves a weight by up to its rate, and a gradient entry near zero may take either
+# sign on the sharded and the unsharded step
+TRAIN_WEIGHT_ATOL = 3e-5
+IVF_RECALL: dict = {}  # phase 5's semantic recall per row type, printed beside 12(d)
+TRAIN_CHECK: dict = {}  # phase 11(a)'s batches, the card's losses and weights, for 12(h)
+
+
+def sharded_counts() -> dict:
+    """Launches since the last ``staged_counts_reset``, by kernel entry name."""
+    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+
+    by_rows, by_tokens = bucket_maxima.launches_by_rows, maxsim_scores.launches_by_tokens
+    return {"fused_bucket_maxima": by_rows["bf16"], "fused_bucket_maxima_int8": by_rows["int8"],
+            "fused_bucket_maxima_int4": by_rows["int4"], "fused_bucket_maxima_f32": by_rows["f32"],
+            "maxsim_scores": by_tokens["bf16"], "maxsim_scores_int8": by_tokens["int8"],
+            "termtable_scores": score_termtable_batch.launches, "dense_scores": dense_scores.launches}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (the 1-shard engines the sharded ones are held
+    against) leave every counter as it was."""
+    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
+    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+
+    saved = (dict(bucket_maxima.launches_by_rows), dict(maxsim_scores.launches_by_tokens),
+             score_termtable_batch.launches, dense_scores.launches,
+             dict(dense_scores.launches_by_rows), bucket_maxima.launches)
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        (bucket_maxima.launches_by_rows, maxsim_scores.launches_by_tokens,
+         score_termtable_batch.launches, dense_scores.launches, dense_scores.launches_by_rows,
+         bucket_maxima.launches) = saved
+
+
+def mesh_engine(run, state, cfg, name: str):
+    """An engine over ``state`` on the mesh ``name`` of ``MESHES``, every entry the
+    one card."""
+    from triple_hybrid_rag_tpu_torch.engine import Engine
+    from triple_hybrid_rag_tpu_torch.parallel import corpus_mesh
+
+    s, d = MESHES[name]
+    mesh = corpus_mesh(s, d, devices=[run.dev] * (s * d))
+    return Engine(dataclasses.replace(state, config=cfg), embedder=run.syn.embedder,
+                  device=run.dev, mesh=mesh)
+
+
+def lexical_lists(eng, args):
+    """The merged lexical (ids, scores) of every data row of a prepared batch."""
+    parts = [eng._lexical(eng.row_args(args, r)) for r in range(eng.mesh.shape["data"])]
+    return tuple(torch.cat([p[i].to(args.q_vec.device) for p in parts], 0) for i in range(2))
+
+
+def mesh_checks(dev) -> None:
+    """Phase 12(a): the mesh helpers over ``[cuda:0] * 4`` and their errors."""
+    from triple_hybrid_rag_tpu_torch.parallel import (
+        corpus_mesh, default_mesh, multislice_mesh, single_device_mesh)
+
+    four = [dev] * 4
+    got = {
+        "corpus 1x4": corpus_mesh(devices=four).shape,
+        "corpus 2x2": corpus_mesh(2, 2, devices=four).shape,
+        "multislice 2x2": multislice_mesh(2, 2, devices=four).shape,
+        "multislice 2x1x2": multislice_mesh(2, 1, 2, devices=four).shape,
+        "single": single_device_mesh(dev).shape,
+        "default (cuda)": default_mesh("cuda").shape,
+        "default (cuda:0)": default_mesh("cuda:0").shape,
+    }
+    want = {"corpus 1x4": (1, 4), "corpus 2x2": (2, 2), "multislice 2x2": (2, 2),
+            "multislice 2x1x2": (4, 1), "single": (1, 1),
+            "default (cuda)": (1, torch.cuda.device_count()), "default (cuda:0)": (1, 1)}
+    for k, shape in got.items():
+        if (shape["data"], shape["shard"]) != want[k]:
+            fail(f"phase 12(a): mesh {k} has shape {shape}, not {want[k]}")
+    if corpus_mesh(devices=four).devices() != [torch.device("cuda", 0)] * 4:
+        fail("phase 12(a): the 1x4 mesh is not cuda:0 four times")
+    errors = 0
+    for fn, kw in ((corpus_mesh, dict(data_parallel=0)), (corpus_mesh, dict(n_shards=8)),
+                   (corpus_mesh, dict(data_parallel=5)), (multislice_mesh, dict(
+                       n_slices=0, shards_per_slice=2)), (multislice_mesh, dict(
+                       n_slices=2, shards_per_slice=4))):
+        try:
+            fn(devices=four, **kw)
+        except ValueError:
+            errors += 1
+    log(f"phase 12(a): mesh shapes {got}; {errors} of 5 bad meshes raised ValueError")
+    if errors != 5:
+        fail("phase 12(a): a bad mesh was built")
+
+
+def same_as_one_shard(label: str, eng, want, args) -> int:
+    """``eng``'s outputs on prepared ``args`` against the 1-shard engine's ``want``
+    (its run and its lexical lists): final ids up to near ties, scores within
+    FUSED_ATOL, refusals equal, the lexical lists bit-equal. Returns the slots whose
+    ids differ."""
+    out = eng.run(args)
+    lex = lexical_lists(eng, args)
+    (ids1, s1, ref1, *_), lex1 = want
+    n_diff = near_ties_only(out[0], ids1, s1, FUSED_ATOL)
+    gap = max_err(out[1], s1)
+    refused = torch.equal(out[2], ref1)
+    lex_equal = torch.equal(lex[0], lex1[0]) and torch.equal(lex[1], lex1[1])
+    log(f"{label}: {n_diff} of {ids1.numel()} final slots differ from the 1-shard engine "
+        f"(near ties, atol {FUSED_ATOL}); max final-score gap {gap:.3g}; refusals equal "
+        f"{refused}; lexical lists bit-equal {lex_equal}")
+    if n_diff < 0 or not gap <= FUSED_ATOL or not refused or not lex_equal:
+        fail(f"{label}: the sharded engine differs from the 1-shard engine")
+    return n_diff
+
+
+def shard_launches(label: str, eng, args, kind: str, body: str, lexical: bool = False) -> None:
+    """One batch: one bucket-maxima launch per shard of the row type ``kind``, one
+    MaxSim launch per data row of ``body``, one term-table launch per shard when
+    ``lexical``."""
+    before = sharded_counts()
+    eng.run(args)
+    torch.cuda.synchronize()
+    after = sharded_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    s, d = eng.mesh.shape["shard"], eng.mesh.shape["data"]
+    want = {("fused_bucket_maxima" if kind == "bf16" else f"fused_bucket_maxima_{kind}"): s * d,
+            ("maxsim_scores" if body == "bf16" else "maxsim_scores_int8"): d}
+    if lexical:
+        want["termtable_scores"] = s * d
+    log(f"{label}: launches in one batch of {BATCH} {delta} (want {want})")
+    if delta != want:
+        fail(f"{label}: launches {delta}, not one a shard and one MaxSim a data row {want}")
+
+
+def shard_kernel_checks(eng, args, kind: str) -> None:
+    """Each shard's bucket maxima at its own shape against the plain version
+    (bf16 within FUSED_ATOL, int8 bit for bit); comparison launches, not counted."""
+    from triple_hybrid_rag_tpu_torch.index.dense_index import quantize_queries_int8
+    from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
+
+    q = args.q_vec.float()
+    errs = []
+    for sh in eng.placement.shards[0]:
+        if kind == "int8":
+            q_i8, q_scale = quantize_queries_int8(q)
+            call = (sh.embeddings, q_i8, sh.valid, None, None, sh.dense_scales, q_scale)
+        else:
+            call = (sh.embeddings, q, sh.valid)
+        errs.append(max_err(ft.bucket_maxima(*call), ft.bucket_maxima_plain(*call)))
+    torch.cuda.synchronize()
+    n_loc = eng.placement.n_loc
+    log(f"phase 12(f): {kind} bucket maxima of each of {len(errs)} shards at N = {n_loc}: "
+        f"max |kernel - plain| {[f'{e:.3g}' for e in errs]}")
+    if (kind == "int8" and any(e != 0.0 for e in errs)) or not max(errs) <= FUSED_ATOL:
+        fail(f"phase 12(f): a shard's {kind} bucket maxima disagree with the plain version")
+
+
+def mesh_times(engines, args_list, card: str) -> None:
+    """Phase 12(g): program wall and device busy ms per batch of 128 on each mesh,
+    the stage split, and each mesh's peak memory above what the corpus holds."""
+    for name, (eng, peak) in engines.items():
+        eng.run(args_list[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in args_list:
+            eng.run(a)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(args_list) * 1e3
+        busy = stage_profile(eng, args_list, f"phase 12(g), bf16, mesh {name}")
+        stages = ", ".join(f"{k[7:]} {v:.3f}" for k, v in STAGE_MS.items())
+        log(f"phase 12(g) mesh {name}: wall {wall:.3f} ms/batch, device busy {busy:.3f} "
+            f"ms/batch (idle {100 * max(0.0, 1 - busy / wall):.1f} %); stages (device ms/batch) "
+            f"{stages}; peak device memory of placing and serving {peak:.3f} GB above the corpus; "
+            f"all shards on one card ({card})")
+
+
+def sharded_path(run, stdlib, dev, card) -> dict:
+    """Phase 12: the sharded engine on the one card, every mesh entry ``cuda:0``.
+    Returns the launches of (b)-(e), the sharded engines' alone (the 1-shard
+    engines they are held against run ``uncounted``)."""
+    from triple_hybrid_rag_tpu_torch.index.state import ivf_layout
+    from triple_hybrid_rag_tpu_torch.parallel import ShardedEngine, corpus_mesh
+
+    t0 = time.time()
+    mesh_checks(dev)
+    log(f"phase 12(a) wall time {time.time() - t0:.1f} s")
+
+    st, cfg = run.syn.state, run.syn.state.config
+    eng1 = run.engine(st, cfg)
+    args_list = [eng1.prepare_queries(run.texts[i * BATCH:(i + 1) * BATCH])[1] for i in range(2)]
+    args = args_list[0]
+    want = (eng1.run(args), lexical_lists(eng1, args))
+    torch.cuda.synchronize()
+    staged_counts_reset()  # the sharded engines' launches from here to (e)
+    engines = {"1x1": (eng1, 0.0)}
+    t0 = time.time()
+    for name in ("1x2", "1x4", "2x2"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        tb = time.time()
+        eng = mesh_engine(run, st, cfg, name)
+        torch.cuda.synchronize()
+        build_s = time.time() - tb
+        pl = eng.placement
+        aliased = all(sh.embeddings.data_ptr() == st.embeddings[i * pl.n_loc].data_ptr()
+                      for i, sh in enumerate(pl.shards[0]))
+        log(f"phase 12(b) mesh {name}: placed in {build_s:.2f} s, {len(pl.shards[0])} shards of "
+            f"{pl.n_loc} rows (capacity {pl.n_pad}), rows aliased {aliased}, largest per-shard "
+            f"postings block {pl.lex_l_max} (1 shard {st.lex_l_max}), mention block {pl.g_l_max}")
+        if pl.n_loc * len(pl.shards[0]) != st.n_pad or not aliased:
+            fail(f"phase 12(b) mesh {name}: shards do not alias the rows")
+        if name != "1x2":
+            same_as_one_shard(f"phase 12(b) bf16 mesh {name}", eng, want, args)
+            shard_launches(f"phase 12(f) bf16 mesh {name}", eng, args, "bf16", "bf16")
+        eng.run(args)
+        torch.cuda.synchronize()
+        engines[name] = (eng, (torch.cuda.max_memory_allocated() - held) / 1e9)
+    log(f"phase 12(b) wall time {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    for conf in ("int8", "termtable"):
+        st_c, cfg_c = run.staged_states[conf]
+        e1 = run.engine(st_c, cfg_c)
+        with uncounted():
+            want_c = (e1.run(args), lexical_lists(e1, args))
+        e4 = mesh_engine(run, st_c, cfg_c, "1x4")
+        same_as_one_shard(f"phase 12(c) {conf} mesh 1x4", e4, want_c, args)
+        kind, body = ("int8", "int8") if conf == "int8" else ("bf16", "bf16")
+        shard_launches(f"phase 12(f) {conf} mesh 1x4", e4, args, kind, body,
+                       lexical=conf == "termtable")
+        if conf == "int8":
+            int8_engine = e4
+        del e1
+    log(f"phase 12(c) wall time {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    cfg_i = cfg.replace(semantic_backend="ivf")
+    st_i = ivf_layout(st, cfg_i)
+    tb = time.time()
+    e_ivf = mesh_engine(run, st_i, cfg_i, "1x4")
+    torch.cuda.synchronize()
+    build_s = time.time() - tb
+    run.self_retrieval(e_ivf, "phase 12(d) IVF bf16 mesh 1x4")
+    ids_i, _ = e_ivf._dense(args)
+    ids_e, _ = engines["1x4"][0]._dense(args)
+    found = [len(set(x.tolist()) & set(y[y >= 0].tolist())) / max(int((y >= 0).sum()), 1)
+             for x, y in zip(ids_i.cpu(), ids_e.cpu())]
+    log(f"phase 12(d) IVF bf16 mesh 1x4: per-shard layouts built in {build_s:.2f} s "
+        f"({e_ivf.placement.shards[0][0].ivf_centroids.shape[0]} blocks a shard); semantic "
+        f"recall@{cfg.semantic_top_k} against the exact 1x4 scan {float(np.mean(found)):.4f} "
+        f"(min {min(found):.4f}) over {BATCH} queries; phase 5, one shard: "
+        f"{IVF_RECALL.get('bf16', float('nan')):.4f}")
+    if float(np.mean(found)) < 0.5:
+        fail("phase 12(d): the sharded IVF lost the exact scan's neighbours")
+    del e_ivf, st_i
+    torch.cuda.empty_cache()
+    log(f"phase 12(d) wall time {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    rag, queries, _ = stdlib
+    eng_rag = rag._get_engine()
+    e2 = ShardedEngine(rag.retriever, corpus_mesh(2, devices=[dev] * 2))
+    with uncounted():
+        _, o1 = eng_rag.search_arrays(queries)
+        ref = [[x.chunk_id for x in r.results] for r in rag.query_batch(queries[:16])]
+    before = sharded_counts()
+    _, o2 = e2.search_arrays(queries)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in sharded_counts().items() if v != before[k]}
+    n_diff = near_ties_only(o2[0], o1[0], o1[1], FUSED_ATOL)
+    gap = max_err(o2[1], o1[1])
+    got = [[x.chunk_id for x in r.results] for r in e2.retrieve_batch(queries[:16])]
+    log(f"phase 12(e) default RAGConfig, trained encoder, stdlib corpus ({rag.retriever.state.n_pad} "
+        f"rows) over a 1x2 ShardedEngine: {n_diff} of {o1[0].numel()} final slots differ from "
+        f"query_batch's engine (near ties, atol {FUSED_ATOL}), max score gap {gap:.3g}, refusals "
+        f"equal {torch.equal(o1[2], o2[2])}, decoded ids of 16 queries equal {got == ref}; "
+        f"launches in the batch {delta}")
+    if (n_diff < 0 or not gap <= FUSED_ATOL or not torch.equal(o1[2], o2[2])
+            or delta != {"fused_bucket_maxima": 2, "maxsim_scores": 1}):
+        fail("phase 12(e): the 1x2 ShardedEngine differs from query_batch")
+    log(f"phase 12(e) wall time {time.time() - t0:.1f} s")
+    torch.cuda.synchronize()
+    launches = sharded_counts()
+    log(f"phase 12: launches of the sharded engines over (b)-(e) {launches}")
+
+    t0 = time.time()
+    shard_kernel_checks(engines["1x4"][0], args, "bf16")
+    shard_kernel_checks(int8_engine, args, "int8")
+    del int8_engine
+    log(f"phase 12(f) wall time {time.time() - t0:.1f} s")
+    t0 = time.time()
+    mesh_times(engines, args_list, card)
+    log(f"phase 12(g) wall time {time.time() - t0:.1f} s")
+    return launches
+
+
+def sharded_training(dev, card) -> None:
+    """Phase 12(h): phase 11(a)'s three steps (the shipped npz at the scaled config,
+    B = 64) sharded over dp 2 x tp 2 on the one card: losses within LATER_RTOL of
+    11(a)'s unsharded card steps (STEP0_RTOL at step 0), the weights within
+    TRAIN_WEIGHT_ATOL, ms a step."""
+    from triple_hybrid_rag_tpu_torch.models.pretrain import (
+        DEFAULT_PARAMS, load_encoder_weights_, scaled_encoder_config)
+    from triple_hybrid_rag_tpu_torch.models.training import (
+        create_train_state, make_train_step, shard_train_state, training_mesh)
+
+    cfg = dataclasses.replace(scaled_encoder_config(), dtype="float32")
+    tc = train_config(TRAIN_STEPS, TRAIN_LR, cfg)
+    model, state = create_train_state(cfg, tc, device=dev)
+    load_encoder_weights_(model, DEFAULT_PARAMS)
+    mesh = training_mesh(tp=2, devices=[dev] * 4)
+    state = shard_train_state(state, mesh)
+    step = make_train_step(model, tc, mesh)
+    losses, ms = [], []
+    for arrs in TRAIN_CHECK["data"]:
+        batch = [torch.from_numpy(a).to(dev) for a in arrs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(m["loss"]), float(m["accuracy"])))
+    want = TRAIN_CHECK["losses"]
+    rel = [abs(g[0] - w[0]) / abs(w[0]) for g, w in zip(losses, want)]
+    ref = TRAIN_CHECK["params"]
+    gap = max(float((p.detach().cpu() - ref[k]).abs().max()) for k, p in model.named_parameters())
+    log(f"phase 12(h) training over dp {mesh.shape['dp']} x tp {mesh.shape['tp']} on the one card: "
+        f"{len(losses)} steps of B = {CHECK_BATCH}, (loss, accuracy) {losses}; relative loss gaps "
+        f"to 11(a)'s unsharded card steps {[f'{r:.3g}' for r in rel]} (limits {STEP0_RTOL} at step "
+        f"0, {LATER_RTOL} after); largest weight gap {gap:.3g} (limit {TRAIN_WEIGHT_ATOL}); "
+        f"ms a step {[f'{x:.1f}' for x in ms]}; card {card}")
+    if rel[0] > STEP0_RTOL or max(rel[1:]) > LATER_RTOL or not gap <= TRAIN_WEIGHT_ATOL:
+        fail("phase 12(h): the sharded steps differ from the unsharded ones")
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -4058,7 +4421,6 @@ def main() -> int:
     staged = staged_stdlib(stdlib, card)
     add_counts(staged, staged_synthetic(run, card))
     add_counts(staged, staged_configs(run, card))
-    del run
     torch.cuda.empty_cache()
     log(f"phase 7 wall time {time.time() - t_phase:.1f} s; staged launches {staged}")
     t_phase = time.time()
@@ -4070,12 +4432,19 @@ def main() -> int:
         f"launches {http_served}")
     t_phase = time.time()
     evals, legacy = eval_path(dev, card, stdlib)
-    del stdlib
     log(f"phase 10 wall time {time.time() - t_phase:.1f} s; eval launches {evals}, legacy "
         f"launches {legacy}")
     t_phase = time.time()
     trained = training_path(dev, card)
     log(f"phase 11 wall time {time.time() - t_phase:.1f} s; trained-checkpoint launches {trained}")
+    t_phase = time.time()
+    sharded = sharded_path(run, stdlib, dev, card)
+    del run, stdlib
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    sharded_training(dev, card)
+    log(f"phase 12(h) wall time {time.time() - t0:.1f} s")
+    log(f"phase 12 wall time {time.time() - t_phase:.1f} s; sharded launches {sharded}")
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -4091,6 +4460,7 @@ def main() -> int:
         k["eval_launches"] = evals.get(k["name"], 0)
         k["legacy_launches"] = legacy.get(k["name"], 0)
         k["train_launches"] = trained.get(k["name"], 0)
+        k["sharded_launches"] = sharded.get(k["name"], 0)
         if k["name"] in ("dense_scores", "fused_bucket_maxima"):  # of them, the f32 body's
             k["eval_f32_launches"] = evals.get(k["name"] + "_f32", 0)
     log(f"total wall time {time.time() - T_START:.1f} s")

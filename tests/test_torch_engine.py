@@ -238,7 +238,12 @@ def test_engine_refresh_and_unported_options(cfg):
     st = state_from_retriever(ret)
     eng = Engine(st, device="cpu")
     assert eng.refresh(state_from_retriever(ret))
-    for bad in ({"mesh_shape": (2,)},):
-        with pytest.raises(NotImplementedError):
-            Engine(st, config=torch_config(cfg.replace(**bad)), device="cpu")
+    # config.mesh_shape is only carried, as in the reference (its engine's mesh
+    # decides): a config with mesh_shape=(2,) builds and serves as the reference's
+    c = cfg.replace(mesh_shape=(2,))
+    ret2 = _retriever(c, True)
+    two = Engine(state_from_retriever(ret2), device="cpu")
+    assert two.config.mesh_shape == (2,) and two.mesh.shape == {"data": 1, "shard": 1}
+    _compare(ShardedEngine(ret2, single_device_mesh()).retrieve_batch(QUERIES),
+             two.retrieve_batch(QUERIES))
     assert torch.is_tensor(eng.run(eng.prepare_queries(QUERIES[:2])[1])[0])

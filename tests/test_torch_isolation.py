@@ -121,6 +121,32 @@ def test_exports_cover_the_reference():
         "triple_hybrid_rag_tpu_torch.retrieval", "triple_hybrid_rag_tpu_torch.ingest", []]
 
 
+def test_parallel_exports_cover_the_reference_and_import_no_jax():
+    """``parallel/``: the reference's ``parallel.__all__`` is covered, every module
+    of it is among those the import checks cover, and importing it (the sharded
+    engine included) in a process with no JAX loads none."""
+    import triple_hybrid_rag_tpu.parallel as ref
+
+    mods = {m for m, _ in _port_modules()}
+    for name in ("parallel", "parallel.mesh", "parallel.placement", "parallel.engine"):
+        assert "triple_hybrid_rag_tpu_torch." + name in mods, name
+    code = (
+        "import json, sys\n"
+        "import triple_hybrid_rag_tpu_torch.parallel as p\n"
+        "names = {n: getattr(p, n).__module__ for n in p.__all__}\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "print(json.dumps([sorted(names), bad]))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    names, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(ref.__all__) <= set(names) and bad == []
+
+
 def test_http_and_ocr_settings_no_longer_raise():
     """``RAG`` takes every ``*_api_base`` and ``ocr_fn``: the matching clients are
     wired (nothing is contacted before a call), explicit arguments win."""

@@ -326,12 +326,24 @@ def test_train_pairs_matches_reference():
 
 
 def test_mesh_argument_raises():
+    """A ``mesh`` is taken now (the dp x tp step: tests/test_torch_training_mesh.py),
+    and a call without one is the unsharded path as before. Only a state that is not
+    sharded over the step's mesh raises."""
     _, cfg = configs()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tr.create_train_state(cfg, mesh=object(), device="cpu")
-    model, _ = tr.create_train_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tr.make_train_step(model, tr.TrainConfig(), mesh=object())
+    mesh = tr.training_mesh(tp=2, devices=["cpu"] * 4)
+    model, state = tr.create_train_state(cfg, mesh=mesh, device="cpu")
+    assert state.mesh is mesh and state.pieces is not None
+    assert {tuple(p.shape) for k, p in state.params().items() if "mlp_in.weight" in k} == {
+        (cfg.d_mlp // 2, cfg.d_model)}
+    step = tr.make_train_step(model, tr.TrainConfig(**TC), mesh)
+    _, plain = tr.create_train_state(cfg, device="cpu")
+    with pytest.raises(ValueError, match="not sharded"):
+        step(plain, *[torch.from_numpy(a) for a in batches(1)[0]])
+    # mesh-less: the model's own parameters are the state's, as before
+    model2, state2 = tr.create_train_state(cfg, device="cpu")
+    assert state2.mesh is None and state2.pieces is None
+    assert state2.params().keys() == dict(model2.named_parameters()).keys()
+    assert all(p is q for p, q in zip(state2.params().values(), model2.parameters()))
 
 
 # ------------------------------------------------------------------ init and files

@@ -95,6 +95,7 @@
 // stream and returns 0, a cudaError_t (cudaGetLastError() after the launch), or
 // hopper::kEncodeFailed plus the encoder's CUresult when a tensor map was refused.
 
+#include "per_device.cuh"
 #include "simt_f32.cuh"
 #include "tile_common.cuh"
 #include "wgmma_common.cuh"
@@ -487,10 +488,13 @@ template <int kQ>
 int launch_f32(const void* emb, const void* q, const Masks& m, void* out, int n, int d, int b,
                cudaStream_t stream) {
   using T = simt::Tile<kQ>;
-  static int cap = 0;  // resident blocks of this width
+  static int caps[per_device::kMaxDevices] = {};  // resident blocks of this width, per device
+  int dev = 0;
+  cudaError_t err = per_device::current(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int& cap = caps[dev];
   if (cap == 0) {
-    const cudaError_t err =
-        simt::resident_blocks(bucket_max_f32_kernel<kQ>, T::kThreads, T::kSmemBytes, &cap);
+    err = simt::resident_blocks(bucket_max_f32_kernel<kQ>, T::kThreads, T::kSmemBytes, &cap);
     if (err != cudaSuccess) {
       cap = 0;
       return static_cast<int>(err);
@@ -515,12 +519,12 @@ int launch_int_kernel(const CUtensorMap& map_rows, const CUtensorMap& map_q,
                       cudaStream_t stream) {
   using Smem = IntSmem<kInt4, kResident>;
   constexpr int kSmemBytes = sizeof(Smem) + 1024;  // room to align to 1024 bytes
-  static int sm_count = 0;
+  static int sm_counts[per_device::kMaxDevices] = {};
+  int dev = 0;
+  if (const cudaError_t e = per_device::current(&dev); e != cudaSuccess) return static_cast<int>(e);
+  int& sm_count = sm_counts[dev];
   if (sm_count == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(bucket_max_int_kernel<kInt4, kResident>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);

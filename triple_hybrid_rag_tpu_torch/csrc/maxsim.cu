@@ -86,6 +86,7 @@
 
 #include <type_traits>
 
+#include "per_device.cuh"
 #include "tile_common.cuh"
 #include "wgmma_common.cuh"
 
@@ -407,14 +408,15 @@ maxsim_kernel(const __grid_constant__ CUtensorMap map_tok,  // [p_rows * td, d] 
   }
 }
 
+// The opt-in to `max_smem` bytes of dynamic shared memory is made once per device.
 template <typename T>
-int blocks_per_sm(int warps, size_t smem, int max_smem, int* per_sm) {
-  static bool ready = false;
-  if (!ready) {
+int blocks_per_sm(int dev, int warps, size_t smem, int max_smem, int* per_sm) {
+  static bool ready[per_device::kMaxDevices] = {};
+  if (!ready[dev]) {
     cudaError_t err = cudaFuncSetAttribute(maxsim_kernel<T>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ready = true;
+    ready[dev] = true;
   }
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, maxsim_kernel<T>, warps * 32, smem));
@@ -428,7 +430,7 @@ struct Plan {
 // The block size with the most warps resident on an SM, for blocks that stage
 // `queries` queries (the smaller block on a tie).
 template <typename T>
-int plan_for(int rs, int d32, int tq16, int queries, int max_smem, Plan& plan) {
+int plan_for(int dev, int rs, int d32, int tq16, int queries, int max_smem, Plan& plan) {
   const size_t fixed = static_cast<size_t>(queries) *
                        (kMaxQ * 4 + ((static_cast<size_t>(tq16) * (d32 * 2 + 16) + 127) & ~size_t(127)));
   const size_t ring = kStages * (static_cast<size_t>(kTile) * rs + kMaskBytes + 8);  // + barriers
@@ -437,7 +439,7 @@ int plan_for(int rs, int d32, int tq16, int queries, int max_smem, Plan& plan) {
     const size_t smem = fixed + warps * ring;
     if (smem > static_cast<size_t>(max_smem)) continue;
     int per_sm = 0;
-    const int err = blocks_per_sm<T>(warps, smem, max_smem, &per_sm);
+    const int err = blocks_per_sm<T>(dev, warps, smem, max_smem, &per_sm);
     if (err != 0) return err;
     if (per_sm * warps >= best.per_sm * best.warps && per_sm > 0) best = Plan{warps, per_sm, smem};
   }
@@ -447,7 +449,7 @@ int plan_for(int rs, int d32, int tq16, int queries, int max_smem, Plan& plan) {
 }
 
 // The launch of one shape: its plan, the candidates a block serves and the queries
-// it stages. A few shapes are kept (the engine alternates batch sizes).
+// it stages. A few shapes are kept per device (the engine alternates batch sizes).
 struct Launch {
   int d = -1, tq = -1, b = -1, k = -1;
   Plan plan;
@@ -455,15 +457,19 @@ struct Launch {
 };
 
 template <typename T>
-int launch_for(int d, int tq, int b, int k, int rs, int sms, int max_smem, Launch& out) {
+int launch_for(int dev, int d, int tq, int b, int k, int rs, int sms, int max_smem, Launch& out) {
   constexpr int kKept = 4;
-  static Launch kept[kKept];
-  static int next = 0;
-  for (const Launch& l : kept)
+  static Launch kept_of[per_device::kMaxDevices][kKept];
+  static int next_of[per_device::kMaxDevices] = {};
+  Launch* kept = kept_of[dev];
+  int& next = next_of[dev];
+  for (int i = 0; i < kKept; ++i) {
+    const Launch& l = kept[i];
     if (l.d == d && l.tq == tq && l.b == b && l.k == k) {
       out = l;
       return 0;
     }
+  }
   // One wave of blocks, each serving an equal run of the flattened candidates
   // (every SM gets the same work) and staging the queries its run spans. A run of
   // `chunk` consecutive candidates spans at most (chunk + k - 2) / k + 1 queries;
@@ -473,10 +479,10 @@ int launch_for(int d, int tq, int b, int k, int rs, int sms, int max_smem, Launc
   Launch l{d, tq, b, k};
   int queries = 1, chunk = 1;
   for (int pass = 0; pass < 3; ++pass) {
-    int err = plan_for<T>(rs, d32, tq16, queries, max_smem, l.plan);
+    int err = plan_for<T>(dev, rs, d32, tq16, queries, max_smem, l.plan);
     while (err == -1 && queries > 1) {  // fewer queries a block, shorter runs
       --queries;
-      err = plan_for<T>(rs, d32, tq16, queries, max_smem, l.plan);
+      err = plan_for<T>(dev, rs, d32, tq16, queries, max_smem, l.plan);
     }
     if (err != 0) return err;
     const int64_t blocks = static_cast<int64_t>(l.plan.per_sm) * sms;
@@ -499,8 +505,8 @@ int launch_for(int d, int tq, int b, int k, int rs, int sms, int max_smem, Launc
 }
 
 // Tensor map of the token store: rows of 4-byte elements, boxes of 32 rows as wide
-// as the padded shared-memory row (TMA zero-fills the pad and the k tail), encoded
-// again only when the store changes.
+// as the padded shared-memory row (TMA zero-fills the pad and the k tail), kept per
+// device and encoded again only when that device's store changes.
 struct Map {
   const void* tokens = nullptr;
   uint64_t rows = 0;
@@ -535,12 +541,14 @@ int launch(const void* tokens, const void* tok_mask, const void* parent, const v
   if (p_rows < 1 || td < 1 || d < 1 || tq < 1 || tq > kMaxQ || b < 1 || k < 1 ||
       static_cast<int64_t>(p_rows) * td > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int sms = 0, max_smem = 0;  // of the current device
-  static Map map;                    // of the last store
+  static int sms_of[per_device::kMaxDevices] = {}, max_smem_of[per_device::kMaxDevices] = {};
+  static Map maps[per_device::kMaxDevices];  // of each device's last store
+  int dev = 0;
+  if (const cudaError_t e = per_device::current(&dev); e != cudaSuccess) return static_cast<int>(e);
+  int &sms = sms_of[dev], &max_smem = max_smem_of[dev];  // of the current device
+  Map& map = maps[dev];
   if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) {
@@ -559,7 +567,7 @@ int launch(const void* tokens, const void* tok_mask, const void* parent, const v
     if (err != 0) return err;
   }
   Launch l;
-  const int err = launch_for<T>(d, tq, b, k, rs, sms, max_smem, l);
+  const int err = launch_for<T>(dev, d, tq, b, k, rs, sms, max_smem, l);
   if (err != 0) return err;
   const Plan& plan = l.plan;
   const int64_t total = static_cast<int64_t>(b) * k;

@@ -220,7 +220,9 @@ __device__ __forceinline__ void run(const float* __restrict__ rows, const float*
 }
 
 // Blocks of `kernel` that fit on an SM with its shared memory, times the SMs: the
-// persistent grid's cap. Raises the kernel's dynamic shared memory limit first.
+// persistent grid's cap on the current device. Raises the kernel's dynamic shared
+// memory limit there first (an attribute of each device: the callers keep the cap,
+// and so this call, per device; per_device.cuh).
 template <typename Kernel>
 cudaError_t resident_blocks(Kernel kernel, int threads, int smem_bytes, int* cap) {
   int dev = 0, sms = 0, per_sm = 0;

@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kDocPad = -2;
@@ -241,11 +243,12 @@ int launch(const void* ids, const void* weights, const void* query, void* out, i
            int b, int q, void* stream) {
   if (n < 1 || l < 1 || b < 1 || q < 1 || q > kMaxTerms)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int sms = 0, max_smem = 0;  // of the current device
+  static int sms_of[per_device::kMaxDevices] = {}, max_smem_of[per_device::kMaxDevices] = {};
+  int dev = 0;
+  if (const cudaError_t e = per_device::current(&dev); e != cudaSuccess) return static_cast<int>(e);
+  int &sms = sms_of[dev], &max_smem = max_smem_of[dev];  // of the current device
   if (sms == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)

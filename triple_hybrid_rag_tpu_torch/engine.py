@@ -1,14 +1,24 @@
-"""The batched three-channel query program on one device.
+"""The batched three-channel query program over a mesh of devices.
 
-The port of the JAX ``ShardedEngine`` (``parallel/engine.py``) at one shard. A batch
-of query texts is prepared on the host (plan, analyze, embed, seed, scope) and then
-runs as one program on the device:
+The port of the JAX ``ShardedEngine`` (``parallel/engine.py``). A batch of query
+texts is prepared on the host (plan, analyze, embed, seed, scope) and then runs as
+one program over the mesh (``parallel/mesh.py``; one device by default):
 
-    BM25 top-k (sorted postings,     ->\\
-      or the term-table kernel)
-    dense top-k (fused kernel)          -> merge -> weighted RRF -> parent expand
-    k-hop graph walk + chunk top-k   ->/          -> MaxSim rerank (kernel)  -> safety gate
-                                                     or dot rerank
+    per shard: BM25 top-k (sorted postings,  ->\\
+                 or the term-table kernel)
+    per shard: dense top-k (fused kernel)       -> gather, exact merge -> weighted RRF
+    per shard: graph chunk top-k             ->/   -> parent expand -> MaxSim rerank
+                                                      (kernel) or dot rerank -> safety gate
+
+The index is laid out by ``parallel/placement.py``: each shard holds a contiguous
+block of rows, and each data row of the mesh a whole replica. The batch splits into
+contiguous slices, one per data row. Within a row the shards' top-k lists are
+launched from this one thread in shard order (CUDA launches are asynchronous, so
+separate cards overlap), their ids offset by ``shard * n_loc``, copied to the row's
+first device and merged by the reference's exact ``merge_topk``; the k-hop entity
+walk runs once per row there and its result is copied to the shards. Fusion,
+expansion, rerank and gate run once per row, on that device. One process drives
+every device; no process group is involved.
 
 Program variants follow the reference's ``(batch, scoped, graph)`` keys: the
 collection mask is only built for scoped batches, narrow batches take the sparse
@@ -31,7 +41,6 @@ the host.
 
 from __future__ import annotations
 
-import math
 import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -69,6 +78,8 @@ from .ops.fusion import (
 from .ops.graph import graph_sparse_topk, graph_topk_batch, khop_distances, seed_vectors
 from .ops.maxsim import calibrate_maxsim, maxsim_scores
 from .ops.topk import bucketed_masked_top_k_batch, lax_top_k, masked_top_k, merge_topk
+from .parallel.mesh import DeviceMesh, single_device_mesh
+from .parallel.placement import place
 from .retrieval import decode_results, maxsim_query_weights
 from .types import QueryPlan, RetrievalResult
 
@@ -114,17 +125,18 @@ class Engine:
         planner=None,
         device=None,
         dot_rerank: bool = True,
+        mesh: Optional[DeviceMesh] = None,
     ) -> None:
-        self.device = resolve_device(device)
+        # with a mesh and no device, the queries are prepared where the state lies
+        self.device = resolve_device(state.device if device is None and mesh is not None else device)
         cfg = config or state.config
         self.config = cfg
         if self.device != state.device:
             raise ValueError(f"index state lives on {state.device}, engine on {self.device}")
-        if math.prod(cfg.mesh_shape) > 1:
-            raise NotImplementedError(
-                "more than one device is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
-            )
+        # config.mesh_shape is only carried, as in the reference: the mesh decides
+        self.mesh = mesh if mesh is not None else single_device_mesh(state.parent_of.device)
         self.state = state
+        self.placement = place(state, self.mesh)
         self.corpus = state.corpus
         self.analyzer = Analyzer(cfg)
         self.embedder = embedder or get_default_embedder(cfg, device=self.device)
@@ -141,32 +153,36 @@ class Engine:
         self.dot_rerank = dot_rerank
 
     @classmethod
-    def from_retriever(cls, retriever) -> "Engine":
+    def from_retriever(cls, retriever, mesh: Optional[DeviceMesh] = None) -> "Engine":
         """The engine over a :class:`~triple_hybrid_rag_tpu_torch.retrieval.Retriever`'s
-        placed state, with its embedder and planner, on its device (the reference's
-        ``ShardedEngine(retriever)`` at one device). It reranks by the parents' mean
-        embeddings where the retriever's reranker holds them."""
-        return cls(
-            retriever.state, embedder=retriever.embedder, planner=retriever.planner,
-            device=retriever.device,
-            dot_rerank=getattr(retriever.reranker, "parent_embeddings", None) is not None,
+        placed state, with its embedder and planner, over ``mesh`` (default: the
+        retriever's device alone). It reranks by the parents' mean embeddings where
+        the retriever's reranker holds them (``parallel.ShardedEngine``)."""
+        from .parallel.engine import ShardedEngine
+
+        return ShardedEngine(
+            retriever, mesh if mesh is not None else single_device_mesh(retriever.device)
         )
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.shape["shard"]
 
     def refresh(self, state: IndexState) -> bool:
         """Swap in an updated index state when every static statistic the program
         depends on is unchanged (capacity, windows, graph mode and entity capacity,
-        dims and row dtype, the IVF mode, config, which fixes the IVF block width);
-        the new state brings its own arrays, the IVF layout included. Returns False
+        dims and row dtype, the IVF mode, config, which fixes the IVF block width),
+        over this engine's mesh as well (the capacity rounded to it, the largest
+        per-shard postings and mention blocks); the new state brings its own arrays,
+        the IVF layout included, and is placed over the mesh anew. Returns False
         when the shapes changed; build a new Engine then."""
         old = self.state
+        # capacity and windows are compared as placed over the mesh, below
         same = (
-            state.n_pad == old.n_pad
-            and state.lex_l_max == old.lex_l_max
-            and state.lexical_mode == old.lexical_mode
+            state.lexical_mode == old.lexical_mode
             and state.graph_mode == old.graph_mode
             and state.graph_small_sparse == old.graph_small_sparse
             and state.graph_active == old.graph_active
-            and state.g_l_max == old.g_l_max
             and state.graph_m == old.graph_m
             and state.dim == old.dim
             and state.ivf_mode == old.ivf_mode
@@ -177,10 +193,13 @@ class Engine:
             and _same(state.maxsim_tokens, old.maxsim_tokens, lambda t: t.shape)
             and _same(state.parent_emb, old.parent_emb, lambda t: t.shape)
         )
-        if same:
-            self.state = state
-            self.corpus = state.corpus
-        return same
+        if not same:
+            return False
+        placement = place(state, self.mesh)
+        if placement.statics() != self.placement.statics():
+            return False
+        self.state, self.placement, self.corpus = state, placement, state.corpus
+        return True
 
     # ------------------------------------------------------------------ host prep
 
@@ -325,146 +344,213 @@ class Engine:
 
     def use_fused(self) -> bool:
         """Dense channel through the fused kernel: ``use_fused_topk`` None resolves
-        to the kernel on a CUDA device, for every row dtype (the reference's TPU auto
+        to the kernel on a CUDA mesh, for every row dtype (the reference's TPU auto
         rule, and its exception for int4 rows, do not apply)."""
         flag = self.config.use_fused_topk
-        return self.device.type == "cuda" if flag is None else bool(flag)
+        return self.mesh.grid[0][0].type == "cuda" if flag is None else bool(flag)
 
     @torch.no_grad()
     def run(self, args: QueryArgs, scoped: bool = False, graph: bool = True):
         """The batched program. Returns (ids i64[B, final_k], scores f32[B, final_k],
         refused bool[B], max_score f32[B], FusedCandidates [B, rerank_k], rerank
-        f32[B, rerank_k]) on the device. Each stage runs under a profiler range
-        (``engine.lexical``, ``engine.dense``, ``engine.graph``, ``engine.tail``)."""
-        st = self.state
-        row_mask = None
-        if scoped:
-            cid = args.coll_cid
-            row_mask = (cid[:, None] == -1) | (st.collection_of[None, :] == cid[:, None])
-        with record_function("engine.lexical"):
-            lex = self._lexical(args, row_mask)
-        with record_function("engine.dense"):
-            sem = self._dense(args, row_mask, scoped)
-        with record_function("engine.graph"):
-            gr = self._graph(args, row_mask, graph)
-        with record_function("engine.tail"):
-            return self._tail(args, lex, sem, gr)
+        f32[B, rerank_k]) on the engine's device. The batch splits into one
+        contiguous slice per data row of the mesh (B must be a multiple of the
+        rows). Each stage runs under a profiler range (``engine.lexical``,
+        ``engine.dense``, ``engine.graph``, ``engine.tail``)."""
+        dp = self.mesh.shape["data"]
+        outs = []
+        for r in range(dp):
+            a = self.row_args(args, r)
+            with record_function("engine.lexical"):
+                lex = self._lexical(a, scoped, r)
+            with record_function("engine.dense"):
+                sem = self._dense(a, scoped, r)
+            with record_function("engine.graph"):
+                gr = self._graph(a, scoped, graph, r)
+            with record_function("engine.tail"):
+                outs.append(self._tail(a, lex, sem, gr, r))
+        if dp == 1:
+            ids, scores, refused, max_score, fused, rerank = outs[0]
+            fused = FusedCandidates(*(x.to(self.device) for x in fused))
+            return (*(x.to(self.device) for x in (ids, scores, refused, max_score)), fused,
+                    rerank.to(self.device))
 
-    def _empty(self, batch: int):
+        def cat(xs):
+            return torch.cat([x.to(self.device) for x in xs], 0)
+
+        ids, scores, refused, max_score, fused, rerank = zip(*outs)
+        return (cat(ids), cat(scores), cat(refused), cat(max_score),
+                FusedCandidates(*(cat(f) for f in zip(*fused))), cat(rerank))
+
+    def row_args(self, args: QueryArgs, row: int) -> QueryArgs:
+        """Data row ``row``'s contiguous slice of a prepared batch, on the row's
+        device. The batch must be a multiple of the mesh's data rows."""
+        dp = self.mesh.shape["data"]
+        batch = args.q_vec.shape[0]
+        if batch % dp:
+            raise ValueError(f"batch {batch} must divide the data axis ({dp})")
+        per = batch // dp
+        dev = self.placement.rows[row].device
+        return QueryArgs(*(
+            (x if x.dim() == 0 else x[row * per:(row + 1) * per]).to(dev) for x in args
+        ))
+
+    def _shards(self, args: QueryArgs, scoped: bool, row: int):
+        """(shard state, the query args on its device, its row mask bool[B, n_loc]
+        or None) for each shard of data row ``row``."""
+        out = []
+        for st in self.placement.shards[row]:
+            a = QueryArgs(*(x.to(st.device) for x in args))
+            mask = None
+            if scoped:
+                cid = a.coll_cid
+                mask = (cid[:, None] == -1) | (st.collection_of[None, :] == cid[:, None])
+            out.append((st, a, mask))
+        return out
+
+    def _empty(self, batch: int, row: int = 0):
+        dev = self.placement.rows[row].device
         return (
-            torch.full((batch, 1), -1, dtype=torch.long, device=self.device),
-            torch.zeros((batch, 1), dtype=torch.float32, device=self.device),
+            torch.full((batch, 1), -1, dtype=torch.long, device=dev),
+            torch.zeros((batch, 1), dtype=torch.float32, device=dev),
         )
 
-    @staticmethod
-    def _merge(ids, vals, k: int):
-        """The reference's exact merge of per-shard lists, at one shard."""
-        return merge_topk(ids[:, None, :], vals[:, None, :], k)
+    def _merge(self, parts, k: int, row: int):
+        """The reference's exact merge of the shards' [B, k_local] lists: local ids
+        offset by ``shard * n_loc`` (-1 stays), gathered to the row's device as
+        [B, S, k_local], one ``merge_topk``."""
+        dev = self.placement.rows[row].device
+        n_loc = self.placement.n_loc
+        ids = [i if si == 0 else torch.where(i >= 0, i + si * n_loc, i)
+               for si, (i, _) in enumerate(parts)]
+        ids = torch.stack([i.to(dev) for i in ids], 1)
+        vals = torch.stack([v.to(dev) for _, v in parts], 1)
+        return merge_topk(ids, vals, k)
 
-    def _lexical(self, args: QueryArgs, row_mask):
-        st, cfg = self.state, self.config
-        if st.lexical_mode == "none" or not cfg.lexical_enabled:
-            return self._empty(args.q_vec.shape[0])
-        if st.lexical_mode == "termtable":
-            # one pass of the table per block of queries, then the top-k of the block
-            batch = args.q_terms.shape[0]
-            step = max(1, _TERMTABLE_SCORE_ELEMS // st.n_pad)
-            found = []
-            for lo in range(0, batch, step):
-                scores = score_termtable_batch(
-                    st.term_ids, st.term_weights, args.q_terms[lo:lo + step]
-                )
-                mask = None if row_mask is None else row_mask[lo:lo + step]
-                found.append(masked_top_k(scores, cfg.lexical_top_k, valid=mask))
-            ids, vals = (torch.cat(x, 0) for x in zip(*found))
-            return self._merge(ids, vals, cfg.lexical_top_k)
-        csr = (st.lex_offsets, st.lex_lengths, st.lex_pd, st.lex_pt)
-        if cfg.lexical_tiering:
-            ids, vals = score_postings_topk_tiered(
-                *csr, args.qs_terms, args.qs_slots, args.ql_terms, args.ql_slots, row_mask,
-                l_small=min(cfg.bm25_small_window, st.lex_l_max), l_max=st.lex_l_max,
-                n_pad=st.n_pad, top_k=cfg.lexical_top_k,
-            )
-        else:
-            ids, vals = score_postings_topk_pre(
-                *csr, args.q_terms, row_mask, l_max=st.lex_l_max, n_pad=st.n_pad,
-                top_k=cfg.lexical_top_k,
-            )
-        return self._merge(ids, vals, cfg.lexical_top_k)
-
-    def _dense(self, args: QueryArgs, row_mask, scoped: bool):
-        st, cfg = self.state, self.config
-        q_vec = args.q_vec.float()
-        if not (st.has_dense and cfg.semantic_enabled):
-            return self._empty(q_vec.shape[0])
-        k = cfg.semantic_top_k
-        scope = dict(
-            collection_of=st.collection_of if scoped else None,
-            coll_cid=args.coll_cid if scoped else None,
-        )
-        if st.ivf_mode:
-            # blocked IVF: probe the top block centroids, score their rows; ids come
-            # back as original rows, so the merge and the guard apply unchanged
-            quantized = st.embeddings.dtype in (torch.int8, torch.uint8)
-            ids, vals = ivf_topk_local(
-                st.embeddings, st.dense_scales if quantized else None, st.ivf_perm,
-                st.ivf_centroids, q_vec, probes=cfg.ivf_probes, top_k=k,
-                row_mask=row_mask,
-            )
-        elif self.use_fused():  # every row dtype
-            ids, vals = fused_dense_topk(
-                st.embeddings, st.valid, q_vec, k, scales=st.dense_scales, **scope
-            )
-        elif st.embeddings.dtype == torch.uint8:  # packed int4: blocked unpack
-            ids, vals = int4_topk_blocked(
-                st.embeddings, st.dense_scales, st.valid, q_vec, k, **scope
-            )
-        else:
-            if st.embeddings.dtype == torch.int8:
-                scores = dense_scores_int8_batch(st.embeddings, st.dense_scales, q_vec)
+    def _lexical(self, args: QueryArgs, scoped: bool = False, row: int = 0):
+        """The lexical channel of data row ``row`` (``args`` that row's slice, on its
+        device): each shard's top-k over its rows, merged."""
+        cfg = self.config
+        state = self.state
+        if state.lexical_mode == "none" or not cfg.lexical_enabled:
+            return self._empty(args.q_vec.shape[0], row)
+        parts = []
+        for st, a, mask in self._shards(args, scoped, row):
+            if st.lexical_mode == "termtable":
+                # one pass of the table per block of queries, then the top-k of the block
+                batch = a.q_terms.shape[0]
+                step = max(1, _TERMTABLE_SCORE_ELEMS // st.n_pad)
+                found = []
+                for lo in range(0, batch, step):
+                    scores = score_termtable_batch(
+                        st.term_ids, st.term_weights, a.q_terms[lo:lo + step]
+                    )
+                    m = None if mask is None else mask[lo:lo + step]
+                    found.append(masked_top_k(scores, cfg.lexical_top_k, valid=m))
+                parts.append(tuple(torch.cat(x, 0) for x in zip(*found)))
+                continue
+            csr = (st.lex_offsets, st.lex_lengths, st.lex_pd, st.lex_pt)
+            if cfg.lexical_tiering:
+                parts.append(score_postings_topk_tiered(
+                    *csr, a.qs_terms, a.qs_slots, a.ql_terms, a.ql_slots, mask,
+                    l_small=min(cfg.bm25_small_window, st.lex_l_max), l_max=st.lex_l_max,
+                    n_pad=st.n_pad, top_k=cfg.lexical_top_k,
+                ))
             else:
-                scores = dense_scores_batch(st.embeddings, q_vec)
-            valid = st.valid[None, :] if row_mask is None else st.valid[None, :] & row_mask
-            ids, vals = bucketed_masked_top_k_batch(scores, k, valid=valid, invalid_score_floor=-2.0)
-        ids, vals = self._merge(ids, vals, k)
+                parts.append(score_postings_topk_pre(
+                    *csr, a.q_terms, mask, l_max=st.lex_l_max, n_pad=st.n_pad,
+                    top_k=cfg.lexical_top_k,
+                ))
+        return self._merge(parts, cfg.lexical_top_k, row)
+
+    def _dense(self, args: QueryArgs, scoped: bool = False, row: int = 0):
+        """The dense channel of data row ``row``: each shard's top-k, merged, then
+        the zero-vector guard."""
+        cfg = self.config
+        q_vec = args.q_vec.float()
+        if not (self.state.has_dense and cfg.semantic_enabled):
+            return self._empty(q_vec.shape[0], row)
+        k = cfg.semantic_top_k
+        parts = []
+        for st, a, mask in self._shards(args, scoped, row):
+            q = a.q_vec.float()
+            scope = dict(
+                collection_of=st.collection_of if scoped else None,
+                coll_cid=a.coll_cid if scoped else None,
+            )
+            if st.ivf_mode:
+                # blocked IVF: probe the top block centroids, score their rows; ids
+                # come back as local rows, so the merge and the guard apply unchanged
+                quantized = st.embeddings.dtype in (torch.int8, torch.uint8)
+                parts.append(ivf_topk_local(
+                    st.embeddings, st.dense_scales if quantized else None, st.ivf_perm,
+                    st.ivf_centroids, q, probes=cfg.ivf_probes, top_k=k, row_mask=mask,
+                ))
+            elif self.use_fused():  # every row dtype
+                parts.append(fused_dense_topk(
+                    st.embeddings, st.valid, q, k, scales=st.dense_scales, **scope
+                ))
+            elif st.embeddings.dtype == torch.uint8:  # packed int4: blocked unpack
+                parts.append(int4_topk_blocked(
+                    st.embeddings, st.dense_scales, st.valid, q, k, **scope
+                ))
+            else:
+                if st.embeddings.dtype == torch.int8:
+                    scores = dense_scores_int8_batch(st.embeddings, st.dense_scales, q)
+                else:
+                    scores = dense_scores_batch(st.embeddings, q)
+                valid = st.valid[None, :] if mask is None else st.valid[None, :] & mask
+                parts.append(bucketed_masked_top_k_batch(
+                    scores, k, valid=valid, invalid_score_floor=-2.0
+                ))
+        ids, vals = self._merge(parts, k, row)
         return zero_query_guard(q_vec, ids, vals)
 
-    def _graph(self, args: QueryArgs, row_mask, graph: bool):
-        st, cfg = self.state, self.config
+    def _graph(self, args: QueryArgs, scoped: bool = False, graph: bool = True, row: int = 0):
+        """The graph channel of data row ``row``: the k-hop walk once on the row's
+        device, then each shard's chunk top-k (the sparse mention walk or the dense
+        scan), merged."""
+        cfg = self.config
+        rs = self.placement.rows[row]
         batch = args.q_vec.shape[0]
-        if not (st.has_graph and cfg.graph_enabled and graph):
-            return self._empty(batch)
+        if not (rs.has_graph and cfg.graph_enabled and graph):
+            return self._empty(batch, row)
         hops = cfg.graph_hops
-        mode = st.graph_mode
-        if mode == "dense" and st.graph_small_sparse and batch <= cfg.graph_sparse_max_batch:
+        mode = rs.graph_mode
+        if mode == "dense" and rs.graph_small_sparse and batch <= cfg.graph_sparse_max_batch:
             mode = "sparse"  # narrow batches: the per-query mention walk
-        dist = khop_distances(st.nbr, seed_vectors(args.seed_rows, st.nbr.shape[0]), hops=hops)
+        dist = khop_distances(rs.nbr, seed_vectors(args.seed_rows, rs.nbr.shape[0]), hops=hops)
         reach = dist <= float(hops)
         ent_all = torch.where(reach, 1.0 / (1.0 + dist), torch.zeros_like(dist))
         graph_on = args.graph_on
         if mode == "sparse":
             act_s, act_e = lax_top_k(
-                torch.where(graph_on[:, None], ent_all, torch.zeros_like(ent_all)), st.graph_active
+                torch.where(graph_on[:, None], ent_all, torch.zeros_like(ent_all)), rs.graph_active
             )
             act_e = torch.where(act_s > 0.0, act_e, torch.full_like(act_e, -1))
-            ids, vals = graph_sparse_topk(
-                st.g_offsets, st.g_lengths, st.g_docs, act_e, act_s, row_mask,
-                l_max_g=st.g_l_max, n_pad=st.n_pad, top_k=cfg.graph_top_k, run_bound=st.graph_m,
-            )
         else:
             # u8 hop ranks order the buckets exactly as the f32 scores do
             ranks = torch.where(
                 reach & graph_on[:, None], (float(hops) + 1.0) - dist, torch.zeros_like(dist)
             ).to(torch.uint8)
-            ids, vals = graph_topk_batch(
-                st.chunk_entities, ent_all, cfg.graph_top_k, valid=row_mask,
-                query_on=graph_on, entity_ranks=ranks,
-            )
-        return self._merge(ids, vals, cfg.graph_top_k)
+        parts = []
+        for st, a, mask in self._shards(args, scoped, row):
+            if mode == "sparse":
+                parts.append(graph_sparse_topk(
+                    st.g_offsets, st.g_lengths, st.g_docs, act_e.to(st.device),
+                    act_s.to(st.device), mask, l_max_g=st.g_l_max, n_pad=st.n_pad,
+                    top_k=cfg.graph_top_k, run_bound=st.graph_m,
+                ))
+            else:
+                parts.append(graph_topk_batch(
+                    st.chunk_entities, ent_all.to(st.device), cfg.graph_top_k, valid=mask,
+                    query_on=a.graph_on, entity_ranks=ranks.to(st.device),
+                ))
+        return self._merge(parts, cfg.graph_top_k, row)
 
-    def _tail(self, args: QueryArgs, lex, sem, gr):
-        """Fuse, expand to parents, rerank, gate."""
-        st, cfg = self.state, self.config
+    def _tail(self, args: QueryArgs, lex, sem, gr, row: int = 0):
+        """Fuse, expand to parents, rerank, gate: once per data row, on its device."""
+        st, cfg = self.placement.rows[row], self.config
         w = args.weights
         fused = fuse_rrf(
             *lex, *sem, *gr, w[:, :3],
@@ -546,11 +632,18 @@ class Engine:
         collections: Optional[Sequence[Optional[str]]] = None,
     ) -> List[RetrievalResult]:
         """Batched retrieval with host decode. ``collection`` scopes the whole batch;
-        ``collections`` scopes per query."""
-        colls = list(collections) if collections is not None else [collection] * len(queries)
+        ``collections`` scopes per query. The batch pads up to a multiple of the
+        mesh's data axis with copies of the first query (each data row serves an
+        equal slice); only the real queries' results return."""
+        n_real = len(queries)
+        padded = list(queries)
+        colls = list(collections) if collections is not None else [collection] * n_real
+        while len(padded) % self.mesh.shape["data"]:
+            padded.append(queries[0])
+            colls.append(colls[0])
         t0 = time.perf_counter()
         try:
-            plans, out = self._search_host(queries, colls)
+            plans, out = self._search_host(padded, colls)
         except RuntimeError:
             # a failure of the device encode can surface only at the copy back to the
             # host (kernels run asynchronously): retry once through the host path,
@@ -559,10 +652,11 @@ class Engine:
                 raise
             self.device_query_encode = False
             try:
-                plans, out = self._search_host(queries, colls)
+                plans, out = self._search_host(padded, colls)
             finally:
                 self.device_query_encode = True
         ids, scores, refused, max_score, fused, rerank = out
+        plans = plans[:n_real]
         dispatch_ms = (time.perf_counter() - t0) * 1e3
 
         results: List[RetrievalResult] = []
@@ -586,9 +680,9 @@ class Engine:
                     ),
                     max_score=float(max_score[i]),
                     timings={
-                        "dispatch_ms": dispatch_ms / len(queries),
+                        "dispatch_ms": dispatch_ms / len(padded),
                         "decode_ms": decode_ms,
-                        "total_ms": dispatch_ms / len(queries) + decode_ms,
+                        "total_ms": dispatch_ms / len(padded) + decode_ms,
                     },
                 )
             )

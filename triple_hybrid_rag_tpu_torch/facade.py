@@ -147,9 +147,14 @@ class RAG:
         )
 
     def _get_engine(self) -> Engine:
+        """The serving engine: over every visible card when the RAG is on the default
+        CUDA device (the reference's ``ShardedEngine(retriever, corpus_mesh())``),
+        else over the one device it names (``"cpu"``, ``"cuda:1"``)."""
         retriever = self.retriever  # may drop self._engine via the rebuild
         if self._engine is None:
-            self._engine = Engine.from_retriever(retriever)
+            from .parallel.mesh import default_mesh
+
+            self._engine = Engine.from_retriever(retriever, mesh=default_mesh(retriever.device))
         return self._engine
 
     # ------------------------------------------------------------------
@@ -200,6 +205,6 @@ class RAG:
             out["engine_lexical_mode"] = st.lexical_mode
             out["engine_graph_mode"] = st.graph_mode
             out["engine_semantic_backend"] = "ivf" if st.ivf_mode else "exact"
-            out["engine_n_shards"] = 1
+            out["engine_n_shards"] = self._engine.n_shards
             out["engine_n_pad"] = st.n_pad
         return out

@@ -86,6 +86,47 @@ def mention_csr(ce_host: np.ndarray, e_pad: int, cap: int):
     return out_offsets, lens.astype(np.int32), out_docs, l_max, truncated
 
 
+def split_csr(
+    offsets: torch.Tensor,
+    lengths: torch.Tensor,
+    rows: torch.Tensor,
+    weights: Optional[torch.Tensor],
+    n_loc: int,
+    n_shards: int,
+) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]], int]:
+    """Split a packed CSR (the layouts of :func:`_csr_layout` and :func:`mention_csr`:
+    blocks in key order, rows ascending within a block) into one CSR per shard of
+    ``n_loc`` rows, on the tensors' device: the reference's ``_shard_csr`` and
+    ``_shard_mentions`` after their global steps. Within a key, rows ascend, so
+    each (key, shard) block is one contiguous run; a stable sort by (shard, key)
+    lines the runs up shard by shard. Returns ([(offsets i32[V+1], lengths i32[V],
+    local rows i32[W], weights f32[W] or None)] per shard, W = the shard's entries +
+    l_max, tail -1 / 0; l_max the largest (key, shard) block, at least 1)."""
+    v = lengths.shape[0]
+    dev = rows.device
+    total = int(offsets[-1])
+    key = torch.repeat_interleave(torch.arange(v, device=dev), lengths.long())
+    r = rows[:total].long()
+    shard = torch.clamp(r // max(n_loc, 1), max=n_shards - 1)
+    counts = torch.bincount(key * n_shards + shard, minlength=v * n_shards).view(v, n_shards)
+    l_max = max(int(counts.max()) if total else 1, 1)
+    order = torch.argsort(shard * v + key, stable=True)
+    out, lo = [], 0
+    for si, n_si in enumerate(counts.sum(dim=0).tolist()):
+        idx = order[lo:lo + n_si]
+        lo += n_si
+        offs = torch.zeros(v + 1, dtype=torch.int32, device=dev)
+        offs[1:] = torch.cumsum(counts[:, si], 0)
+        local = torch.full((n_si + l_max,), -1, dtype=torch.int32, device=dev)
+        local[:n_si] = r[idx] - si * n_loc
+        w = None
+        if weights is not None:
+            w = torch.zeros((n_si + l_max,), dtype=torch.float32, device=dev)
+            w[:n_si] = weights[:total][idx]
+        out.append((offs, counts[:, si].to(torch.int32), local, w))
+    return out, l_max
+
+
 def _to_tensor(arr: np.ndarray, device) -> torch.Tensor:
     """numpy -> tensor, including the ml_dtypes bfloat16 arrays JAX hands out."""
     arr = np.ascontiguousarray(arr)

@@ -247,6 +247,39 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+            n_heads: int) -> torch.Tensor:
+    """Dot-product attention of ``n_heads`` heads laid out head-major in the last
+    axis of q, k, v [B, T, heads x head dim] (their dtype the compute dtype): scaled
+    scores, the key mask, the softmax; returns [B, T, heads x head dim]."""
+    b, t, width = q.shape
+    h = n_heads
+    dh = width // h
+    dt = q.dtype
+    q, k, v = (x.view(b, t, h, dh).transpose(1, 2) for x in (q, k, v))
+    q = q / _const(math.sqrt(dh), dt)
+    scores = torch.matmul(q, k.transpose(-1, -2))  # [B, H, Tq, Tk]
+    scores = torch.where(mask[:, None, None, :], scores, torch.finfo(dt).min)
+    # jax.nn.softmax in the compute dtype; its sum accumulates in f32
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    w = e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(dt)
+    return torch.matmul(w, v).transpose(1, 2).reshape(b, t, width)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The pooled input: the mean of x [B, T, d] over the unmasked tokens, its sums
+    in f32 rounded to x's dtype."""
+    dt = x.dtype
+    m = mask[..., None].to(dt)
+    denom = torch.clamp(m.sum(dim=1, dtype=torch.float32).to(dt), min=1.0)
+    return (x * m).sum(dim=1, dtype=torch.float32).to(dt) / denom
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    """Rows scaled to unit norm (norms below 1e-6 count as 1e-6)."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-6)
+
+
 class _LayerNorm(nn.Module):
     def __init__(self, d: int) -> None:
         super().__init__()
@@ -282,19 +315,7 @@ class Attention(nn.Module):
         self.out = _Dense(d, d)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        b, t, d = x.shape
-        h = self.n_heads
-        dh = d // h
-        dt = x.dtype
-        q, k, v = (m(x).view(b, t, h, dh).transpose(1, 2) for m in (self.query, self.key, self.value))
-        q = q / _const(math.sqrt(dh), dt)
-        scores = torch.matmul(q, k.transpose(-1, -2))  # [B, H, Tq, Tk]
-        scores = torch.where(mask[:, None, None, :], scores, torch.finfo(dt).min)
-        # jax.nn.softmax in the compute dtype; its sum accumulates in f32
-        e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-        w = e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(dt)
-        o = torch.matmul(w, v).transpose(1, 2).reshape(b, t, d)
-        return self.out(o)
+        return self.out(_attend(self.query(x), self.key(x), self.value(x), mask, self.n_heads))
 
 
 class Block(nn.Module):
@@ -340,13 +361,8 @@ class Encoder(nn.Module):
         for blk in self.blocks:
             x = blk(x, mask)
         x = self.ln_final(x)
-        m = mask[..., None].to(dt)
-        denom = torch.clamp(m.sum(dim=1, dtype=torch.float32).to(dt), min=1.0)
-        pooled = (x * m).sum(dim=1, dtype=torch.float32).to(dt) / denom
-        pooled = self.pool_proj(pooled).float()
-        pooled = pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-6)
-        tok = self.token_proj(x).float()
-        tok = tok / torch.clamp(torch.linalg.vector_norm(tok, dim=-1, keepdim=True), min=1e-6)
+        pooled = _unit(self.pool_proj(_masked_mean(x, mask)).float())
+        tok = _unit(self.token_proj(x).float())
         return pooled, tok * mask[..., None].float()
 
     def cast_for_compute(self) -> "Encoder":

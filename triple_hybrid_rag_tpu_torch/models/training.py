@@ -15,23 +15,47 @@ out in PyTorch (:class:`AdamW`, :func:`warmup_cosine_decay_schedule`,
 at the count before the increment (step 0 runs at lr 0 and leaves the parameters
 unchanged).
 
-The reference also shards the step over a dp x tp mesh (``training_mesh``,
-``param_shardings``, ``shard_train_state``); a ``mesh`` argument here raises
-(ROADMAP.md, Queue 1: multi-GPU).
+The step also runs sharded over a dp x tp mesh (``training_mesh``,
+``param_shardings``, ``shard_train_state``), as the reference's GSPMD step does, and
+computes the function of the unsharded step:
+
+- **tp**: the Megatron split of the reference's ``_param_spec``. The MLP's input
+  projection, the attention's q/k/v (whole heads) and the pooled and token heads
+  are column-parallel: each tp device holds a block of output rows and computes its
+  block. The MLP's output projection and the attention's output projection (its
+  heads axis) are row-parallel: each device multiplies its block of inputs and the
+  partial sums add on the row's first device. Everything else is replicated.
+- **dp**: the batch splits into contiguous slices, one per dp row (B must be a
+  multiple of dp: the reference's step takes another batch, but its parameters
+  come out NaN); each row runs
+  the forward with its tp pieces. The pooled and token embeddings are gathered for
+  one InfoNCE over the whole batch (in-batch negatives over the full batch).
+- The master parameters (each piece on the first dp row's device of its tp column,
+  replicated parameters on the mesh's first device) reach the other rows through
+  differentiable copies, so autograd sums their gradients over dp (the
+  ``nn.parallel.replicate`` idea). AdamW updates each piece; its moments are placed
+  like the pieces. The step then writes the pieces back into ``state.model``, so
+  the model always holds the trained weights.
+
+One process drives every device; a device may repeat (``devices=["cpu"] * 8``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .encoder import Encoder, EncoderConfig, _anchor_weights, _const, init_encoder
+from ..parallel.mesh import DeviceMesh, _devices
+from .encoder import (
+    Encoder, EncoderConfig, _anchor_weights, _attend, _const, _dense, _gelu_tanh, _layer_norm,
+    _masked_mean, _unit, init_encoder,
+)
 
 
 @dataclass(frozen=True)
@@ -47,13 +71,6 @@ class TrainConfig:
     # weight of the token-level MaxSim InfoNCE term (trains the late-interaction
     # head, ColBERT-style); 0 = pooled-only training.
     maxsim_weight: float = 0.0
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training over a device mesh is not ported (ROADMAP.md, Queue 1: multi-GPU)"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -164,19 +181,41 @@ class AdamW:
 
 @dataclass
 class TrainState:
-    """The encoder being trained (its parameters are the state's), the
-    optimizer's moments and count, and the optimizer."""
+    """The encoder being trained, the optimizer's moments and count, and the
+    optimizer. Unsharded, the model's parameters are the state's. Over a mesh
+    (:func:`shard_train_state`) the state's parameters are ``pieces``: per
+    parameter name its tp pieces (one tensor if replicated), and ``model`` holds the
+    gathered weights after each step."""
 
     model: Encoder
     opt_state: AdamWState
     tx: AdamW = field(repr=False)
+    mesh: Optional[DeviceMesh] = None
+    pieces: Optional[Dict[str, List[torch.Tensor]]] = field(default=None, repr=False)
 
     @property
     def step(self) -> int:
         return self.opt_state.count
 
-    def params(self) -> Dict[str, torch.nn.Parameter]:
-        return dict(self.model.named_parameters())
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The tensors AdamW updates: the model's parameters, or over a mesh the
+        pieces (``name`` for a replicated parameter, ``name[c]`` for piece ``c``)."""
+        if self.pieces is None:
+            return dict(self.model.named_parameters())
+        return {_piece_key(k, c, len(ps)): p for k, ps in self.pieces.items()
+                for c, p in enumerate(ps)}
+
+    @torch.no_grad()
+    def sync_model(self) -> None:
+        """Write the pieces back into ``model`` (no-op unsharded)."""
+        if self.pieces is None:
+            return
+        split = param_shardings(self.model, self.mesh)
+        for name, p in self.model.named_parameters():
+            ps = self.pieces[name]
+            dim = _split_dim(split[name])
+            full = ps[0] if dim is None else torch.cat([x.to(p.device) for x in ps], dim)
+            p.copy_(full)
 
 
 def create_train_state(
@@ -187,14 +226,21 @@ def create_train_state(
     device=None,
 ) -> Tuple[Encoder, TrainState]:
     """(model, state): a fresh :func:`~.encoder.init_encoder` model on ``device``
-    (CUDA unless ``device="cpu"``) and AdamW over optax's warmup-cosine schedule."""
-    _no_mesh(mesh)
+    (CUDA unless ``device="cpu"``; with a mesh and no device, the mesh's first) and
+    AdamW over optax's warmup-cosine schedule; over ``mesh`` (a
+    :func:`training_mesh`) the state is sharded (:func:`shard_train_state`). To
+    warm-start a sharded state, load the weights into the model of an unsharded
+    state, then shard it."""
+    if device is None and mesh is not None:
+        device = mesh.grid[0][0]
     model = init_encoder(enc_cfg, seed, device=resolve_device(device))
     schedule = warmup_cosine_decay_schedule(
         0.0, train_cfg.learning_rate, train_cfg.warmup_steps, train_cfg.decay_steps
     )
     tx = AdamW(schedule, weight_decay=train_cfg.weight_decay)
     state = TrainState(model=model, opt_state=tx.init(dict(model.named_parameters())), tx=tx)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
     return model, state
 
 
@@ -227,11 +273,19 @@ def training_blend(enc_cfg: EncoderConfig, pooled, tok, apool, atok):
 def contrastive_loss(model: Encoder, train_cfg: TrainConfig, q_ids, q_mask, q_apool, q_atok,
                      d_ids, d_mask, d_apool, d_atok) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, accuracy at the full width) of one batch, differentiable."""
-    temp = train_cfg.temperature
     q, q_tok = model(q_ids, q_mask)
     d, d_tok = model(d_ids, d_mask)
-    q, q_tok = training_blend(model.cfg, q, q_tok, q_apool, q_atok)
-    d, d_tok = training_blend(model.cfg, d, d_tok, d_apool, d_atok)
+    return embeddings_loss(model.cfg, train_cfg, q, q_tok, d, d_tok, q_mask, q_apool, q_atok,
+                           d_apool, d_atok)
+
+
+def embeddings_loss(enc_cfg: EncoderConfig, train_cfg: TrainConfig, q, q_tok, d, d_tok, q_mask,
+                    q_apool, q_atok, d_apool, d_atok) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, accuracy) of the encoder's outputs for a batch: the anchor blend,
+    InfoNCE at each Matryoshka width, the MaxSim term."""
+    temp = train_cfg.temperature
+    q, q_tok = training_blend(enc_cfg, q, q_tok, q_apool, q_atok)
+    d, d_tok = training_blend(enc_cfg, d, d_tok, d_apool, d_atok)
     dims = train_cfg.matryoshka_dims or (q.shape[-1],)
     loss = 0.0
     logits = None
@@ -265,8 +319,11 @@ def make_train_step(model: Encoder, train_cfg: TrainConfig, mesh=None):
     The batch is ids and mask [B, T] plus the host-computed identity-anchor
     arrays (``encoder.anchor_arrays``), tensors on the model's device. The step
     updates the state in place and returns it; the metrics are 0-dim tensors on
-    the device (reading them waits for the step)."""
-    _no_mesh(mesh)
+    the device (reading them waits for the step). Over ``mesh`` the state must be
+    sharded over it (:func:`shard_train_state`) and a batch that its dp rows do not
+    divide raises."""
+    if mesh is not None:
+        return _sharded_step(train_cfg, mesh)
 
     def step(state: TrainState, *batch):
         params = state.params()
@@ -306,11 +363,14 @@ def train_pairs(
 
     Fewer pairs than ``batch_size`` shrink the batch instead of doing zero steps;
     a tail batch of >= 2 pairs trains too (InfoNCE needs at least one in-batch
-    negative, so a 1-pair tail is dropped). Returns (state, final metrics)."""
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    negative, so a 1-pair tail is dropped). Over ``mesh`` the state is sharded
+    first if it is not, and a batch that its dp rows do not divide raises.
+    Returns (state, final metrics)."""
+    if mesh is not None and state.mesh is None:
+        state = shard_train_state(state, mesh)
+    dev = resolve_device(mesh.grid[0][0] if device is None and mesh is not None else device)
     batch_size = max(2, min(batch_size, len(pairs)))
-    step_fn = make_train_step(model, train_cfg)
+    step_fn = make_train_step(model, train_cfg, mesh)
     metrics = {}
     step = 0
     for _ in range(epochs):
@@ -328,3 +388,186 @@ def train_pairs(
                 )
             step += 1
     return state, {k: float(v) for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------------------
+# the dp x tp mesh
+# ---------------------------------------------------------------------------
+
+
+def training_mesh(n_devices: Optional[int] = None, tp: int = 2, devices=None) -> DeviceMesh:
+    """dp x tp mesh (axes ``("dp", "tp")``) over ``devices`` (default: every
+    visible CUDA card; a device may repeat), ``tp = min(tp, n)``."""
+    devs = _devices(devices)
+    n = n_devices or len(devs)
+    tp = min(tp, n)
+    dp = n // tp
+    return DeviceMesh([devs[r * tp:(r + 1) * tp] for r in range(dp)], ("dp", "tp"))
+
+
+def _spec(name: str) -> Tuple:
+    """The reference's ``_param_spec`` in this module's weight layout ([out, in]):
+    the tp-split axis of a weight, None elsewhere; () for a replicated parameter."""
+    if not name.endswith(".weight"):
+        return ()
+    if "mlp_in" in name:
+        return ("tp", None)  # column-parallel: output rows
+    if "mlp_out" in name:
+        return (None, "tp")  # row-parallel: input columns
+    if ".attn." in name:
+        # q/k/v: whole heads (head-major output rows); out: its heads axis (inputs)
+        return (None, "tp") if ".attn.out." in name else ("tp", None)
+    if name in ("pool_proj.weight", "token_proj.weight"):
+        return ("tp", None)
+    return ()
+
+
+def _split_dim(spec: Tuple) -> Optional[int]:
+    return spec.index("tp") if "tp" in spec else None
+
+
+def _piece_key(name: str, c: int, n: int) -> str:
+    return name if n == 1 else f"{name}[{c}]"
+
+
+def param_shardings(params, mesh: DeviceMesh) -> Dict[str, Tuple]:
+    """Per parameter name (of an :class:`Encoder` or a name -> tensor mapping), the
+    axis of the mesh each dimension splits over: ``("tp", None)`` for a
+    column-parallel weight, ``(None, "tp")`` for a row-parallel one, ``()`` for a
+    replicated parameter."""
+    names = dict(params.named_parameters()) if isinstance(params, torch.nn.Module) else params
+    return {k: _spec(k) if mesh.shape["tp"] > 1 else () for k in names}
+
+
+def _split(t: torch.Tensor, dim: Optional[int], mesh: DeviceMesh) -> List[torch.Tensor]:
+    """A master tensor's pieces on the first dp row's devices (one piece, on the
+    mesh's first device, when replicated)."""
+    row = mesh.grid[0]
+    if dim is None:
+        return [t.detach().to(row[0]).clone()]
+    if t.shape[dim] % len(row):
+        raise ValueError(f"a dimension of {t.shape[dim]} does not split over tp = {len(row)}")
+    return [x.detach().to(dev).clone().contiguous()
+            for x, dev in zip(torch.chunk(t, len(row), dim), row)]
+
+
+def shard_train_state(state: TrainState, mesh: DeviceMesh) -> TrainState:
+    """``state`` over ``mesh``: its model's parameters and the AdamW moments split
+    into tp pieces by :func:`param_shardings` (replicated ones whole), each piece on
+    the first dp row's device of its tp column. The count carries over."""
+    specs = param_shardings(state.model, mesh)
+    if state.model.cfg.n_heads % mesh.shape["tp"]:
+        raise ValueError(f"{state.model.cfg.n_heads} heads do not split over tp = {mesh.shape['tp']}")
+    pieces, mu, nu = {}, {}, {}
+    src = state.params() if state.pieces is None else None
+    if src is None:
+        raise ValueError("the state is sharded already")
+    for name, p in src.items():
+        dim = _split_dim(specs[name])
+        ps = _split(p, dim, mesh)
+        pieces[name] = [x.requires_grad_(True) for x in ps]
+        n = len(ps)
+        for store, moments in ((mu, state.opt_state.mu), (nu, state.opt_state.nu)):
+            for c, x in enumerate(_split(moments[name], dim, mesh)):
+                store[_piece_key(name, c, n)] = x
+    opt = AdamWState(mu=mu, nu=nu, count=state.opt_state.count)
+    return TrainState(model=state.model, opt_state=opt, tx=state.tx, mesh=mesh, pieces=pieces)
+
+
+def _row_params(state: TrainState, r: int) -> Dict[str, List[torch.Tensor]]:
+    """Data row ``r``'s view of the master parameters: per name its pieces on the
+    row's tp devices, a replicated one on the row's first device (differentiable
+    copies; the masters themselves on row 0)."""
+    row = state.mesh.grid[r]
+    return {k: [p.to(row[c] if len(ps) > 1 else row[0]) for c, p in enumerate(ps)]
+            for k, ps in state.pieces.items()}
+
+
+def _column(x: torch.Tensor, weights: List[torch.Tensor], bias: torch.Tensor,
+            devs: List[torch.device]) -> List[torch.Tensor]:
+    """Column-parallel dense layer: on each tp device its block of output columns
+    (its weight rows, its slice of the replicated bias)."""
+    out, lo = [], 0
+    for w, dev in zip(weights, devs):
+        hi = lo + w.shape[0]
+        out.append(_dense(x.to(dev), w, bias[lo:hi].to(dev)))
+        lo = hi
+    return out
+
+
+def _row_parallel(parts: List[torch.Tensor], weights: List[torch.Tensor], bias: torch.Tensor,
+                  home: torch.device) -> torch.Tensor:
+    """Row-parallel dense layer: each device's partial product of its input block,
+    added in tp order on ``home``, then the bias (``_dense``'s rounding per part)."""
+    acc = None
+    for x, w in zip(parts, weights):
+        y = F.linear(x, w.to(x.dtype)).to(home)
+        acc = y if acc is None else acc + y
+    return acc + bias.to(acc.dtype)
+
+
+def _sharded_forward(cfg: EncoderConfig, P: Dict[str, List[torch.Tensor]],
+                     devs: List[torch.device], ids: torch.Tensor, mask: torch.Tensor):
+    """``Encoder.forward`` of one dp row over its tp devices ``devs``, op for op
+    with the encoder's own sub-layer code. Returns (pooled, tok) on ``devs[0]``."""
+    dt = cfg.compute_dtype
+    home = devs[0]
+    tp = len(devs)
+    t = ids.shape[1]
+    masks = [mask.to(dev) for dev in devs]
+    x = F.embedding(ids.long(), P["tok_embed"][0]).to(dt) + P["pos_embed"][0][:t].to(dt)
+    for i in range(cfg.n_layers):
+        b = f"blocks.{i}."
+        h = _layer_norm(x, P[b + "ln_attn.scale"][0], P[b + "ln_attn.bias"][0]).to(dt)
+        q, k, v = (_column(h, P[b + f"attn.{n}.weight"], P[b + f"attn.{n}.bias"][0], devs)
+                   for n in ("query", "key", "value"))
+        heads = [_attend(qc, kc, vc, mc, cfg.n_heads // tp)
+                 for qc, kc, vc, mc in zip(q, k, v, masks)]
+        x = x + _row_parallel(heads, P[b + "attn.out.weight"], P[b + "attn.out.bias"][0], home)
+        h = _layer_norm(x, P[b + "ln_mlp.scale"][0], P[b + "ln_mlp.bias"][0]).to(dt)
+        hidden = [_gelu_tanh(u) for u in _column(h, P[b + "mlp_in.weight"],
+                                                   P[b + "mlp_in.bias"][0], devs)]
+        x = x + _row_parallel(hidden, P[b + "mlp_out.weight"], P[b + "mlp_out.bias"][0], home)
+    x = _layer_norm(x, P["ln_final.scale"][0], P["ln_final.bias"][0])
+    pooled = _column(_masked_mean(x, mask), P["pool_proj.weight"], P["pool_proj.bias"][0], devs)
+    pooled = _unit(torch.cat([p.to(home) for p in pooled], -1).float())
+    tok = _column(x, P["token_proj.weight"], P["token_proj.bias"][0], devs)
+    tok = _unit(torch.cat([p.to(home) for p in tok], -1).float())
+    return pooled, tok * mask[..., None].float()
+
+
+def _sharded_step(train_cfg: TrainConfig, mesh: DeviceMesh):
+    dp = mesh.shape["dp"]
+    home = mesh.grid[0][0]
+
+    def step(state: TrainState, q_ids, q_mask, q_apool, q_atok, d_ids, d_mask, d_apool, d_atok):
+        if state.mesh is not mesh:
+            raise ValueError("the state is not sharded over this mesh (shard_train_state)")
+        b = q_ids.shape[0]
+        if b % dp or d_ids.shape[0] != b:
+            # the reference's GSPMD step takes such a batch but its parameters
+            # and moments come out NaN: refuse it instead
+            raise ValueError(f"a batch of {b} does not split over dp = {dp}")
+        per = b // dp
+        cfg = state.model.cfg
+        outs = []
+        for r in range(dp):
+            devs = list(mesh.grid[r])
+            P = _row_params(state, r)
+            sl = slice(r * per, (r + 1) * per)
+            outs.append((
+                *_sharded_forward(cfg, P, devs, q_ids[sl].to(devs[0]), q_mask[sl].to(devs[0])),
+                *_sharded_forward(cfg, P, devs, d_ids[sl].to(devs[0]), d_mask[sl].to(devs[0])),
+            ))
+        q, q_tok, d, d_tok = (torch.cat([o[j].to(home) for o in outs], 0) for j in range(4))
+        loss, acc = embeddings_loss(
+            cfg, train_cfg, q, q_tok, d, d_tok, *(x.to(home) for x in (q_mask, q_apool, q_atok, d_apool, d_atok))
+        )
+        params = state.params()
+        names = list(params)
+        grads = torch.autograd.grad(loss, [params[k] for k in names])
+        state.tx.update_(params, dict(zip(names, grads)), state.opt_state)
+        state.sync_model()
+        return state, {"loss": loss.detach(), "accuracy": acc}
+
+    return step

@@ -99,10 +99,11 @@ def _launch_termtable(term_ids, term_weights, query_terms):
     if b * n * q == 0:
         return out.zero_()
     fn = "termtable_scores_bf16" if w.dtype == torch.bfloat16 else "termtable_scores_f32"
-    err = getattr(load("termtable"), fn)(
-        ids.data_ptr(), w.data_ptr(), qt.data_ptr(), out.data_ptr(), n, width, b, q,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch code's state is the current device's
+        err = getattr(load("termtable"), fn)(
+            ids.data_ptr(), w.data_ptr(), qt.data_ptr(), out.data_ptr(), n, width, b, q,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     check(err, fn)
     score_termtable_batch.launches += 1
     return out

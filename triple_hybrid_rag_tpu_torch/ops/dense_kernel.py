@@ -48,9 +48,10 @@ def _launch_dense_scores(embeddings, query_vecs):
     else:
         fn = "dense_scores_f32"
         args.append(f32_query_tile(b))
-    err = getattr(load("dense_scores"), fn)(
-        *args, torch.cuda.current_stream(emb.device).cuda_stream
-    )
+    with torch.cuda.device(emb.device):  # the launch code's state is the current device's
+        err = getattr(load("dense_scores"), fn)(
+            *args, torch.cuda.current_stream(emb.device).cuda_stream
+        )
     check(err, fn)
     dense_scores.launches += 1
     dense_scores.launches_by_rows["bf16" if emb.dtype == torch.bfloat16 else "f32"] += 1

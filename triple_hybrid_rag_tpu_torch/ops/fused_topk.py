@@ -139,9 +139,10 @@ def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid
         out.data_ptr(),
     ]
     shape = [n, d, b] + ([f32_query_tile(b)] if emb.dtype == torch.float32 else [])
-    err = getattr(load("fused_topk"), fn)(
-        *ptr, *shape, torch.cuda.current_stream(emb.device).cuda_stream
-    )
+    with torch.cuda.device(emb.device):  # the launch code's state is the current device's
+        err = getattr(load("fused_topk"), fn)(
+            *ptr, *shape, torch.cuda.current_stream(emb.device).cuda_stream
+        )
     check(err, fn)
     bucket_maxima.launches += 1
     bucket_maxima.launches_by_rows[kind] += 1

@@ -101,11 +101,12 @@ def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
     # TMA takes rows of 16-byte multiples from a 16-byte aligned store; else plain loads
     tma_rows = int((d * tok.element_size()) % 16 == 0 and tok.data_ptr() % 16 == 0)
     fn = f"maxsim_scores_{body}"
-    err = getattr(load("maxsim"), fn)(
-        tok.data_ptr(), msk.data_ptr(), pid.data_ptr(), q.data_ptr(), w.data_ptr(),
-        out.data_ptr(), p_rows, td, d, tq, b, k, tma_rows,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # the launch code's state is the current device's
+        err = getattr(load("maxsim"), fn)(
+            tok.data_ptr(), msk.data_ptr(), pid.data_ptr(), q.data_ptr(), w.data_ptr(),
+            out.data_ptr(), p_rows, td, d, tq, b, k, tma_rows,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     if err == -1:
         raise ValueError(f"MaxSim shape Tq={tq} D={d} does not fit the kernel's shared memory")
     check(err, fn)
