@@ -14,9 +14,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    shape (32 doc tokens of width 64, 16 query tokens) and at the default
    RAGConfig's (64 x 128, 32); term-table BM25: a 1,000,448 x 128 table, 128
    queries of 16 slots) and times kernel, plain version and, where one exists, the
-   library call; every kernel body but the bf16 bucket maxima is also held against
-   its plain version over a list of small and ragged shapes, the quantized bucket
-   maxima bit for bit;
+   library call, the bf16 bucket maxima also at B = 1; every kernel body is also
+   held against its plain version over a list of small and ragged shapes (MaxSim
+   up to 1,024 query tokens and D = 4,096, past the staged plan), the quantized
+   bucket maxima bit for bit;
 3. drives the port's main path: the batched three-channel query program over a
    synthetic 1M-chunk corpus built on the card (the construction of ``bench.py``),
    through ``Engine.search_arrays`` and ``Engine.retrieve_batch``; checks
@@ -163,7 +164,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    its own shape (250,112 rows at 1x4) against the plain version; (g) program wall,
    device busy, the stage split and peak memory a batch at 1x1, 1x2, 1x4 and 2x2;
    (h) phase 11(a)'s three steps over dp 2 x tp 2 against 11(a)'s unsharded card
-   steps.
+   steps;
+13. MaxSim at shapes past its staged plan on a served path: a BowHash RAG with
+   ``maxsim_query_tokens=256, maxsim_dim=1024`` over ``N_FORMAT_DOCS`` of phase 6's
+   docstrings on the card and on the host CPU, 128 queries through ``query_batch``
+   and 8 through ``RAG.query``: the card's ids against the host CPU's up to near
+   ties, and the MaxSim kernel launched in both.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
@@ -171,7 +177,8 @@ over phase 7, ``serve_launches`` over phase 8's served requests,
 ``formats_launches`` and ``http_launches`` over phase 9's queries,
 ``eval_launches`` over phase 10(a)-(f) (``eval_f32_launches``: of them, the f32-row
 body's), ``legacy_launches`` over phase 10(g), ``train_launches`` over phase
-11(d) and ``sharded_launches`` over phase 12(b)-(e), and per further path), error and
+11(d), ``sharded_launches`` over phase 12(b)-(e) and ``repaired_launches`` over
+phase 13, and per further path), error and
 times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
@@ -201,6 +208,9 @@ N_PARENTS = 200_704  # the synthetic corpus's parents (N_ROWS / 5, capacity-roun
 # (Td, D, Tq) of the MaxSim checks: the smoke run's corpus (bench.py's reduced
 # shape) and the default RAGConfig (maxsim_doc_tokens, maxsim_dim, maxsim_query_tokens)
 MAXSIM_SHAPES = {"smoke": (MAXSIM_TOKENS, MAXSIM_DIM, QUERY_TOKENS), "default": (64, 128, 32)}
+# (Td, D, Tq) and parents of the MaxSim check past the staged plan: phase 13's RAG
+# (maxsim_query_tokens 256, maxsim_dim 1024) over a store of 4,096 parents (0.54 GB)
+MAXSIM_GENERAL_SHAPE, N_GENERAL_PARENTS = (64, 1024, 256), 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, same source
@@ -234,17 +244,32 @@ TERM_EDGE_SHAPES = [(31, 1, 2, 2), (64, 8, 4, 4), (999, 40, 1, 16), (333, 128, 1
 INT_EDGE_SHAPES = [(1, 32, 1), (15, 32, 5), (17, 160, 1), (63, 160, 5), (65, 1024, 130),
                    (127, 1024, 1), (129, 160, 257), (1000, 1024, 128), (300, 4096, 5),
                    (2049, 4096, 130), (40000, 160, 5), (20005, 1024, 257)]
+# (n, d, b) of the bf16 bucket-maxima edge sweep, each unscoped and scoped, within
+# FUSED_ATOL: one row, rows short of a bucket, a bucket plus one, short of a 256-row
+# tile, a tile plus one, 1,000, an odd count of tiles over more tiles than the card
+# has SMs, and a shard of the 1x4 mesh (250,112); one query (the second consumer
+# idle), 5, 64 and 65 (either side of a consumer's 64), 128, 129 and 257 (more than
+# one 128-query tile); widths of 8 and 72 (short of and ragged against a 64-element
+# stage), the serving width and 4096
+BF16_EDGE_SHAPES = [(1, 8, 1), (15, 72, 5), (17, 1024, 64), (255, 72, 65), (257, 1024, 128),
+                    (1000, 4096, 129), (1000, 72, 257), (20005, 1024, 1), (20005, 8, 65),
+                    (250_112, 1024, 128), (257, 4096, 1)]
 MAXSIM_ATOL = 1e-5
 # (B, K, parents, Td, D, Tq) of the MaxSim edge sweep: one query and one candidate
 # (every candidate invalid), Td of one token, one past a 32-token stage, past 128
 # and 4096 (128 stages streamed through a warp's ring); D of 32 (the 8M
 # configuration), 40 and 36 (not a multiple of 32; int8 rows TMA cannot address),
 # 33 (odd), 128, and 520 (a padded row wider than a TMA box: plain loads); Tq of 1,
-# 17, 32 and 128
+# 17, 32 and 128. Past the staged plan (the general one): Tq of 129, 256 (at D 128,
+# one stage a row, and at D 1024, several) and 1024; D of 1024 at Tq 64, 2048 and
+# 4096 at Tq 16, and 1030 (rows TMA cannot address, a query not of 16-byte rows)
 MAXSIM_EDGE_SHAPES = [(1, 1, 7, 1, 32, 1), (1, 50, 64, 33, 40, 32), (3, 1, 50, 130, 128, 128),
                       (2, 5, 9, 4096, 32, 32), (128, 50, 1000, 33, 128, 1),
                       (5, 7, 20, 130, 40, 128), (2, 9, 30, 40, 33, 16), (4, 6, 25, 65, 36, 17),
-                      (1, 50, 100, 64, 128, 32), (2, 3, 10, 5, 520, 1)]
+                      (1, 50, 100, 64, 128, 32), (2, 3, 10, 5, 520, 1),
+                      (2, 7, 20, 40, 64, 129), (3, 5, 30, 65, 128, 256), (4, 8, 30, 64, 1024, 256),
+                      (1, 4, 10, 33, 32, 1024), (4, 6, 25, 64, 1024, 64), (2, 5, 15, 40, 2048, 16),
+                      (2, 3, 9, 33, 4096, 16), (2, 4, 12, 35, 1030, 130)]
 TERM_ATOL = 1e-5  # f32 sums of at most 16 weights below 1, in another slot order
 LEXICAL_ATOL = 1e-4  # BM25 sums of up to 16 weights of ~10, in another order
 TABLE_WIDTH, QUERY_TERMS = 128, 16  # doc_term_capacity, max_query_terms
@@ -394,8 +419,21 @@ def check_fused(data):
     matmul_ms = time_ms(lambda: dense_scores_batch(emb, q))
     nb = -(-n // 16)
     b_ms, b_by = bound(n * DIM * 2 + BATCH * DIM * 4 + n + BATCH * nb * 4, 2.0 * BATCH * n * DIM)
-    log(f"fused_bucket_maxima N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bf16 GEMM with f32 out alone {matmul_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"fused_bucket_maxima N={n} D={DIM} B={BATCH}: kernel {ms:.4f} ms ({b_ms / ms:.3f} of the "
+        f"bound), plain {plain_ms:.4f} ms, bf16 GEMM with f32 out alone {matmul_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    # B = 1, the engine's single-query batches: the second consumer hands its stages back
+    q1 = q[:1]
+    e1 = max_err(ft.bucket_maxima(emb, q1, valid), ft.bucket_maxima_plain(emb, q1, valid))
+    if not e1 <= FUSED_ATOL:
+        fail(f"fused_bucket_maxima at B=1 disagrees with its plain version ({e1})")
+    err = max(err, e1)
+    b1_ms = time_ms(lambda: ft.bucket_maxima(emb, q1, valid))
+    b1_plain = time_ms(lambda: ft.bucket_maxima_plain(emb, q1, valid), iters=3, warmup=1)
+    b1_bound, b1_by = bound(n * DIM * 2 + DIM * 4 + n + nb * 4, 2.0 * n * DIM)
+    log(f"fused_bucket_maxima N={n} D={DIM} B=1: kernel {b1_ms:.4f} ms ({b1_bound / b1_ms:.3f} of "
+        f"the bound), plain {b1_plain:.4f} ms, bound {b1_bound:.4f} ms ({b1_by}); max |kernel - "
+        f"plain| = {e1:.3g}")
     # the whole dense channel (top-100) both ways: the use_fused_topk decision
     topk_ms = time_ms(lambda: ft.fused_dense_topk(emb, valid, q, 100))
     bucketed_ms = time_ms(lambda: bucketed_topk(valid[None, :]))
@@ -408,6 +446,7 @@ def check_fused(data):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None, "matmul_ms": matmul_ms,
         "topk_ms": topk_ms, "bucketed_topk_ms": bucketed_ms,
+        "ms_b1": b1_ms, "plain_ms_b1": b1_plain, "bound_ms_b1": b1_bound,
     }
 
 
@@ -486,39 +525,51 @@ def check_int(data, kind: str):
 
 
 def bucket_maxima_edge_sweep(dev, gen):
-    """The int8 and packed-int4 bucket maxima against their plain versions at
-    INT_EDGE_SHAPES, unscoped and scoped (collection ids -1, 0, 1, 2 and -2, which
-    matches nothing), and once with every row invalid. All must be bit-equal."""
+    """The bf16, int8 and packed-int4 bucket maxima against their plain versions at
+    BF16_EDGE_SHAPES and INT_EDGE_SHAPES, unscoped and scoped (collection ids -1, 0,
+    1, 2 and -2, which matches nothing), and once with every row invalid, which must
+    give -inf: bf16 within FUSED_ATOL, the quantized ones bit-equal. Returns the bf16
+    body's worst error."""
     from triple_hybrid_rag_tpu_torch.index import dense_index as di
     from triple_hybrid_rag_tpu_torch.ops import fused_topk as ft
 
-    cases = 0
-    for kind, quantize in (("int8", di.quantize_rows_int8), ("int4", di.quantize_rows_int4)):
-        for n, d, b in INT_EDGE_SHAPES:
-            rows, scales = quantize(torch.randn((n, d), generator=gen, device=dev))
-            q_i8, q_scale = di.quantize_queries_int8(torch.randn((b, d), generator=gen, device=dev))
+    quantizers = {"int8": di.quantize_rows_int8, "int4": di.quantize_rows_int4}
+    worst = dict.fromkeys(("bf16", "int8", "int4"), 0.0)
+    cases = dict.fromkeys(worst, 0)
+    for kind in worst:
+        shapes, atol = (BF16_EDGE_SHAPES, FUSED_ATOL) if kind == "bf16" else (INT_EDGE_SHAPES, 0.0)
+        for n, d, b in shapes:
+            if kind == "bf16":
+                rows, q, scales = unit_rows(n, d, gen, dev, torch.bfloat16), unit_rows(b, d, gen, dev), ()
+            else:
+                rows, row_scales = quantizers[kind](torch.randn((n, d), generator=gen, device=dev))
+                q, q_scale = di.quantize_queries_int8(torch.randn((b, d), generator=gen, device=dev))
+                scales = (row_scales, q_scale)
             valid = torch.rand(n, generator=gen, device=dev) > 0.1
             coll = torch.randint(0, 3, (n,), generator=gen, device=dev, dtype=torch.int32)
             cid = torch.tensor([-1, 0, 1, 2, -2], dtype=torch.int32, device=dev).repeat(b // 5 + 1)[:b]
             masks = [(valid, None, None), (valid, coll, cid)]
-            if (n, d, b) == INT_EDGE_SHAPES[4]:
+            if (n, d, b) == shapes[4]:
                 masks.append((torch.zeros_like(valid), coll, cid))
             for v, c, k in masks:
-                got = ft.bucket_maxima(rows, q_i8, v, c, k, scales, q_scale)
+                got = ft.bucket_maxima(rows, q, v, c, k, *scales)
                 torch.cuda.synchronize()
-                want = ft.bucket_maxima_plain(rows, q_i8, v, c, k, scales, q_scale)
-                e = max_err(got, want)
-                if got.shape != (b, -(-n // 16)) or e != 0.0:
-                    fail(f"fused_bucket_maxima_{kind} N={n} D={d} B={b} "
+                e = max_err(got, ft.bucket_maxima_plain(rows, q, v, c, k, *scales))
+                if got.shape != (b, -(-n // 16)) or not e <= atol:
+                    fail(f"fused_bucket_maxima {kind} N={n} D={d} B={b} "
                          f"{'scoped' if c is not None else 'unscoped'}"
                          f"{'' if bool(v.any()) else ', all rows invalid'} differs from its plain "
-                         f"version ({e}); it must be bit-equal")
+                         f"version ({e}; allowed {atol})")
                 if not bool(v.any()) and not bool(torch.isinf(got).all()):
-                    fail(f"fused_bucket_maxima_{kind}: invalid rows must give -inf")
-                cases += 1
+                    fail(f"fused_bucket_maxima {kind}: invalid rows must give -inf")
+                worst[kind], cases[kind] = max(worst[kind], e), cases[kind] + 1
+    log(f"fused_bucket_maxima bf16 edge sweep: {len(BF16_EDGE_SHAPES)} shapes (N, D, B) "
+        f"{BF16_EDGE_SHAPES}, unscoped, scoped and all rows invalid: {cases['bf16']} cases agree "
+        f"with the plain version within {FUSED_ATOL} (worst {worst['bf16']:.3g})")
     log(f"fused_bucket_maxima int8 / int4 edge sweep: {len(INT_EDGE_SHAPES)} shapes (N, D, B) "
-        f"{INT_EDGE_SHAPES}, unscoped, scoped and all rows invalid: {cases} cases equal the plain "
-        f"version bit for bit")
+        f"{INT_EDGE_SHAPES}, unscoped, scoped and all rows invalid: {cases['int8'] + cases['int4']} "
+        f"cases equal the plain version bit for bit")
+    return worst["bf16"]
 
 
 def check_dense(data):
@@ -713,7 +764,7 @@ def maxsim_edge_sweep(dev, gen):
     with every candidate invalid, within MAXSIM_ATOL."""
     from triple_hybrid_rag_tpu_torch.ops import maxsim as mx
 
-    worst, cases = 0.0, 0
+    worst, cases, worst_past = 0.0, 0, 0.0
     for i, (b, k, p_rows, td, d, tq) in enumerate(MAXSIM_EDGE_SHAPES):
         tokens, tok_mask, parent, q, w = maxsim_inputs(dev, gen, b, k, p_rows, td, d, tq)
         if i == 0:
@@ -728,28 +779,34 @@ def maxsim_edge_sweep(dev, gen):
             if i == 0 and bool((got != 0).any()):
                 fail("maxsim_scores: invalid candidates must score 0")
             worst, cases = max(worst, e), cases + 1
+            if tq > 128 or d >= 1024:  # past the staged plan
+                worst_past = max(worst_past, e)
     log(f"maxsim_scores edge sweep: {len(MAXSIM_EDGE_SHAPES)} shapes (B, K, P, Td, D, Tq) "
         f"{MAXSIM_EDGE_SHAPES}, bf16 and int8 stores, one with every candidate invalid: {cases} "
-        f"cases agree with the plain version within {MAXSIM_ATOL} (worst {worst:.3g})")
+        f"cases agree with the plain version within {MAXSIM_ATOL} (worst {worst:.3g}; at Tq > 128 "
+        f"or D >= 1024, past the staged plan, {worst_past:.3g})")
+    return worst_past
 
 
 def check_maxsim(dev, gen):
     """Both bodies (bf16 and int8 token stores) at the smoke shape and at the
-    default RAGConfig shape, 1M chunks' parents, cold L2. Returns one kernels-line
-    entry per body; the smoke shape's numbers are its main ones."""
+    default RAGConfig shape, 1M chunks' parents, and past the staged plan at
+    MAXSIM_GENERAL_SHAPE, cold L2. Returns one kernels-line entry per body; the smoke
+    shape's numbers are its main ones."""
     from triple_hybrid_rag_tpu_torch.ops import maxsim as mx
 
-    maxsim_edge_sweep(dev, gen)
+    worst_past = maxsim_edge_sweep(dev, gen)
     entries = {body: {
         "name": "maxsim_scores" if body == "bf16" else "maxsim_scores_int8", "route": "cuda",
         "source": "triple_hybrid_rag_tpu_torch/csrc/maxsim.cu",
         "replaces": "triple_hybrid_rag_tpu/ops/pallas/maxsim_kernel.py:67", "library_ms": None,
-        "max_abs_err": 0.0} for body in ("bf16", "int8")}
-    for label, (td, d, tq) in MAXSIM_SHAPES.items():
-        tokens, tok_mask, parent, q, w = maxsim_inputs(dev, gen, BATCH, RERANK_K, N_PARENTS, td, d, tq)
+        "max_abs_err": 0.0, "edge_past_staged_max_abs_err": worst_past} for body in ("bf16", "int8")}
+    shapes = [(label, shape, N_PARENTS) for label, shape in MAXSIM_SHAPES.items()]
+    for label, (td, d, tq), p_rows in shapes + [("general", MAXSIM_GENERAL_SHAPE, N_GENERAL_PARENTS)]:
+        tokens, tok_mask, parent, q, w = maxsim_inputs(dev, gen, BATCH, RERANK_K, p_rows, td, d, tq)
         ok = parent >= 0
         n_valid = int(ok.sum())
-        live_tokens = int(tok_mask[parent.clamp(0, N_PARENTS - 1)][ok].sum())
+        live_tokens = int(tok_mask[parent.clamp(0, p_rows - 1)][ok].sum())
         for store in (tokens, mx.quantize_tokens(tokens)):
             body = "int8" if store.dtype == torch.int8 else "bf16"
             got = mx.maxsim_scores(store, tok_mask, parent, q, w)
@@ -4291,6 +4348,60 @@ def sharded_training(dev, card) -> None:
         fail("phase 12(h): the sharded steps differ from the unsharded ones")
 
 
+# ---------------------------------------------------------------- phase 13
+
+REPAIRED_QUERY_TOKENS, REPAIRED_DIM = 256, 1024  # past the MaxSim kernel's staged plan
+N_REPAIRED_STAGED = 8
+# card against host CPU: the same BowHash rows; the dense scores and MaxSim sums of
+# the same bf16 products in another order (a few 1e-6 a score) decide near ties only
+REPAIRED_TIE_ATOL = 1e-3
+
+
+def repaired_maxsim_path(dev, card) -> dict:
+    """Phase 13: a served RAG whose MaxSim shape is past the kernel's staged plan
+    (256 query tokens of width 1024, which the kernel once refused): the same BowHash
+    RAG over ``N_FORMAT_DOCS`` docstrings on the card and on the host CPU, 128 queries
+    through ``query_batch`` and ``N_REPAIRED_STAGED`` through ``RAG.query``; equal ids
+    up to near ties, and the MaxSim kernel launched in both. Returns the launches."""
+    from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
+
+    t0 = time.time()
+    cfg = RAGConfig(embedder_backend="bowhash", maxsim_query_tokens=REPAIRED_QUERY_TOKENS,
+                    maxsim_dim=REPAIRED_DIM)
+    docs = format_docs()
+    rags = {}
+    for where in (dev, "cpu"):
+        rags[where] = RAG(cfg, device=where)
+        ingest_all(rags[where], docs, f"phase 13 ingest on {where}")
+    rag, host = rags[dev], rags["cpu"]
+    st = rag.retriever.state
+    queries, hits = chunk_queries(rag, BATCH)
+    staged_q = queries[:N_REPAIRED_STAGED]
+    log(f"phase 13: {len(docs)} docstrings ingested on the card and on the host CPU in "
+        f"{time.time() - t0:.1f} s; MaxSim store {st.maxsim_tokens.dtype} "
+        f"{tuple(st.maxsim_tokens.shape)}, queries of {cfg.maxsim_query_tokens} tokens")
+    t1 = time.time()
+    batched, batch_launches = counted(lambda: rag.query_batch(queries))
+    staged, staged_launches = counted(lambda: [rag.query(x) for x in staged_q])
+    log(f"phase 13: {BATCH} queries through query_batch and {len(staged_q)} through RAG.query on "
+        f"the card in {time.time() - t1:.2f} s; self-retrieval {hits(batched, range(BATCH)) / BATCH:.4f}"
+        f" batched, {hits(staged, range(len(staged_q))) / len(staged_q):.4f} staged; launches "
+        f"batched {batch_launches}, staged {staged_launches}; card {card}")
+    for label, launches in (("batched", batch_launches), ("staged", staged_launches)):
+        if launches["maxsim_scores"] < 1:
+            fail(f"phase 13 ({label}): the bf16 MaxSim body was not launched: {launches}")
+    t1 = time.time()
+    same_ids("phase 13, query_batch, card against host CPU", pairs(host.query_batch(queries)),
+             pairs(batched), REPAIRED_TIE_ATOL)
+    same_ids("phase 13, RAG.query, card against host CPU", pairs([host.query(x) for x in staged_q]),
+             pairs(staged), REPAIRED_TIE_ATOL)
+    log(f"phase 13: the host CPU's answers in {time.time() - t1:.1f} s; phase 13 wall time "
+        f"{time.time() - t0:.1f} s")
+    out = dict(batch_launches)
+    add_counts(out, staged_launches)
+    return out
+
+
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
@@ -4402,8 +4513,9 @@ def main() -> int:
     t_phase = time.time()
     gen = torch.Generator(device=dev).manual_seed(1234)
     data = DenseInputs(dev, gen)
-    bucket_maxima_edge_sweep(dev, gen)
+    bf16_worst = bucket_maxima_edge_sweep(dev, gen)
     kernels = [check_fused(data), check_int(data, "int8"), check_int(data, "int4")]
+    kernels[0]["edge_max_abs_err"] = bf16_worst
     dense = check_dense(data)
     f32_bodies = check_f32(data, dev, gen)
     del data
@@ -4445,6 +4557,7 @@ def main() -> int:
     sharded_training(dev, card)
     log(f"phase 12(h) wall time {time.time() - t0:.1f} s")
     log(f"phase 12 wall time {time.time() - t_phase:.1f} s; sharded launches {sharded}")
+    repaired = repaired_maxsim_path(dev, card)
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -4461,6 +4574,7 @@ def main() -> int:
         k["legacy_launches"] = legacy.get(k["name"], 0)
         k["train_launches"] = trained.get(k["name"], 0)
         k["sharded_launches"] = sharded.get(k["name"], 0)
+        k["repaired_launches"] = repaired.get(k["name"], 0)
         if k["name"] in ("dense_scores", "fused_bucket_maxima"):  # of them, the f32 body's
             k["eval_f32_launches"] = evals.get(k["name"] + "_f32", 0)
     log(f"total wall time {time.time() - T_START:.1f} s")

@@ -115,6 +115,39 @@ def test_facade_matches_reference(cfg, dtype, backend):
         _compare([ref.query(q)], [one])
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of small tensors, so the suite's parallel
+    workers do not oversubscribe the cores; restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_maxsim_past_the_kernels_staged_plan(cfg, staged, one_thread):
+    """160 query tokens of width 1024, which the MaxSim kernel's wrapper refused
+    before its general plan (the staged plan ends at 128 query tokens; the reference's
+    einsum takes any shape): batched through the engine and staged through
+    ``RAG.query``, the port answers as the reference does."""
+    c = cfg.replace(maxsim_query_tokens=160, maxsim_dim=1024)
+    if staged:
+        ref, port = RefRAG(c), RAG(torch_config(c), device="cpu")
+        for i, text in enumerate(DOCS):
+            for r in (ref, port):
+                r.ingest_text(text, name=f"d{i}.md", collection="ab"[i % 2])
+        got = [port.query(q) for q in QUERIES]
+        _compare([ref.query(q) for q in QUERIES], got)
+    else:
+        ref, port = _pair(c)
+        _ingest((ref, port), DOCS)
+        got = port.query_batch(QUERIES)
+        _compare(ref.query_batch(QUERIES), got)
+    assert port.retriever.state.maxsim_tokens.shape[1:] == (c.maxsim_doc_tokens, 1024)
+    assert any(x.rerank_score for r in got for x in r.results)  # the MaxSim rerank ran
+
+
 def test_incremental_ingest_refreshes_the_engine(cfg):
     """A document that changes no static statistic (capacity, postings window, entity
     capacity) refreshes the engine in place; one that lengthens the longest postings

@@ -21,6 +21,16 @@ from triple_hybrid_rag_tpu_torch.ops import fused_topk as port
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors, so the suite's parallel
+    workers do not oversubscribe the cores; restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _unit_rows(rng, n, d):
     m = rng.standard_normal((n, d)).astype(np.float32)
     return m / np.linalg.norm(m, axis=1, keepdims=True)
@@ -113,6 +123,46 @@ def test_k_exceeds_buckets_and_all_invalid(rng):
                                     torch.from_numpy(q), k)
         _check(want, got)
         assert got[0].shape == (b, k)
+
+
+# (n, d, b) the CUDA kernel's bf16 tiling (256 rows x 128 queries, two consumers of
+# 64 queries, 64-element stages) makes ragged: rows past a tile, queries past a
+# consumer and past a query tile, a width short of a stage
+RAGGED_BF16 = [(257, 72, 65), (1000, 72, 129)]
+
+
+@pytest.mark.parametrize("scoped", [False, True])
+@pytest.mark.parametrize("n,d,b", RAGGED_BF16)
+def test_bf16_ragged_tiles_match(rng, n, d, b, scoped):
+    """bf16 rows at shapes ragged against the kernel's tiles: the bucket maxima
+    against the Pallas kernel in interpret mode (its rows padded to a block with
+    invalid rows, which the port's last bucket leaves out as -inf), and the fused
+    top-k's ids and scores against the reference's."""
+    block, k = 256, 24
+    mat = _unit_rows(rng, n, d)
+    valid = rng.random(n) > 0.1
+    coll = rng.integers(0, 3, n).astype(np.int32)
+    cid = np.resize(np.array([-1, 0, 1, 2, -2], np.int32), b)
+    q = _unit_rows(rng, b, d)
+    n_pad = -(-n // block) * block
+    pad = n_pad - n
+    addmask = np.where(np.pad(valid, (0, pad)), 0.0, -np.inf).astype(np.float32)[None, :]
+    emb = jnp.asarray(np.pad(mat, ((0, pad), (0, 0))), dtype=jnp.bfloat16)
+    scope = dict(collection_of=jnp.asarray(np.pad(coll, (0, pad)))[None, :],
+                 coll_cid=jnp.asarray(cid)[None, :]) if scoped else {}
+    want = np.asarray(bucket_maxima_pallas(emb, jnp.asarray(q), jnp.asarray(addmask), block=block,
+                                           bucket=16, interpret=True, **scope))[:, :-(-n // 16)]
+    t_scope = (torch.from_numpy(coll), torch.from_numpy(cid)) if scoped else (None, None)
+    rows = torch.from_numpy(mat).to(torch.bfloat16)
+    got = port.bucket_maxima(rows, torch.from_numpy(q), torch.from_numpy(valid), *t_scope)
+    np.testing.assert_array_equal(np.isinf(want), torch.isinf(got).numpy())
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got.numpy()[fin], want[fin], atol=1e-5, rtol=0)
+    r_scope = dict(collection_of=jnp.asarray(coll), coll_cid=jnp.asarray(cid)) if scoped else {}
+    ref = ref_fused(jnp.asarray(mat, dtype=jnp.bfloat16), jnp.asarray(valid), jnp.asarray(q), k,
+                    block=block, interpret=True, **r_scope)
+    _check(ref, port.fused_dense_topk(rows, torch.from_numpy(valid), torch.from_numpy(q), k,
+                                      *t_scope))
 
 
 def test_int_rows_are_not_ported():

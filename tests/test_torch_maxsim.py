@@ -15,6 +15,16 @@ from triple_hybrid_rag_tpu.ops.pallas import maxsim_scores_pallas
 from triple_hybrid_rag_tpu_torch.ops import maxsim as port
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors, so the suite's parallel
+    workers do not oversubscribe the cores; restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _unit(rng, shape):
     x = rng.standard_normal(shape).astype(np.float32)
     return x / np.linalg.norm(x, axis=-1, keepdims=True)
@@ -168,3 +178,40 @@ def test_quantize_tokens_is_the_reference_rule(rng, embedding_dtype, source):
     got = port.quantize_tokens(torch.from_numpy(x))
     assert got.dtype == torch.int8 and want.dtype == np.int8
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---- past the CUDA kernel's staged plan: more than 128 query tokens, wide tokens ----
+
+WIDE = [(40, 1024, 129), (40, 1024, 256), (40, 2048, 16)]
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8"])
+@pytest.mark.parametrize("td,d,tq", WIDE)
+def test_wide_shapes_match_einsum_and_pallas(rng, store, td, d, tq):
+    """Tq of 129 and 256 and D of 1024 and 2048, where the kernel's wrapper raised
+    before its general plan: the port against the einsum op and the Pallas kernel
+    in interpret mode, as at the served shapes."""
+    if store == "bf16":
+        tokens, mask, parent, q, w = _data(rng, p=6, td=td, d=d, tq=tq)
+        ref_tokens, port_tokens = jnp.asarray(tokens, jnp.bfloat16), torch.from_numpy(tokens).to(torch.bfloat16)
+    else:
+        tokens, mask, parent, q, w = _int8_data(rng, td, d, tq, p=6)
+        ref_tokens, port_tokens = jnp.asarray(tokens), torch.from_numpy(tokens)
+    safe = np.clip(parent, 0, tokens.shape[0] - 1)
+    got = port.maxsim_scores(
+        port_tokens, torch.from_numpy(mask), torch.from_numpy(parent), torch.from_numpy(q),
+        torch.from_numpy(w),
+    ).numpy()
+    want = jax.vmap(ref_maxsim)(
+        ref_tokens[safe], jnp.asarray(mask[safe]), jnp.asarray(q), jnp.asarray(w),
+        jnp.asarray(parent >= 0),
+    )
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+    assert got[1, 3] == 0.0 and got[0, 1] == 0.0  # invalid / no doc tokens
+    for i in range(parent.shape[0]):
+        want_i = maxsim_scores_pallas(
+            ref_deq(ref_tokens[safe[i]]).astype(jnp.bfloat16), jnp.asarray(mask[safe[i]]),
+            jnp.asarray(q[i]), jnp.asarray(w[i]), jnp.asarray(parent[i] >= 0), interpret=True,
+        )
+        np.testing.assert_allclose(got[i], np.asarray(want_i), atol=1e-6, rtol=0)
+

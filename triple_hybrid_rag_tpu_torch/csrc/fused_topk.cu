@@ -73,9 +73,30 @@
 //   queries x 4 buckets) are staged in shared memory and leave as one 16-byte
 //   store per query.
 //
-// bf16 rows: one block owns a tile of 128 rows and 128 queries
-// (csrc/tile_common.cuh: cp.async in two stages, mma.sync, f32 sums in registers);
-// the 16-row bucket is one m16 tile of a warp.
+// bf16 rows (csrc/wgmma_common.cuh, the main loop of dense_scores.cu's bf16 body).
+// The queries cannot stay resident as the int bodies' do (128 x 1024 bf16 is 256 KB,
+// more than a block's shared memory), so they are the M operand and stream beside the
+// rows; what bounds the call is still the 2.05 GB of rows, and the design is what
+// keeps that read at the memory's rate:
+// - One persistent block per SM walks output tiles of 128 queries x 256 corpus rows,
+//   queries fastest (more than 128 queries take further query tiles of the same
+//   schedule). One producer thread copies 128 bytes of every row of both operands per
+//   stage with TMA (128-byte swizzle, zero fill of rows >= N, queries >= B and columns
+//   >= D) into a ring of four 48 KB stages and runs ahead across tiles, so one tile's
+//   epilogue overlaps the next tile's loads. No thread instruction moves an operand.
+// - Two consumer warpgroups (`setmaxnreg`: 232 registers for 128 accumulators) issue
+//   wgmma m64n256k16 (bf16 -> f32) from shared memory, each on 64 queries of the tile.
+//   A warpgroup whose queries all lie past B (B <= 64: the second) hands each stage
+//   back unread, so one query costs the tensor cores a quarter of what 128 do.
+// - Epilogue in registers, without a branch per score: a thread holds, for two
+//   queries, the adjacent rows 8j + 2t and 8j + 2t + 1 (t = lane % 4), so bucket u of
+//   the tile is j in {2u, 2u + 1} across the four lanes of a quad. Each warpgroup reads
+//   the tile's 256 rows' validity and collection once (issued before the products,
+//   staged in shared memory after them); a masked score is min(s, +inf or -inf). The
+//   thread's four values of a bucket, then two half-exchanges across the quad (24
+//   shuffles for 32 maxima), leave each lane with 8 adjacent buckets of one query,
+//   which leave as two 16-byte stores (scalar ones where ceil(N/16) is not a multiple
+//   of 4). Buckets past ceil(N/16) and queries past B are not stored.
 //
 // f32 rows (embedding_dtype "float32": the reference keeps its rows unrounded, and
 // Engine serves them through this body): csrc/simt_f32.cuh, full f32 FMAs, no
@@ -83,7 +104,7 @@
 // against 1.23 ms of bytes), at B = 1 the 4.1 GB of rows. Tiles of 128 rows x 128
 // queries or, for B <= 16, 256 rows x 16 queries (the caller picks `q_tile`), on a
 // persistent grid. Epilogue in registers: a thread masks its scores (validity and
-// collection, as masked()) and takes the max over its four rows of each bucket;
+// collection) and takes the max over its four rows of each bucket;
 // the four threads that share a bucket are lanes kTxLanes and 2 kTxLanes apart,
 // and two half-exchanges leave each with the bucket's maxima of a quarter of its
 // queries (one group of four rows at a time, to keep registers for the main loop).
@@ -97,27 +118,11 @@
 
 #include "per_device.cuh"
 #include "simt_f32.cuh"
-#include "tile_common.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
 
-using namespace tile;
-
 constexpr int kBucket = 16;
-
-// Score of (row r, query q) after the validity and collection masks.
-__device__ __forceinline__ float masked(float s, int r, int q, int n, int b,
-                                       const uint8_t* __restrict__ valid,
-                                       const int32_t* __restrict__ coll,
-                                       const int32_t* __restrict__ cid) {
-  if (r >= n || !valid[r]) return -INFINITY;
-  if (coll != nullptr && q < b) {
-    int c = cid[q];
-    if (c != -1 && coll[r] != c) return -INFINITY;
-  }
-  return s;
-}
 
 struct Masks {
   const uint8_t* valid;  // [n]
@@ -125,51 +130,142 @@ struct Masks {
   const int32_t* cid;    // [b] or null
 };
 
-// An m16 tile is one bucket. Lane (g, t) holds rows g and g+8 for queries 2t
-// and 2t+1 of each n8 tile; the max over g takes three shuffles.
-__device__ __forceinline__ void bucket_epilogue(const float (&acc)[2][8][4], const Lane& ln,
-                                                const Masks& m, int row0, int q0, int n, int b,
-                                                int nb, float* __restrict__ out) {
+// v[i] = max(v[i], the partner lane's v[i]) for the half of v[0 .. 2 kHalf) that this
+// lane keeps (the upper half if its bit kBit is set), handing the other half to
+// the partner, lane ^ kBit. The kept half ends in v[0 .. kHalf).
+template <int kHalf, int kBit = kHalf, int kV>
+__device__ __forceinline__ void max_exchange(float (&v)[kV], int lane) {
+  const bool upper = (lane & kBit) != 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int rbase = row0 + ln.warp_m * 32 + i * 16;
-    const int r_lo = rbase + ln.g;
-    const int r_hi = r_lo + 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int qa = q0 + ln.warp_n * 64 + j * 8 + 2 * ln.t;
-      const int qb = qa + 1;
-      float ma = fmaxf(masked(acc[i][j][0], r_lo, qa, n, b, m.valid, m.coll, m.cid),
-                       masked(acc[i][j][2], r_hi, qa, n, b, m.valid, m.coll, m.cid));
-      float mb = fmaxf(masked(acc[i][j][1], r_lo, qb, n, b, m.valid, m.coll, m.cid),
-                       masked(acc[i][j][3], r_hi, qb, n, b, m.valid, m.coll, m.cid));
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        ma = fmaxf(ma, __shfl_xor_sync(0xffffffffu, ma, off));
-        mb = fmaxf(mb, __shfl_xor_sync(0xffffffffu, mb, off));
-      }
-      const int bucket = rbase / kBucket;
-      if (ln.g == 0 && bucket < nb) {
-        if (qa < b) out[(size_t)qa * nb + bucket] = ma;
-        if (qb < b) out[(size_t)qb * nb + bucket] = mb;
-      }
-    }
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = upper ? v[i] : v[i + kHalf];
+    const float keep = upper ? v[i + kHalf] : v[i];
+    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, kBit));
   }
 }
 
 // ---------------------------------------------------------------- bf16 rows
-__global__ void __launch_bounds__(kThreads, 2)
-bucket_max_bf16_kernel(const uint8_t* __restrict__ emb,  // [n, row_bytes]
-                       const uint8_t* __restrict__ qv,   // [b, row_bytes]
-                       Masks m, float* __restrict__ out,  // [b, nb]
-                       int n, int row_bytes, int b, int nb) {
-  __shared__ __align__(16) Smem sm;
-  const Lane ln;
-  const int row0 = blockIdx.x * BM;
-  const int q0 = blockIdx.y * BN;
-  float acc[2][8][4];
-  mainloop(emb, qv, n, row_bytes, b, row0, q0, sm, ln, acc);
-  bucket_epilogue(acc, ln, m, row0, q0, n, b, nb, out);
+constexpr int kBf16Queries = 128;  // queries of a tile: two consumer warpgroups of 64 (M)
+constexpr int kBf16Rows = 256;     // corpus rows of a tile: the N of one wgmma, 16 buckets
+constexpr int kBf16Stages = 4;
+constexpr int kBf16Threads = 384;  // producer warpgroup + two consumer warpgroups
+using Bf16Pipe = hopper::Pipeline<kBf16Stages, kBf16Queries, kBf16Rows, 8>;  // 8 consumer warps
+
+struct Bf16Smem {
+  Bf16Pipe pipe;
+  // [consumer][tile parity][row of the tile]: +inf, or -inf for a row that is invalid or
+  // past the corpus; the row's collection (0 when unscoped)
+  alignas(16) float limit[2][2][kBf16Rows];
+  alignas(16) int coll[2][2][kBf16Rows];
+};
+constexpr int kBf16Smem = sizeof(Bf16Smem) + 1024;  // room to align the ring to 1024 bytes
+
+__global__ void __launch_bounds__(kBf16Threads, 1)
+bucket_max_bf16_kernel(const __grid_constant__ CUtensorMap map_q,     // [b, d] bf16
+                       const __grid_constant__ CUtensorMap map_rows,  // [n, d] bf16
+                       Masks m, float* __restrict__ out,              // [b, nb]
+                       int n, int b, int nb, int k_blocks) {
+  extern __shared__ uint8_t smem_raw[];
+  Bf16Smem& sm = *reinterpret_cast<Bf16Smem*>(
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023));
+  if (threadIdx.x == 0) sm.pipe.init();
+  __syncthreads();
+
+  const int q_tiles = (b + kBf16Queries - 1) / kBf16Queries;
+  const int n_tiles = ((n + kBf16Rows - 1) / kBf16Rows) * q_tiles;
+  // the warpgroup's index, broadcast so that the compiler sees the roles' control
+  // flow as uniform across a warp (else it serializes the wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  hopper::Ring<kBf16Stages> ring;
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full, across tile boundaries
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int q0 = (tile % q_tiles) * kBf16Queries, row0 = (tile / q_tiles) * kBf16Rows;
+        sm.pipe.produce(ring, k_blocks, [&](int kb, uint8_t* a, uint8_t* rows, uint64_t* bar) {
+          hopper::tma_load_2d(a, &map_q, kb * hopper::kStageRowBytes, q0, bar);
+          hopper::tma_load_2d(rows, &map_rows, kb * hopper::kStageRowBytes, row0, bar);
+        });
+      }
+    }
+  } else {
+    // ---- consumers: queries [64 c, 64 c + 64) of each tile against its 256 rows
+    hopper::reg_alloc<232>();
+    const int c = wg - 1;
+    const int t = threadIdx.x & 127;
+    const int lane = threadIdx.x & 31, warp = t >> 5;
+    const int g = lane >> 2, quad = lane & 3;
+    const bool vec = (nb & 3) == 0;  // 16-byte stores stay aligned in every output row
+    int parity = 0;
+    float acc[128];
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int q_base = (tile % q_tiles) * kBf16Queries + 64 * c;
+      const int row0 = (tile / q_tiles) * kBf16Rows;
+      if (q_base >= b) {  // no query of this warpgroup in the tile
+        sm.pipe.skip(ring, k_blocks);
+        continue;
+      }
+      // this thread's share of the tile's row masks, rows 2t and 2t + 1: loaded before
+      // the products, staged after them
+      const int r = row0 + 2 * t;
+      const bool in0 = r < n, in1 = r + 1 < n;
+      const float2 lim = make_float2(in0 && m.valid[r] != 0 ? INFINITY : -INFINITY,
+                                     in1 && m.valid[r + 1] != 0 ? INFINITY : -INFINITY);
+      const int2 col = make_int2(in0 && m.coll != nullptr ? m.coll[r] : 0,
+                                 in1 && m.coll != nullptr ? m.coll[r + 1] : 0);
+      // the thread's two queries and their collections (-1: every collection)
+      const int qa = q_base + 16 * warp + g, qb = qa + 8;
+      const int cid_a = m.coll != nullptr && qa < b ? m.cid[qa] : -1;
+      const int cid_b = m.coll != nullptr && qb < b ? m.cid[qb] : -1;
+      sm.pipe.consume<hopper::WgmmaBf16N256>(ring, 64 * c, k_blocks, acc,
+                                             [](int, const uint8_t* rows) { return rows; });
+      *reinterpret_cast<float2*>(&sm.limit[c][parity][2 * t]) = lim;
+      *reinterpret_cast<int2*>(&sm.coll[c][parity][2 * t]) = col;
+      hopper::named_barrier(1 + c, 128);
+      // one barrier a tile is enough: the buffers of this parity are written again two
+      // tiles on, after every thread has passed the next tile's barrier
+      const float* limit = sm.limit[c][parity];
+      const int* coll = sm.coll[c][parity];
+      const bool open_a = cid_a == -1, open_b = cid_b == -1;
+      // v[u], v[16 + u]: the max of the thread's four rows of bucket u for qa, qb
+      float v[32];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        float ma = -INFINITY, mb = -INFINITY;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * u + h, row = 8 * j + 2 * quad;
+          const float2 l = *reinterpret_cast<const float2*>(limit + row);
+          const int2 rc = *reinterpret_cast<const int2*>(coll + row);
+          ma = fmaxf(ma, fminf(acc[4 * j], (open_a | (rc.x == cid_a)) ? l.x : -INFINITY));
+          ma = fmaxf(ma, fminf(acc[4 * j + 1], (open_a | (rc.y == cid_a)) ? l.y : -INFINITY));
+          mb = fmaxf(mb, fminf(acc[4 * j + 2], (open_b | (rc.x == cid_b)) ? l.x : -INFINITY));
+          mb = fmaxf(mb, fminf(acc[4 * j + 3], (open_b | (rc.y == cid_b)) ? l.y : -INFINITY));
+        }
+        v[u] = ma;
+        v[16 + u] = mb;
+      }
+      max_exchange<16, 2>(v, lane);  // lanes quad and quad ^ 2: qa or qb
+      max_exchange<8, 1>(v, lane);   // lanes quad and quad ^ 1: buckets 0-7 or 8-15
+      // v[i], i < 8: bucket 8 (quad & 1) + i of the tile for query qa or qb
+      const int q = (quad & 2) ? qb : qa;
+      const int bucket = row0 / kBucket + 8 * (quad & 1);
+      if (q < b && bucket < nb) {
+        float* dst = out + (size_t)q * nb + bucket;
+        if (vec) {
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+          if (bucket + 4 < nb) *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (bucket + i < nb) dst[i] = v[i];
+        }
+      }
+      parity ^= 1;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- int8 and packed int4 rows
@@ -222,20 +318,6 @@ struct RowMeta {
     return fminf(s, (open | (coll == cid)) ? limit : -INFINITY);
   }
 };
-
-// v[i] = max(v[i], the partner lane's v[i]) for the half of v[0 .. 2 kHalf) that this
-// lane keeps (the upper half if its bit kBit is set), handing the other half to
-// the partner, lane ^ kBit. The kept half ends in v[0 .. kHalf).
-template <int kHalf, int kBit = kHalf, int kV>
-__device__ __forceinline__ void max_exchange(float (&v)[kV], int lane) {
-  const bool upper = (lane & kBit) != 0;
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    const float send = upper ? v[i] : v[i + kHalf];
-    const float keep = upper ? v[i + kHalf] : v[i];
-    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, kBit));
-  }
-}
 
 // The packed-int4 main loop of one tile: acc = 16 * (rows . queries), exact. The
 // warp reads its 16 rows' packed words of a stage, and while the previous stage's
@@ -576,14 +658,36 @@ int launch_int(const void* emb, const void* scales, const void* q, const void* q
 
 extern "C" {
 
+// bf16 rows [n, d] and bf16 queries [b, d] (d a multiple of 8), both 16-byte aligned
 int fused_bucket_maxima_bf16(const void* emb, const void* q, const void* valid,
                              const void* coll, const void* cid, void* out, int n, int d,
                              int b, void* stream) {
-  const int nb = (n + kBucket - 1) / kBucket;
-  dim3 grid((n + BM - 1) / BM, (b + BN - 1) / BN);
-  bucket_max_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(emb), static_cast<const uint8_t*>(q), masks(valid, coll, cid),
-      static_cast<float*>(out), n, d * 2, b, nb);
+  if (n <= 0 || b <= 0) return 0;
+  static int sm_counts[per_device::kMaxDevices] = {};
+  int dev = 0;
+  if (const cudaError_t e = per_device::current(&dev); e != cudaSuccess) return static_cast<int>(e);
+  int& sm_count = sm_counts[dev];
+  if (sm_count == 0) {
+    cudaError_t err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bucket_max_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
+    if (err != cudaSuccess) {
+      sm_count = 0;
+      return static_cast<int>(err);
+    }
+  }
+  CUtensorMap map_q, map_rows;
+  const int row_bytes = d * 2;
+  int err = hopper::make_tensor_map(&map_q, q, b, row_bytes, row_bytes, kBf16Queries);
+  if (err == 0) err = hopper::make_tensor_map(&map_rows, emb, n, row_bytes, row_bytes, kBf16Rows);
+  if (err != 0) return err;
+  const int q_tiles = (b + kBf16Queries - 1) / kBf16Queries;
+  const long long n_tiles = (long long)((n + kBf16Rows - 1) / kBf16Rows) * q_tiles;
+  const int grid = static_cast<int>(n_tiles < sm_count ? n_tiles : sm_count);
+  bucket_max_bf16_kernel<<<grid, kBf16Threads, kBf16Smem, static_cast<cudaStream_t>(stream)>>>(
+      map_q, map_rows, masks(valid, coll, cid), static_cast<float*>(out), n, b,
+      (n + kBucket - 1) / kBucket, (row_bytes + hopper::kStageRowBytes - 1) / hopper::kStageRowBytes);
   return static_cast<int>(cudaGetLastError());
 }
 

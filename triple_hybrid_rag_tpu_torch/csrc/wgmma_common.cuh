@@ -1,6 +1,6 @@
-// Hopper main loop shared by the dense-channel kernels (dense_scores.cu, the int8
-// and packed-int4 bodies of fused_topk.cu): TMA loads into a ring of shared-memory
-// stages, guarded by full/empty mbarriers, feeding wgmma.
+// Hopper main loop shared by the dense-channel kernels (dense_scores.cu's bf16 body,
+// the bf16, int8 and packed-int4 bodies of fused_topk.cu): TMA loads into a ring of
+// shared-memory stages, guarded by full/empty mbarriers, feeding wgmma.
 //
 // Everything is written in BYTES. Both operands are K-major matrices in device
 // memory (a row is contiguous along the reduction axis), as the corpus rows
@@ -346,6 +346,17 @@ struct Pipeline {
   // lane 0 of a consumer warp: the warp is done with the stage
   __device__ __forceinline__ void release(int stage) {
     if (stage >= 0 && (threadIdx.x & 31) == 0) mbar_arrive(&empty[stage]);
+  }
+
+  // Consumer warpgroup with nothing to compute in an output tile: waits for each of
+  // its `k_blocks` stages to land and hands it back unread, so that every consumer
+  // still consumes every stage of the ring.
+  __device__ __forceinline__ void skip(Ring<kStages>& ring, int k_blocks) {
+    for (int kb = 0; kb < k_blocks; ++kb) {
+      mbar_wait(&full[ring.stage], ring.parity);
+      release(ring.stage);
+      ring.advance();
+    }
   }
 
   // Consumer warpgroup: acc = A[row_a .. row_a + 63] . B^T over the `k_blocks`

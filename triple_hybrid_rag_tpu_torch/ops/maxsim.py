@@ -11,7 +11,8 @@ rounded to bf16 and f32 sums. Invalid candidates and parents without tokens scor
 ``index/maxsim_index._pack_tokens`` rule), and int8 tokens are dequantized only
 as they are scored. :func:`maxsim_scores` launches the hand-written kernel
 ``csrc/maxsim.cu`` on a CUDA tensor (it gathers the parents' token rows itself,
-with a bf16 and an int8 body) and runs :func:`maxsim_scores_plain` on a CPU tensor.
+with a bf16 and an int8 body, at any number of query tokens and any width, as the
+reference's einsum) and runs :func:`maxsim_scores_plain` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ from __future__ import annotations
 import torch
 
 INT8_TOKEN_SCALE = 127.0
-_MAX_QUERY_TOKENS = 128  # the kernel's query tile
 _BODIES = {torch.bfloat16: "bf16", torch.int8: "int8"}  # token dtype -> kernel body
 
 
@@ -81,8 +81,6 @@ def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
     tq = q_tokens.shape[1]
     if q_tokens.shape != (b, tq, d) or q_weights.shape != (b, tq) or tok_mask.shape != (p_rows, td):
         raise ValueError("inconsistent MaxSim shapes")
-    if tq > _MAX_QUERY_TOKENS:
-        raise ValueError(f"at most {_MAX_QUERY_TOKENS} query tokens")
     dev = tokens.device
     tok = tokens.contiguous()
     msk = tok_mask.contiguous()
@@ -107,8 +105,6 @@ def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
             out.data_ptr(), p_rows, td, d, tq, b, k, tma_rows,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err == -1:
-        raise ValueError(f"MaxSim shape Tq={tq} D={d} does not fit the kernel's shared memory")
     check(err, fn)
     maxsim_scores.launches_by_tokens[body] += 1
     return out
