@@ -16,8 +16,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    queries of 16 slots) and times kernel, plain version and, where one exists, the
    library call, the bf16 bucket maxima also at B = 1; every kernel body is also
    held against its plain version over a list of small and ragged shapes (MaxSim
-   up to 1,024 query tokens and D = 4,096, past the staged plan), the quantized
-   bucket maxima bit for bit;
+   up to 1,024 query tokens and D = 4,096, past the staged plan, each case's plan
+   logged), the quantized bucket maxima bit for bit; MaxSim is also timed past its
+   staged plan (``MAXSIM_PAST_STAGED``: phase 13's shape and 256 query tokens at
+   the default width) beside its bound;
 3. drives the port's main path: the batched three-channel query program over a
    synthetic 1M-chunk corpus built on the card (the construction of ``bench.py``),
    through ``Engine.search_arrays`` and ``Engine.retrieve_batch``; checks
@@ -169,7 +171,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``maxsim_query_tokens=256, maxsim_dim=1024`` over ``N_FORMAT_DOCS`` of phase 6's
    docstrings on the card and on the host CPU, 128 queries through ``query_batch``
    and 8 through ``RAG.query``: the card's ids against the host CPU's up to near
-   ties, and the MaxSim kernel launched in both.
+   ties, and the MaxSim kernel launched in both, every launch on its wgmma plan.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
@@ -178,7 +180,9 @@ over phase 7, ``serve_launches`` over phase 8's served requests,
 ``eval_launches`` over phase 10(a)-(f) (``eval_f32_launches``: of them, the f32-row
 body's), ``legacy_launches`` over phase 10(g), ``train_launches`` over phase
 11(d), ``sharded_launches`` over phase 12(b)-(e) and ``repaired_launches`` over
-phase 13, and per further path), error and
+phase 13, and per further path; MaxSim's also by plan: ``counted_launches_by_plan``
+over the windows that check its body, ``repaired_launches_by_plan`` over phase 13),
+error and
 times; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero before printing
 any result.
@@ -208,9 +212,15 @@ N_PARENTS = 200_704  # the synthetic corpus's parents (N_ROWS / 5, capacity-roun
 # (Td, D, Tq) of the MaxSim checks: the smoke run's corpus (bench.py's reduced
 # shape) and the default RAGConfig (maxsim_doc_tokens, maxsim_dim, maxsim_query_tokens)
 MAXSIM_SHAPES = {"smoke": (MAXSIM_TOKENS, MAXSIM_DIM, QUERY_TOKENS), "default": (64, 128, 32)}
-# (Td, D, Tq) and parents of the MaxSim check past the staged plan: phase 13's RAG
-# (maxsim_query_tokens 256, maxsim_dim 1024) over a store of 4,096 parents (0.54 GB)
+# (Td, D, Tq) and parents of the MaxSim checks past the staged plan: phase 13's RAG
+# (maxsim_query_tokens 256, maxsim_dim 1024) over a store of 4,096 parents (0.54 GB),
+# and RAGConfig(maxsim_query_tokens=256) at the default width over the smoke
+# corpus's parents
 MAXSIM_GENERAL_SHAPE, N_GENERAL_PARENTS = (64, 1024, 256), 4096
+MAXSIM_LONG_QUERY_SHAPE = (64, 128, 256)
+# the MaxSim checks past the staged plan: label -> ((Td, D, Tq), parents)
+MAXSIM_PAST_STAGED = {"general": (MAXSIM_GENERAL_SHAPE, N_GENERAL_PARENTS),
+                      "long_query": (MAXSIM_LONG_QUERY_SHAPE, N_PARENTS)}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 INT8_OPS = 1979e12  # dense int8 tensor-core peak, same source
@@ -260,16 +270,27 @@ MAXSIM_ATOL = 1e-5
 # and 4096 (128 stages streamed through a warp's ring); D of 32 (the 8M
 # configuration), 40 and 36 (not a multiple of 32; int8 rows TMA cannot address),
 # 33 (odd), 128, and 520 (a padded row wider than a TMA box: plain loads); Tq of 1,
-# 17, 32 and 128. Past the staged plan (the general one): Tq of 129, 256 (at D 128,
-# one stage a row, and at D 1024, several) and 1024; D of 1024 at Tq 64, 2048 and
-# 4096 at Tq 16, and 1030 (rows TMA cannot address, a query not of 16-byte rows)
+# 17, 32 and 128. Past the staged plan (the wgmma plan where TMA reaches the rows,
+# else the general one): Tq of 129, 256 (at D 128, one stage a row, and at D 1024,
+# several) and 1024; D of 1024 at Tq 64, 2048 and 4096 at Tq 16, and 1030 (rows TMA
+# cannot address, a query not of 16-byte rows). At the wgmma plan's edges: Td 1, 63,
+# 65 and 130 (64-token tiles whose box reaches past the parent), Tq 129, 200, 257 and
+# 1024 (the N of a pass and several passes), D 136 (a k tail; int8 rows of 136 bytes
+# go to the general plan) and 4096; every K is odd or leaves a query an odd number of
+# valid candidates (a consumer without a candidate), and every shape has a parent
+# past the store (maxsim_inputs)
 MAXSIM_EDGE_SHAPES = [(1, 1, 7, 1, 32, 1), (1, 50, 64, 33, 40, 32), (3, 1, 50, 130, 128, 128),
                       (2, 5, 9, 4096, 32, 32), (128, 50, 1000, 33, 128, 1),
                       (5, 7, 20, 130, 40, 128), (2, 9, 30, 40, 33, 16), (4, 6, 25, 65, 36, 17),
                       (1, 50, 100, 64, 128, 32), (2, 3, 10, 5, 520, 1),
                       (2, 7, 20, 40, 64, 129), (3, 5, 30, 65, 128, 256), (4, 8, 30, 64, 1024, 256),
                       (1, 4, 10, 33, 32, 1024), (4, 6, 25, 64, 1024, 64), (2, 5, 15, 40, 2048, 16),
-                      (2, 3, 9, 33, 4096, 16), (2, 4, 12, 35, 1030, 130)]
+                      (2, 3, 9, 33, 4096, 16), (2, 4, 12, 35, 1030, 130),
+                      (3, 7, 20, 1, 128, 129), (2, 9, 30, 63, 256, 200), (4, 5, 25, 65, 128, 257),
+                      (2, 6, 15, 130, 512, 256), (1, 3, 8, 64, 128, 1024), (3, 5, 20, 64, 136, 160),
+                      (2, 4, 10, 64, 4096, 129), (2, 7, 12, 64, 1024, 256)]
+# edge cases whose every candidate is invalid: the first, and the last (the wgmma plan)
+MAXSIM_ALL_INVALID = (0, len(MAXSIM_EDGE_SHAPES) - 1)
 TERM_ATOL = 1e-5  # f32 sums of at most 16 weights below 1, in another slot order
 LEXICAL_ATOL = 1e-4  # BM25 sums of up to 16 weights of ~10, in another order
 TABLE_WIDTH, QUERY_TERMS = 128, 16  # doc_term_capacity, max_query_terms
@@ -281,6 +302,9 @@ OWN_KERNELS = {"engine.dense": ("bucket_max",), "engine.lexical": ("termtable_ke
 ENCODER_ATOL = 2e-2
 N_ENCODER_TEXTS = 64
 T_START = time.time()
+# MaxSim launches by body and plan over every counted window that checks a body
+# (the windows maxsim_body_launches reads)
+MAXSIM_PLAN_LAUNCHES = {"bf16": {}, "int8": {}}
 STAGE_MS: dict = {}  # engine stage -> device ms per batch of the last stage_profile
 
 
@@ -759,33 +783,54 @@ def maxsim_inputs(dev, gen, b, k, p_rows, td, d, tq):
     return tokens, tok_mask, parent, q, w
 
 
+def maxsim_bound(store, tok_mask, parent, tq: int):
+    """(ms, "bytes" or "operations") of a MaxSim call: each valid candidate's token
+    block and mask once, the candidates' ids and scores, the queries and weights;
+    one product per live doc token and query token."""
+    p_rows, td, d = store.shape
+    b, k = parent.shape
+    ok = parent >= 0
+    n_valid = int(ok.sum())
+    live_tokens = int(tok_mask[parent.clamp(0, p_rows - 1)][ok].sum())
+    return bound(n_valid * td * (d * store.element_size() + 1) + b * k * (8 + 4)
+                 + b * tq * (d + 1) * 4, 2.0 * live_tokens * tq * d)
+
+
 def maxsim_edge_sweep(dev, gen):
-    """Both MaxSim bodies against the plain version at MAXSIM_EDGE_SHAPES, and once
-    with every candidate invalid, within MAXSIM_ATOL."""
+    """Both MaxSim bodies against the plain version at MAXSIM_EDGE_SHAPES (twice with
+    every candidate invalid), within MAXSIM_ATOL, each case's plan logged. Returns
+    the worst error past the staged plan and the cases by plan."""
     from triple_hybrid_rag_tpu_torch.ops import maxsim as mx
 
     worst, cases, worst_past = 0.0, 0, 0.0
+    by_plan = dict.fromkeys(mx.PLANS, 0)
+    taken = []
     for i, (b, k, p_rows, td, d, tq) in enumerate(MAXSIM_EDGE_SHAPES):
         tokens, tok_mask, parent, q, w = maxsim_inputs(dev, gen, b, k, p_rows, td, d, tq)
-        if i == 0:
-            parent[:] = -1  # all candidates invalid
+        if i in MAXSIM_ALL_INVALID:
+            parent[:] = -1
         for store in (tokens, mx.quantize_tokens(tokens)):
+            plan = mx.maxsim_plan(store, parent, q)
             got = mx.maxsim_scores(store, tok_mask, parent, q, w)
             torch.cuda.synchronize()
             e = max_err(got, mx.maxsim_scores_plain(store, tok_mask, parent, q, w))
             if got.shape != (b, k) or not e <= MAXSIM_ATOL:
                 fail(f"maxsim_scores {store.dtype} B={b} K={k} P={p_rows} Td={td} D={d} Tq={tq} "
-                     f"disagrees with its plain version ({e})")
-            if i == 0 and bool((got != 0).any()):
-                fail("maxsim_scores: invalid candidates must score 0")
+                     f"({plan} plan) disagrees with its plain version ({e})")
+            if i in MAXSIM_ALL_INVALID and bool((got != 0).any()):
+                fail(f"maxsim_scores ({plan} plan): invalid candidates must score 0")
             worst, cases = max(worst, e), cases + 1
-            if tq > 128 or d >= 1024:  # past the staged plan
+            by_plan[plan] += 1
+            taken.append(f"{(b, k, p_rows, td, d, tq)} {'int8' if store.dtype == torch.int8 else 'bf16'}"
+                         f" {plan} {e:.3g}")
+            if plan != "staged":
                 worst_past = max(worst_past, e)
-    log(f"maxsim_scores edge sweep: {len(MAXSIM_EDGE_SHAPES)} shapes (B, K, P, Td, D, Tq) "
-        f"{MAXSIM_EDGE_SHAPES}, bf16 and int8 stores, one with every candidate invalid: {cases} "
-        f"cases agree with the plain version within {MAXSIM_ATOL} (worst {worst:.3g}; at Tq > 128 "
-        f"or D >= 1024, past the staged plan, {worst_past:.3g})")
-    return worst_past
+    log(f"maxsim_scores edge sweep: {len(MAXSIM_EDGE_SHAPES)} shapes (B, K, P, Td, D, Tq), bf16 "
+        f"and int8 stores, {len(MAXSIM_ALL_INVALID)} with every candidate invalid: {cases} cases "
+        f"agree with the plain version within {MAXSIM_ATOL} (worst {worst:.3g}; past the staged "
+        f"plan {worst_past:.3g}); cases by plan {by_plan}")
+    log("  shape, store, plan, max |kernel - plain|: " + "; ".join(taken))
+    return worst_past, by_plan
 
 
 def check_maxsim(dev, gen):
@@ -795,20 +840,20 @@ def check_maxsim(dev, gen):
     shape's numbers are its main ones."""
     from triple_hybrid_rag_tpu_torch.ops import maxsim as mx
 
-    worst_past = maxsim_edge_sweep(dev, gen)
+    worst_past, edge_plans = maxsim_edge_sweep(dev, gen)
     entries = {body: {
         "name": "maxsim_scores" if body == "bf16" else "maxsim_scores_int8", "route": "cuda",
         "source": "triple_hybrid_rag_tpu_torch/csrc/maxsim.cu",
         "replaces": "triple_hybrid_rag_tpu/ops/pallas/maxsim_kernel.py:67", "library_ms": None,
-        "max_abs_err": 0.0, "edge_past_staged_max_abs_err": worst_past} for body in ("bf16", "int8")}
+        "max_abs_err": 0.0, "edge_past_staged_max_abs_err": worst_past,
+        "edge_cases_by_plan": edge_plans} for body in ("bf16", "int8")}
     shapes = [(label, shape, N_PARENTS) for label, shape in MAXSIM_SHAPES.items()]
-    for label, (td, d, tq), p_rows in shapes + [("general", MAXSIM_GENERAL_SHAPE, N_GENERAL_PARENTS)]:
+    shapes += [(label, shape, p_rows) for label, (shape, p_rows) in MAXSIM_PAST_STAGED.items()]
+    for label, (td, d, tq), p_rows in shapes:
         tokens, tok_mask, parent, q, w = maxsim_inputs(dev, gen, BATCH, RERANK_K, p_rows, td, d, tq)
-        ok = parent >= 0
-        n_valid = int(ok.sum())
-        live_tokens = int(tok_mask[parent.clamp(0, p_rows - 1)][ok].sum())
         for store in (tokens, mx.quantize_tokens(tokens)):
             body = "int8" if store.dtype == torch.int8 else "bf16"
+            plan = mx.maxsim_plan(store, parent, q)
             got = mx.maxsim_scores(store, tok_mask, parent, q, w)
             want = mx.maxsim_scores_plain(store, tok_mask, parent, q, w)
             torch.cuda.synchronize()
@@ -820,19 +865,14 @@ def check_maxsim(dev, gen):
                          cold_l2=True)
             plain_ms = time_ms(lambda: mx.maxsim_scores_plain(store, tok_mask, parent, q, w),
                                iters=20, cold_l2=True)
-            # each valid candidate's token block and mask once, the candidates' ids and
-            # scores, the queries and weights; one product per live doc token and query token
-            b_ms, b_by = bound(
-                n_valid * td * (d * store.element_size() + 1) + BATCH * RERANK_K * (8 + 4)
-                + BATCH * tq * (d + 1) * 4,
-                2.0 * live_tokens * tq * d,
-            )
+            b_ms, b_by = maxsim_bound(store, tok_mask, parent, tq)
             log(f"maxsim_scores {body} tokens, {label} shape B={BATCH} K={RERANK_K} Td={td} D={d} "
-                f"Tq={tq}: max |kernel - plain| = {err:.3g}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                f"Tq={tq} ({plan} plan): max |kernel - plain| = {err:.3g}; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), kernel / bound "
+                f"{ms / b_ms:.2f}")
             e = entries[body]
             e["max_abs_err"] = max(e["max_abs_err"], err)
-            keys = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            keys = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, plan=plan)
             e.update(keys if label == "smoke" else {f"{key}_{label}": v for key, v in keys.items()})
             del store, got, want
         del tokens, tok_mask
@@ -4382,14 +4422,20 @@ def repaired_maxsim_path(dev, card) -> dict:
         f"{tuple(st.maxsim_tokens.shape)}, queries of {cfg.maxsim_query_tokens} tokens")
     t1 = time.time()
     batched, batch_launches = counted(lambda: rag.query_batch(queries))
+    batch_plans = maxsim_plan_counts()
     staged, staged_launches = counted(lambda: [rag.query(x) for x in staged_q])
+    staged_plans = maxsim_plan_counts()
     log(f"phase 13: {BATCH} queries through query_batch and {len(staged_q)} through RAG.query on "
         f"the card in {time.time() - t1:.2f} s; self-retrieval {hits(batched, range(BATCH)) / BATCH:.4f}"
         f" batched, {hits(staged, range(len(staged_q))) / len(staged_q):.4f} staged; launches "
-        f"batched {batch_launches}, staged {staged_launches}; card {card}")
-    for label, launches in (("batched", batch_launches), ("staged", staged_launches)):
+        f"batched {batch_launches}, staged {staged_launches}; MaxSim launches by plan batched "
+        f"{batch_plans}, staged {staged_plans}; card {card}")
+    for label, launches, plans in (("batched", batch_launches, batch_plans),
+                                   ("staged", staged_launches, staged_plans)):
         if launches["maxsim_scores"] < 1:
             fail(f"phase 13 ({label}): the bf16 MaxSim body was not launched: {launches}")
+        if plans["wgmma"] != launches["maxsim_scores"] + launches["maxsim_scores_int8"]:
+            fail(f"phase 13 ({label}): MaxSim launches by plan {plans}, all expected on the wgmma plan")
     t1 = time.time()
     same_ids("phase 13, query_batch, card against host CPU", pairs(host.query_batch(queries)),
              pairs(batched), REPAIRED_TIE_ATOL)
@@ -4399,13 +4445,22 @@ def repaired_maxsim_path(dev, card) -> dict:
         f"{time.time() - t0:.1f} s")
     out = dict(batch_launches)
     add_counts(out, staged_launches)
-    return out
+    add_counts(batch_plans, staged_plans)
+    return out, batch_plans
+
+
+def maxsim_plan_counts() -> dict:
+    """The MaxSim launches by plan since the last reset."""
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+
+    return dict(maxsim_scores.launches_by_plan)
 
 
 def maxsim_counts_reset() -> None:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
     maxsim_scores.launches_by_tokens = dict.fromkeys(maxsim_scores.launches_by_tokens, 0)
+    maxsim_scores.launches_by_plan = dict.fromkeys(maxsim_scores.launches_by_plan, 0)
 
 
 def maxsim_body_launches(body: str, label: str, state) -> int:
@@ -4414,11 +4469,13 @@ def maxsim_body_launches(body: str, label: str, state) -> int:
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
     by_tokens = dict(maxsim_scores.launches_by_tokens)
-    log(f"{label}: MaxSim launches by token store {by_tokens}; store {state.maxsim_tokens.dtype} "
-        f"{tuple(state.maxsim_tokens.shape)}, device GB {state.nbytes()['maxsim'] / 1e9:.4f} "
-        f"with the mask")
+    plans = maxsim_plan_counts()
+    log(f"{label}: MaxSim launches by token store {by_tokens}, by plan {plans}; store "
+        f"{state.maxsim_tokens.dtype} {tuple(state.maxsim_tokens.shape)}, device GB "
+        f"{state.nbytes()['maxsim'] / 1e9:.4f} with the mask")
     if by_tokens[body] < 1 or sum(by_tokens.values()) != by_tokens[body]:
         fail(f"{label}: the {body} MaxSim body was not the one launched: {by_tokens}")
+    add_counts(MAXSIM_PLAN_LAUNCHES[body], plans)
     return by_tokens[body]
 
 
@@ -4557,7 +4614,7 @@ def main() -> int:
     sharded_training(dev, card)
     log(f"phase 12(h) wall time {time.time() - t0:.1f} s")
     log(f"phase 12 wall time {time.time() - t_phase:.1f} s; sharded launches {sharded}")
-    repaired = repaired_maxsim_path(dev, card)
+    repaired, repaired_plans = repaired_maxsim_path(dev, card)
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -4575,6 +4632,9 @@ def main() -> int:
         k["train_launches"] = trained.get(k["name"], 0)
         k["sharded_launches"] = sharded.get(k["name"], 0)
         k["repaired_launches"] = repaired.get(k["name"], 0)
+        if k["name"] in ivf_bodies:  # MaxSim: the launches by plan
+            k["counted_launches_by_plan"] = MAXSIM_PLAN_LAUNCHES[ivf_bodies[k["name"]]]
+            k["repaired_launches_by_plan"] = repaired_plans  # both bodies' (the bf16 store's)
         if k["name"] in ("dense_scores", "fused_bucket_maxima"):  # of them, the f32 body's
             k["eval_f32_launches"] = evals.get(k["name"] + "_f32", 0)
     log(f"total wall time {time.time() - T_START:.1f} s")

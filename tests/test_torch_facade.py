@@ -148,6 +148,26 @@ def test_maxsim_past_the_kernels_staged_plan(cfg, staged, one_thread):
     assert any(x.rerank_score for r in got for x in r.results)  # the MaxSim rerank ran
 
 
+@pytest.mark.parametrize("case", ["final_top_k staged", "final_top_k batched", "query top_k staged"])
+def test_top_k_past_the_rerank_list_raises_as_the_reference(cfg, case, one_thread):
+    """A final top-k wider than the rerank list (``rerank_top_k`` 8): the
+    reference's ``jax.lax.top_k`` raises ValueError, and so does the port's."""
+    c = cfg.replace(final_top_k=10) if case.startswith("final_top_k") else cfg
+    top_k = 9 if case == "query top_k staged" else None
+    if case.endswith("batched"):
+        ref, port = _pair(c)
+        run = lambda rag: rag.query_batch(QUERIES[:2])  # noqa: E731
+    else:
+        ref, port = RefRAG(c), RAG(torch_config(c), device="cpu")
+        run = lambda rag: rag.query(QUERIES[0], top_k=top_k)  # noqa: E731
+    _ingest((ref, port), DOCS[:3])
+    with pytest.raises(ValueError, match="top_k must be no larger") as want:
+        run(ref)
+    with pytest.raises(ValueError, match="top_k must be no larger") as got:
+        run(port)
+    assert type(got.value) is type(want.value)
+
+
 def test_incremental_ingest_refreshes_the_engine(cfg):
     """A document that changes no static statistic (capacity, postings window, entity
     capacity) refreshes the engine in place; one that lengthens the longest postings

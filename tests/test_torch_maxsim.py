@@ -12,6 +12,7 @@ from triple_hybrid_rag_tpu.ops.maxsim import calibrate_maxsim as ref_cal
 from triple_hybrid_rag_tpu.ops.maxsim import dequantize_tokens as ref_deq
 from triple_hybrid_rag_tpu.ops.maxsim import maxsim_scores as ref_maxsim
 from triple_hybrid_rag_tpu.ops.pallas import maxsim_scores_pallas
+from triple_hybrid_rag_tpu_torch.kernels.build import CSRC, SIGNATURES
 from triple_hybrid_rag_tpu_torch.ops import maxsim as port
 
 
@@ -215,3 +216,35 @@ def test_wide_shapes_match_einsum_and_pallas(rng, store, td, d, tq):
         )
         np.testing.assert_allclose(got[i], np.asarray(want_i), atol=1e-6, rtol=0)
 
+
+
+def _c_exports(source: str) -> dict:
+    """name -> parameter count of each ``int name(...)`` in a source's extern "C" block."""
+    import re
+
+    block = source[source.index('extern "C" {'):]
+    return {m.group(1): len([p for p in m.group(2).split(",") if p.strip()])
+            for m in re.finditer(r"\nint (\w+)\(([^)]*)\)", block)}
+
+
+@pytest.mark.parametrize("lib,fn", [(lib, fn) for lib, fns in SIGNATURES.items() for fn in fns])
+def test_kernel_exports_match_their_ctypes_signatures(lib, fn):
+    """Every function ``kernels/build.py`` binds is exported by its source with as
+    many parameters as its ctypes signature declares (a mismatch would pass
+    pointers in the wrong slots on the card)."""
+    exports = _c_exports((CSRC / f"{lib}.cu").read_text())
+    assert exports.get(fn) == len(SIGNATURES[lib][fn])
+
+
+def test_maxsim_plan_names_and_counters(rng):
+    """The plan names are the launcher's PlanKind order; a CPU store takes the plain
+    version and counts no launch."""
+    assert port.PLANS == ("staged", "wgmma", "general")
+    assert set(port.maxsim_scores.launches_by_plan) == set(port.PLANS)
+    tokens, mask, parent, q, w = (torch.from_numpy(x) for x in _data(rng, tq=200, d=64))
+    before = dict(port.maxsim_scores.launches_by_plan)
+    assert port.maxsim_plan(tokens.to(torch.bfloat16), parent, q) == "plain"
+    port.maxsim_scores(tokens.to(torch.bfloat16), mask, parent, q, w)
+    assert port.maxsim_scores.launches_by_plan == before
+    text = (CSRC / "maxsim.cu").read_text()
+    assert "enum PlanKind { kPlanStaged = 0, kPlanWgmma = 1, kPlanGeneral = 2 };" in text

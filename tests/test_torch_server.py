@@ -200,6 +200,18 @@ def test_rejected_requests_match_reference(pair, route, payload):
     assert status in (400, 404) and json.loads(json.dumps(got).replace("thr-torch ", "thr ")) == want
 
 
+def test_top_k_past_the_rerank_list_is_a_400(pair):
+    """``top_k`` above ``rerank_top_k`` (8): ValueError in both packages, so 400
+    from both staged servers, and no server error counted."""
+    from triple_hybrid_rag_tpu.observability import rag_metrics as ref_metrics
+
+    counters = (ref_metrics.counter("server_errors_total"), rag_metrics.counter("server_errors_total"))
+    before = [c.value() for c in counters]
+    status, b_ref, b_port = _both(pair, "/query", {"query": "invoice settlement", "top_k": 9})
+    assert status == 400 and "top_k" in b_ref["error"] and "top_k" in b_port["error"]
+    assert [c.value() for c in counters] == before
+
+
 def test_non_json_bodies_match_reference(pair):
     for raw in (b"\x89PNG\r\n not json", b"{", "ç".encode("latin-1")):
         status, _, got = _both(pair, "/query", None, raw=raw)

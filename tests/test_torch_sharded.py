@@ -311,6 +311,93 @@ def test_refresh_keeps_the_reference_rule():
     assert eng.refresh(state_from_retriever(ret3)) is False
 
 
+def _refresh_pair():
+    """The reference's refresh fixture (``tests/test_sharded.py``): its engine over
+    its 8 virtual devices, and the port's ``ShardedEngine`` over a port retriever of
+    the same placed state on 8 CPU shards."""
+    from triple_hybrid_rag_tpu_torch.retrieval import Retriever
+
+    c = base_config().replace(graph_enabled=False)
+    corpus, _ = build_fixture(c, n_docs=4, with_graph=False)
+    ret = RefRetriever(corpus, c)
+    ref = RefEngine(ret, ref_corpus_mesh())
+    port_ret = Retriever.from_state(state_from_retriever(ret))
+    eng = ShardedEngine(port_ret, corpus_mesh(devices=CPU8))
+    return c, corpus, ref, eng, Retriever
+
+
+def test_sharded_refresh_takes_a_retriever_as_the_reference():
+    """``tests/test_sharded.py``'s refresh sequence through the port's
+    ``ShardedEngine``: growth within the padded capacity refreshes (True, the new
+    document retrieved, the engine keeps the new retriever), a config change
+    declines (False); both as the reference's engine answers."""
+    c, corpus, ref, eng, Retriever = _refresh_pair()
+    assert eng.last_refresh_error is None
+    p, ch = HierarchicalChunker(c).chunk_document(
+        "Fresh quantum qubit document content.", hashlib.sha256(b"new").hexdigest()
+    )
+    corpus.add_chunks(p, ch)
+    ret2 = RefRetriever(corpus, c)
+    port2 = Retriever.from_state(state_from_retriever(ret2))
+    assert ref.refresh(ret2) is True
+    assert eng.refresh(port2) is True
+    assert eng.retriever is port2 and eng.state is port2.state
+    assert eng.last_refresh_error is None and ref.last_refresh_error is None
+    got = eng.retrieve("quantum qubit")
+    assert any("quantum" in x.text.lower() for x in got.results)
+    _compare([ref.retrieve("quantum qubit")], [got])
+    ret3 = RefRetriever(corpus, c.replace(final_top_k=4))
+    port3 = Retriever.from_state(state_from_retriever(ret3))
+    assert ref.refresh(ret3) is False
+    assert eng.refresh(port3) is False
+    assert eng.retriever is port2  # a declined refresh keeps the engine's retriever
+    assert eng.last_refresh_error is None and ref.last_refresh_error is None
+
+
+def test_sharded_refresh_without_an_argument():
+    """``refresh()`` re-places the engine's own retriever, as the reference's does."""
+    _, _, ref, eng, _ = _refresh_pair()
+    ret = eng.retriever
+    assert ref.refresh() is True
+    assert eng.refresh() is True
+    assert eng.retriever is ret and eng.last_refresh_error is None
+    _compare(ref.retrieve_batch(QUERIES[:3]), eng.retrieve_batch(QUERIES[:3]))
+
+
+def test_sharded_refresh_placement_failure(monkeypatch):
+    """A placement that raises is no "shapes changed": both engines return False,
+    keep the error in ``last_refresh_error`` and count it in their registry's
+    ``engine_refresh_errors_total``; the next good refresh clears it. (The
+    reference's ``parallel/engine.py`` counts through a ``rag_metrics`` it never
+    imports, so its branch raises NameError as shipped: the test lends the module
+    its registry.)"""
+    from triple_hybrid_rag_tpu.observability import rag_metrics as ref_metrics
+    from triple_hybrid_rag_tpu.parallel import engine as ref_engine_module
+    from triple_hybrid_rag_tpu_torch import engine as port_engine
+    from triple_hybrid_rag_tpu_torch.observability import rag_metrics
+
+    _, _, ref, eng, _ = _refresh_pair()
+    counters = (ref_metrics.counter("engine_refresh_errors_total"),
+                rag_metrics.counter("engine_refresh_errors_total"))
+    before = [ctr.value() for ctr in counters]
+
+    def broken(*args, **kwargs):
+        raise MemoryError("placement failed")
+
+    with monkeypatch.context() as m:
+        m.setattr(ref_engine_module, "rag_metrics", ref_metrics, raising=False)
+        m.setattr(RefEngine, "__init__", broken)
+        m.setattr(port_engine, "place", broken)
+        assert ref.refresh() is False
+        assert eng.refresh() is False
+    assert isinstance(ref.last_refresh_error, MemoryError)
+    assert isinstance(eng.last_refresh_error, MemoryError)
+    assert [ctr.value() for ctr in counters] == [b + 1 for b in before]
+    assert ref.refresh() is True and eng.refresh() is True
+    assert ref.last_refresh_error is None and eng.last_refresh_error is None
+    _compare(ref.retrieve_batch(QUERIES[:3]), eng.retrieve_batch(QUERIES[:3]))
+
+
 def test_sharded_engine_over_a_port_retriever():
     """``parallel.ShardedEngine(retriever, mesh)`` over the port's own retriever
     (a CPU RAG) serves what the one-device engine serves."""

@@ -28,6 +28,17 @@ def test_lax_top_k_signed_zero_and_ties():
     np.testing.assert_array_equal(np.signbit(np.asarray(vals)), np.signbit(pv.numpy()))
 
 
+@pytest.mark.parametrize("k", [-1, 9, 12])
+def test_lax_top_k_past_the_width_raises_as_jax_does(k):
+    """k past the last axis, or below 0: ValueError with ``jax.lax.top_k``'s message."""
+    x = np.arange(16, dtype=np.float32).reshape(2, 8)
+    with pytest.raises(ValueError) as want:
+        jax.lax.top_k(jnp.asarray(x), k)
+    with pytest.raises(ValueError) as got:
+        port.lax_top_k(_t(x), k)
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("k", [3, 8, 12])
 def test_sort_topk_desc(rng, k):
     scores = np.array(

@@ -130,19 +130,7 @@ struct Masks {
   const int32_t* cid;    // [b] or null
 };
 
-// v[i] = max(v[i], the partner lane's v[i]) for the half of v[0 .. 2 kHalf) that this
-// lane keeps (the upper half if its bit kBit is set), handing the other half to
-// the partner, lane ^ kBit. The kept half ends in v[0 .. kHalf).
-template <int kHalf, int kBit = kHalf, int kV>
-__device__ __forceinline__ void max_exchange(float (&v)[kV], int lane) {
-  const bool upper = (lane & kBit) != 0;
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    const float send = upper ? v[i] : v[i + kHalf];
-    const float keep = upper ? v[i + kHalf] : v[i];
-    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, kBit));
-  }
-}
+using hopper::max_exchange;
 
 // ---------------------------------------------------------------- bf16 rows
 constexpr int kBf16Queries = 128;  // queries of a tile: two consumer warpgroups of 64 (M)

@@ -27,7 +27,10 @@
 // products go to the tensor cores, and the rest of the design is about keeping
 // the memory busy from the first microsecond to the last.
 //
-// Design:
+// Three plans, chosen by the launcher from the shape alone:
+//
+// 1. The staged plan (`maxsim_kernel<T, true>`), for the served shapes: Tq <= 128
+//    where one staged query fits shared memory beside a one-warp ring of whole rows.
 // - mma.sync.m16n8k16 bf16 -> f32, the query tokens as A (M = Tq: one m16 tile at
 //   Tq = 16, two at 32) and the doc tokens as B (N = doc tokens, K = D). A wgmma
 //   tile has 64 rows: with the query as M it would be 75 % padding at Tq = 16,
@@ -50,10 +53,10 @@
 // - Copies: one TMA box per tile (32 rows of the store seen as a 2-D tensor, the
 //   box as wide as the padded shared-memory row, so TMA zero-fills the pad, the
 //   k tail and rows past the store), where the row is a multiple of 16 bytes
-//   (plain loads for the rest, which no engine shape has). The tile's mask bytes
-//   come by 4-byte cp.async. Both report to the stage's mbarrier (TMA by its
-//   byte count, cp.async by cp.async.mbarrier.arrive), the only wait. Tiles
-//   copied by per-lane 16-byte cp.async kept the memory less busy than TMA boxes.
+//   (plain loads for the rest). The tile's mask bytes come by 4-byte cp.async.
+//   Both report to the stage's mbarrier (TMA by its byte count, cp.async by
+//   cp.async.mbarrier.arrive), the only wait. Tiles copied by per-lane 16-byte
+//   cp.async kept the memory less busy than TMA boxes.
 // - Shared-memory rows are D rounded up to 32 elements, with a pitch of an odd
 //   number of 32-element chunks: the fragment loads (16 bytes a lane for bf16,
 //   8 for int8) then hit distinct banks.
@@ -71,30 +74,51 @@
 //   across the warp with three each. One store per candidate. has_doc is the OR
 //   of the tile masks. No [Td, Tq] matrix is ever stored, so any Td streams (the
 //   reference's blockwise requirement).
-// - Shapes: any Td, Tq and D, as the reference's einsum. The score is separable
-//   over query tokens (sum_i max(per_q[i], 0) w[i], divided once at the end), so
-//   the query tokens can be walked in passes, and a dot product can be summed over
-//   chunks of D before its max is taken. The launcher takes the staged plan above
-//   wherever it fits (Tq <= 128 and one staged query beside a one-warp ring of
-//   whole rows; blocks whose runs would span more queries than fit take shorter
-//   runs), else the general plan, the same kernel instantiated with kStaged false
-//   (compiled as one, both plans took the general plan's registers, which cost the
-//   staged plan resident warps and time at the served shapes):
-//   - no query is staged: a lane builds its A fragments from the f32 query in
-//     device memory (rows g and g + 8, elements 8 c4 + 4 s .. + 3 of the chunk, in
-//     the k order the doc fragments use), so the query's size does not matter;
-//     blocks stride the flattened candidates (block i: i, i + grid, ...) instead of
-//     serving runs, so that the blocks resident at once read the rows of a few
-//     queries (again for every doc-token tile), not of all of them;
-//   - a stage holds 32 doc tokens x a chunk of the row, at most 384 bytes wide
-//     (bf16: 160 elements, int8: 352), so that two blocks of four warps fit an SM
-//     whatever D is, and a TMA box reaches every such row;
-//   - when a row takes one stage, a pass covers 128 query tokens as the staged
-//     plan does; when it takes more, a pass covers 32 (the accumulators of one
-//     32-token slice against the tile, kept across the row's stages) and the
-//     candidate's doc tokens stream once per pass (8 times at Tq = 256, D = 1024).
-//   The general plan is correct at every shape, not fast: at Tq = 256, D = 1024 it
-//   reads 18x its bound (PERF.md).
+//
+// 2. The wgmma plan (`maxsim_wgmma_kernel<T, N>`), for every other shape whose rows
+//    TMA reaches (a multiple of 16 bytes, from a 16-byte aligned store): more than
+//    128 query tokens, or a query or row too wide for the staged plan. The score
+//    is separable over query tokens (sum_i max(per_q[i], 0) w[i], divided once at
+//    the end), so the query tokens are walked in passes of N.
+// - The query is rounded to bf16 once per launch by `round_query_kernel` into
+//    bf16[B, Tq padded to N, D padded to 64], the scratch the caller allocates.
+// - M is 64 doc tokens of one candidate, N = 64, 128 or 256 query tokens (the
+//    smallest that holds Tq, else 256 a pass), K = D in stages of 64 elements. A
+//    consumer warpgroup keeps its f32 accumulator (m64nN, 128 registers at N =
+//    256) across all of D, so a candidate's tokens are read once a pass: once at
+//    Tq <= 256.
+// - One persistent block per SM: a producer thread and two consumer warpgroups
+//    (setmaxnreg 40 / 232). Work item (query, pair of candidates) gives one
+//    candidate to each consumer; items go in (query, pair) order, so that the
+//    blocks at work share a few queries, warm in L2. A four-stage ring: a stage is
+//    the query's [N, 64] tile (one TMA load for both consumers) and each valid
+//    candidate's [64, 64] doc tile (a 3-D box over [parent, token, byte]: tokens
+//    past Td read as zero, never the next parent's). Invalid candidates are never
+//    copied; a consumer without one hands its stages back (Pipeline::skip).
+// - bf16 store: both operands from shared memory (128-byte swizzle). int8 store:
+//    the doc tile lands as int8 (64-byte rows); each lane loads 16 bytes of each
+//    of its two rows and widens them with the scale (widen4) into the A fragments
+//    of the stage's four k-steps, wgmma then takes A from registers; the rounding
+//    pass permutes the query's elements within each 64-element chunk to match.
+// - Epilogue per candidate and 64-token tile: a -inf bias for masked tokens and
+//    tokens past Td; the max over a thread's two rows, across the 8 lanes of a
+//    column (three half-exchanges), across the four warps through shared memory;
+//    a running max over the tiles; then clamp(., 0) x w into the candidate's sums,
+//    across passes. One store per candidate.
+// - Bound at Tq = 256, D = 1024, B = 128 x K = 50 (45 valid), Td = 64: the bf16
+//    tokens 0.76 GB and the f32 query 0.13 GB, 0.27 ms at 3.35 TB/s; 2 x 0.3 M live
+//    doc tokens x 256 x 1024 = 0.15 TFLOP, 0.16 ms at the bf16 peak. int8 tokens
+//    halve the first term, so the products bound it. Each stage brings 32 KB of
+//    query and 2 x 8 KB of doc tokens from L2 for 1,024 cycles of tensor work.
+//
+// 3. The general plan (`maxsim_kernel<T, false>`), for the rest: rows TMA cannot
+//    address (an odd D, int8 rows not of 16-byte multiples), which no engine
+//    shape has. No query is staged: a lane builds its A fragments from the f32
+//    query in device memory; blocks stride the flattened candidates; a stage holds
+//    32 doc tokens x a chunk of the row of at most 384 bytes, and when a row takes
+//    several stages a pass covers 32 query tokens (the candidate's tokens stream
+//    once per pass). It costs about 18.5 ns x Tq x D / 1000 for 6,400 candidates
+//    (PERF.md).
 //
 // Interface: plain C, bound with ctypes; launches on the given stream and
 // returns cudaGetLastError() as an int.
@@ -104,6 +128,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "per_device.cuh"
@@ -500,6 +525,364 @@ maxsim_kernel(const __grid_constant__ CUtensorMap map_tok,  // [p_rows * td, d] 
   }
 }
 
+// ------------------------------------------------------------------ the wgmma plan
+
+constexpr int kWgDocRows = 64;      // doc tokens of a consumer's tile: the M of wgmma
+constexpr int kWgKElems = 64;       // elements of D a stage holds (128 bytes of the bf16 query)
+constexpr int kWgStages = 4;
+constexpr int kWgThreads = 384;     // a producer warpgroup and two consumer warpgroups
+constexpr int kWgConsumerWarps = 8;
+constexpr int kWgSlot = kWgDocRows * hopper::kStageRowBytes;  // a consumer's doc tile in a stage
+
+// Query tokens a pass covers (the N of wgmma): 64, 128, else 256 (then passes of 256).
+inline int wgmma_tile_n(int tq) { return tq <= 64 ? 64 : tq <= 128 ? 128 : 256; }
+
+#define MAXSIM_D32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+#define MAXSIM_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define MAXSIM_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+  " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+  " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+  " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+  " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+  " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+  " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+#define MAXSIM_F8(d, i)                                                                     \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define MAXSIM_F32(d, i) MAXSIM_F8(d, i), MAXSIM_F8(d, i + 8), MAXSIM_F8(d, i + 16), MAXSIM_F8(d, i + 24)
+#define MAXSIM_F64(d, i) MAXSIM_F32(d, i), MAXSIM_F32(d, i + 32)
+#define MAXSIM_F128(d) MAXSIM_F64(d, 0), MAXSIM_F64(d, 64)
+
+// d[64 x N] (+)= a[64 x 16] . b[N x 16]^T, bf16 operands, f32 sums; `accumulate` 0
+// overwrites d. ss: both operands from shared memory (K-major, 128-byte swizzle); rs:
+// a from registers in the fragment layout of mma.m16n8k16 (a[0], a[1] = k 2 (t%4)
+// and the next of rows g and g + 8, a[2], a[3] = the same 8 further on; warp w of the
+// warpgroup owns rows 16 w ..), read while the wgmma is in flight. d as in
+// hopper::WgmmaBf16N256, with N / 8 column groups.
+template <int N>
+struct WgmmaBf16;
+
+#define MAXSIM_WGMMA(N, R, FLIST, DLIST, A, B, P, RA0, RA1, RA2, RA3, RB, RP)                    \
+  template <>                                                                                   \
+  struct WgmmaBf16<N> {                                                                         \
+    static constexpr int kAcc = R;                                                              \
+    static __device__ __forceinline__ void ss(float (&d)[R], uint64_t da, uint64_t db, int acc) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"                              \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " DLIST            \
+                   ", %" A ", %" B ", p, 1, 1, 0, 0;\n}\n"                                       \
+                   : FLIST                                                                      \
+                   : "l"(da), "l"(db), "r"(acc));                                               \
+    }                                                                                           \
+    static __device__ __forceinline__ void rs(float (&d)[R], const uint32_t (&a)[4], uint64_t db, \
+                                              int acc) {                                        \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" RP ", 0;\n"                             \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " DLIST            \
+                   ", {%" RA0 ", %" RA1 ", %" RA2 ", %" RA3 "}, %" RB ", p, 1, 1, 0;\n}\n"       \
+                   : FLIST                                                                      \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));            \
+    }                                                                                           \
+  };
+
+MAXSIM_WGMMA(64, 32, MAXSIM_F32(d, 0), MAXSIM_D32, "32", "33", "34", "32", "33", "34", "35", "36", "37")
+MAXSIM_WGMMA(128, 64, MAXSIM_F64(d, 0), MAXSIM_D64, "64", "65", "66", "64", "65", "66", "67", "68", "69")
+MAXSIM_WGMMA(256, 128, MAXSIM_F128(d), MAXSIM_D128, "128", "129", "130", "128", "129", "130", "131",
+             "132", "133")
+
+#undef MAXSIM_WGMMA
+#undef MAXSIM_F128
+#undef MAXSIM_F64
+#undef MAXSIM_F32
+#undef MAXSIM_F8
+#undef MAXSIM_D32
+#undef MAXSIM_D64
+#undef MAXSIM_D128
+
+// Shared memory of a block: a stage holds the two consumers' doc tiles (64 rows x 128
+// bytes each, 128-byte swizzle; an int8 tile is 64 rows x 64 bytes, unswizzled, at the
+// start of its slot) and the query tile both share (kN rows x 128 bytes, 128-byte
+// swizzle). Then each consumer's column maxima of its warps, and its partial sums.
+template <int kN>
+struct WgSmem {
+  hopper::Pipeline<kWgStages, 2 * kWgDocRows, kN, kWgConsumerWarps> pipe;
+  alignas(16) float red[2][2][4][kN];  // [consumer][epilogue parity][warp][query token of the pass]
+  alignas(16) float fin[2][2][4][2];   // [consumer][candidate parity][warp][numerator, weights]
+};
+
+struct WgShape {
+  int p_rows, td, d, tq, b, k;
+  int tq_pad;  // rows of a query in the rounded buffer: tq rounded up to the pass
+  int n_k;     // stages of a doc-token tile: D in steps of 64 elements
+  int n_dt;    // 64-token tiles of a parent
+  int n_pass;  // passes over the query tokens
+};
+
+// The query rounded to bf16 once per launch, as the reference rounds it before its
+// Pallas call: qr[b, i, e] = bf16(q[b, i, src(e)]) for i < tq and src(e) < d, else 0,
+// over [b, tq_pad, d_pad] (d_pad: d rounded up to 64). For the int8 body the elements
+// of each 64-element chunk are permuted so that a lane's A fragments of the chunk's
+// four k-steps are 16 consecutive bytes of its doc-token row: slot 16 s + o of the
+// chunk (k-step s) holds element 16 ((o & 7) >> 1) + 4 s + (o & 1) + 2 (o >> 3), the
+// element that the lane owning the slot's fragment register widens from its word s.
+template <bool kPermute>
+__global__ void __launch_bounds__(256)
+round_query_kernel(const float* __restrict__ q, __nv_bfloat16* __restrict__ qr, int tq, int d,
+                   int tq_pad, int d_pad, int64_t groups) {
+  const int row_groups = d_pad / 8;
+  for (int64_t gi = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; gi < groups;
+       gi += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = gi / row_groups;
+    const int e0 = static_cast<int>(gi - row * row_groups) * 8;
+    const int qb = static_cast<int>(row / tq_pad), i = static_cast<int>(row - static_cast<int64_t>(qb) * tq_pad);
+    const float* src = q + (static_cast<int64_t>(qb) * tq + i) * d;
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      int s = e0 + j;
+      if constexpr (kPermute) {
+        const int o = s & 15, st = (s & 63) >> 4;
+        s = (s & ~63) + 16 * ((o & 7) >> 1) + 4 * st + (o & 1) + 2 * (o >> 3);
+      }
+      v[j] = __float2bfloat16_rn(i < tq && s < d ? src[s] : 0.f);
+    }
+    *reinterpret_cast<uint4*>(qr + row * d_pad + e0) = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// One persistent block per SM. Work item (query b, pair j) is candidates 2 j and
+// 2 j + 1 of query b, one to each consumer warpgroup; items go in (query, pair) order,
+// block i taking items i, i + grid, ..., so that the blocks at work share a few queries,
+// warm in L2. For each item with a valid candidate the producer thread streams, per
+// pass, per 64-token tile and per 64 elements of D, one stage: the query tile (TMA,
+// once for both consumers) and each valid candidate's doc tile (TMA, 3-D over
+// [parent, token, byte]: rows past Td read as zero, never the next parent's). A
+// consumer keeps its f32 accumulator (64 doc tokens x kN query tokens) over all of D,
+// so each doc token is read once a pass; a consumer whose candidate is invalid hands
+// the item's stages back unread (Pipeline::skip).
+template <typename T, int kN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+maxsim_wgmma_kernel(const __grid_constant__ CUtensorMap map_doc,  // [p_rows, td, d * E] bytes
+                    const __grid_constant__ CUtensorMap map_q,    // [b * tq_pad, d_pad] bf16
+                    const uint8_t* __restrict__ tok_mask,          // [p_rows, td]
+                    const int64_t* __restrict__ parent,            // [b, k]
+                    const float* __restrict__ qw,                  // [b, tq]
+                    float* __restrict__ out,                       // [b, k]
+                    const WgShape sh) {
+  constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr uint32_t kDocBytes = kWgDocRows * kWgKElems * sizeof(T);  // a doc tile's stage
+  constexpr uint32_t kQBytes = kN * hopper::kStageRowBytes;
+  using Mma = WgmmaBf16<kN>;
+  extern __shared__ uint8_t smem_raw[];
+  WgSmem<kN>& sm = *reinterpret_cast<WgSmem<kN>*>(
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023));
+  if (threadIdx.x == 0) sm.pipe.init();
+  __syncthreads();
+
+  const int pairs = (sh.k + 1) / 2;
+  const int n_items = sh.b * pairs;
+  const int n_stages = sh.n_pass * sh.n_dt * sh.n_k;  // of an item with a valid candidate
+  // the parent of candidate 2 j + c of item (b, j), -1 when invalid or past k
+  auto parent_of = [&](int item, int c) -> int64_t {
+    if (item >= n_items) return -1;
+    const int qb = item / pairs, j = 2 * (item - qb * pairs) + c;
+    return j < sh.k ? parent[static_cast<int64_t>(qb) * sh.k + j] : -1;
+  };
+  // the warpgroup's index, broadcast so that the compiler sees the roles' control
+  // flow as uniform across a warp (else it serializes the wgmmas)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  hopper::Ring<kWgStages> ring;
+
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full, across items
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int64_t next0 = parent_of(blockIdx.x, 0), next1 = parent_of(blockIdx.x, 1);
+      for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+        const int64_t p0 = next0, p1 = next1;  // the next item's, loaded while this one streams
+        next0 = parent_of(item + gridDim.x, 0);
+        next1 = parent_of(item + gridDim.x, 1);
+        if (p0 < 0 && p1 < 0) continue;
+        const int last = sh.p_rows - 1;  // a parent past the store reads its last row
+        const int r0 = static_cast<int>(p0 < last ? p0 : last), r1 = static_cast<int>(p1 < last ? p1 : last);
+        const int q_row = (item / pairs) * sh.tq_pad;
+        const uint32_t bytes = kQBytes + ((p0 >= 0) + (p1 >= 0)) * kDocBytes;
+        for (int pass = 0; pass < sh.n_pass; ++pass)
+          for (int dt = 0; dt < sh.n_dt; ++dt)
+            for (int kb = 0; kb < sh.n_k; ++kb) {
+              hopper::mbar_wait(&sm.pipe.empty[ring.stage], ring.parity ^ 1);
+              uint64_t* bar = &sm.pipe.full[ring.stage];
+              hopper::mbar_arrive_expect_tx(bar, bytes);
+              hopper::tma_load_2d(sm.pipe.b(ring.stage), &map_q, kb * hopper::kStageRowBytes,
+                                  q_row + pass * kN, bar);
+              uint8_t* docs = sm.pipe.a(ring.stage);
+              const int col = kb * static_cast<int>(kWgKElems * sizeof(T));
+              if (p0 >= 0) hopper::tma_load_3d(docs, &map_doc, col, dt * kWgDocRows, r0, bar);
+              if (p1 >= 0) hopper::tma_load_3d(docs + kWgSlot, &map_doc, col, dt * kWgDocRows, r1, bar);
+              ring.advance();
+            }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: consumer c scores candidate 2 j + c of each item
+  hopper::reg_alloc<232>();
+  const int c = wg - 1;
+  const int t = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31, warp = t >> 5;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int row0 = 16 * warp + g;         // the thread's doc tokens of a tile: row0, row0 + 8
+  constexpr int kCols = (kN + 127) / 128;  // query tokens of a pass a thread finishes
+  constexpr int kV = kN / 4;               // row maxima a thread holds after the products
+  const float scale = __bfloat162float(__float2bfloat16_rn(1.f / 127.f));  // bf16(1/127)
+  const float scale_off = -8388736.f * scale;  // -(2^23 + 128) bf16(1/127), exact
+  int epi = 0, cand_par = 0;
+  float acc[Mma::kAcc];
+
+  // the products of one doc-token tile against the pass's query tokens over all of D
+  auto products = [&]() {
+    int prev = -1;
+    if constexpr (kInt8) {
+      // A from registers: the lane's 16 bytes of rows row0 and row0 + 8, loaded while
+      // the previous stage's wgmmas run, widened to bf16 with the scale once they are
+      // done (a register a wgmma reads is defined only outside its pipeline stage)
+      for (int kb = 0; kb < sh.n_k; ++kb) {
+        hopper::mbar_wait(&sm.pipe.full[ring.stage], ring.parity);
+        const uint8_t* doc = sm.pipe.a(ring.stage) + c * kWgSlot;
+        const uint4 x = *reinterpret_cast<const uint4*>(doc + row0 * kWgKElems + 16 * c4);
+        const uint4 y = *reinterpret_cast<const uint4*>(doc + (row0 + 8) * kWgKElems + 16 * c4);
+        hopper::wgmma_wait<0>();  // the previous stage's wgmmas no longer read a
+        sm.pipe.release(prev);
+        const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+        uint32_t a[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          widen4(xs[s], scale, scale_off, a[s][0], a[s][2]);
+          widen4(ys[s], scale, scale_off, a[s][1], a[s][3]);
+        }
+        const uint8_t* qt = sm.pipe.b(ring.stage);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          Mma::rs(acc, a[s], hopper::wgmma_desc(qt, s * hopper::kMmaKBytes), (kb | s) != 0);
+        hopper::wgmma_commit();
+        prev = ring.stage;
+        ring.advance();
+      }
+    } else {
+      for (int kb = 0; kb < sh.n_k; ++kb) {
+        hopper::mbar_wait(&sm.pipe.full[ring.stage], ring.parity);
+        const uint8_t* doc = sm.pipe.a(ring.stage) + c * kWgSlot;
+        const uint8_t* qt = sm.pipe.b(ring.stage);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < hopper::kStageRowBytes; k += hopper::kMmaKBytes)
+          Mma::ss(acc, hopper::wgmma_desc(doc, k), hopper::wgmma_desc(qt, k), (kb | k) != 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        sm.pipe.release(prev);
+        prev = ring.stage;
+        ring.advance();
+      }
+    }
+    hopper::wgmma_wait<0>();
+    sm.pipe.release(prev);
+  };
+
+  int64_t next0 = parent_of(blockIdx.x, 0), next1 = parent_of(blockIdx.x, 1);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    // broadcast, so that the compiler sees the branches on them as uniform
+    const int64_t p0 = __shfl_sync(0xffffffffu, next0, 0), p1 = __shfl_sync(0xffffffffu, next1, 0);
+    next0 = parent_of(item + gridDim.x, 0);
+    next1 = parent_of(item + gridDim.x, 1);
+    const int qb = item / pairs, j = 2 * (item - qb * pairs) + c;
+    const int64_t own = c == 0 ? p0 : p1;
+    float* dst = out + static_cast<int64_t>(qb) * sh.k + j;
+    if (own < 0) {  // an invalid candidate scores 0; the partner's stages pass unread
+      if (t == 0 && j < sh.k) *dst = 0.f;
+      if (p0 >= 0 || p1 >= 0) sm.pipe.skip(ring, n_stages);
+      continue;
+    }
+    const int64_t prow = own < sh.p_rows ? own : static_cast<int64_t>(sh.p_rows) - 1;
+    const uint8_t* mrow = tok_mask + prow * sh.td;
+    const float* wq = qw + static_cast<int64_t>(qb) * sh.tq;
+    float num = 0.f, den = 0.f;
+    for (int pass = 0; pass < sh.n_pass; ++pass) {
+      float wt[kCols], run[kCols];  // the weight and running max of query token t + 128 u
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int col = t + 128 * u, i = pass * kN + col;
+        wt[u] = col < kN && i < sh.tq ? wq[i] : 0.f;
+        run[u] = -INFINITY;
+      }
+      for (int dt = 0; dt < sh.n_dt; ++dt) {
+        // 0 for an unmasked doc token, -inf for a masked one or one past Td
+        const int ta = dt * kWgDocRows + row0, tb = ta + 8;
+        const float bias0 = ta < sh.td && mrow[ta] != 0 ? 0.f : -INFINITY;
+        const float bias1 = tb < sh.td && mrow[tb] != 0 ? 0.f : -INFINITY;
+        products();
+        // column maxima: the thread's two rows, then the 8 lanes of its column (three
+        // exchanges that halve the values a lane holds), then the four warps
+        float v[kV];
+#pragma unroll
+        for (int n = 0; n < kN / 8; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) v[2 * n + h] = fmaxf(acc[4 * n + h] + bias0, acc[4 * n + 2 + h] + bias1);
+        hopper::max_exchange<kV / 2, 16>(v, lane);
+        hopper::max_exchange<kV / 4, 8>(v, lane);
+        hopper::max_exchange<kV / 8, 4>(v, lane);
+        // v[i], i < kV / 8: column 8 ((i + (kV / 8) g) >> 1) + 2 c4 + (i & 1)
+        float* red = &sm.red[c][epi][0][0];
+#pragma unroll
+        for (int i = 0; i < kV / 8; i += 2) {
+          const int col = 8 * ((i + (kV / 8) * g) >> 1) + 2 * c4;
+          *reinterpret_cast<float2*>(red + warp * kN + col) = make_float2(v[i], v[i + 1]);
+        }
+        hopper::named_barrier(1 + c, 128);
+        // one barrier an epilogue is enough: the buffers of this parity are written
+        // again two epilogues on, after every thread has passed the next barrier
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          const int col = t + 128 * u;
+          if (col < kN)
+            run[u] = fmaxf(run[u], fmaxf(fmaxf(red[col], red[kN + col]), fmaxf(red[2 * kN + col], red[3 * kN + col])));
+        }
+        epi ^= 1;
+      }
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        num += fmaxf(run[u], 0.f) * wt[u];  // no unmasked token: max(-inf, 0) = 0
+        den += wt[u];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      num += __shfl_xor_sync(0xffffffffu, num, o);
+      den += __shfl_xor_sync(0xffffffffu, den, o);
+    }
+    if (lane == 0) {
+      sm.fin[c][cand_par][warp][0] = num;
+      sm.fin[c][cand_par][warp][1] = den;
+    }
+    hopper::named_barrier(1 + c, 128);
+    if (t == 0) {
+      const float(&f)[4][2] = sm.fin[c][cand_par];
+      *dst = (f[0][0] + f[1][0] + f[2][0] + f[3][0]) / fmaxf(f[0][1] + f[1][1] + f[2][1] + f[3][1], 1.f);
+    }
+    cand_par ^= 1;
+  }
+}
+
 // The opt-in to `max_smem` bytes of dynamic shared memory is made once per device.
 template <typename T, bool kStaged>
 int blocks_per_sm(int dev, int warps, size_t smem, int max_smem, int* per_sm) {
@@ -658,32 +1041,127 @@ int make_map(Map& m, const void* tokens, uint64_t rows, int row_bytes, int rs) {
   return 0;
 }
 
+// The tensor map of the store for the wgmma plan: [p_rows, td, d * E] bytes, boxes of
+// 64 tokens x 64 elements of one parent (bf16: 128 bytes, swizzled as wgmma reads them;
+// int8: 64 bytes, unswizzled); tokens past td and bytes past the row read as zero.
+int make_doc_map(CUtensorMap* map, const void* tokens, int p_rows, int td, int row_bytes, bool int8) {
+  hopper::TensorMapEncode encode;
+  const int err = hopper::tensor_map_encoder(&encode);
+  if (err != 0) return err;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(row_bytes), static_cast<cuuint64_t>(td),
+                              static_cast<cuuint64_t>(p_rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(row_bytes) * td};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(int8 ? kWgKElems : 2 * kWgKElems), kWgDocRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(tokens), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : hopper::kEncodeFailed + static_cast<int>(res);
+}
+
+// Bytes of the rounded query buffer the wgmma plan needs: bf16[b, tq_pad, d_pad].
+int64_t wgmma_scratch_bytes(int d, int tq, int b) {
+  const int n = wgmma_tile_n(tq);
+  return static_cast<int64_t>(b) * ((tq + n - 1) / n * n) * ((d + kWgKElems - 1) / kWgKElems * kWgKElems) * 2;
+}
+
+// The query's rounding pass and one persistent launch of the wgmma plan.
+template <typename T, int kN>
+int launch_wgmma(int dev, int sms, const void* tokens, const void* tok_mask, const void* parent,
+                 const void* q, const void* qw, void* out, void* scratch, int p_rows, int td, int d,
+                 int tq, int b, int k, cudaStream_t st) {
+  constexpr int kSmem = sizeof(WgSmem<kN>) + 1024;  // room to align the ring to 1024 bytes
+  static bool ready[per_device::kMaxDevices] = {};
+  if (!ready[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(maxsim_wgmma_kernel<T, kN>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  const int tq_pad = (tq + kN - 1) / kN * kN, d_pad = (d + kWgKElems - 1) / kWgKElems * kWgKElems;
+  const int64_t groups = static_cast<int64_t>(b) * tq_pad * (d_pad / 8);
+  const int64_t most = static_cast<int64_t>(sms) * 8;
+  const int rq_blocks = static_cast<int>(std::min<int64_t>((groups + 255) / 256, most));
+  auto* qr = static_cast<__nv_bfloat16*>(scratch);
+  round_query_kernel<sizeof(T) == 1><<<rq_blocks, 256, 0, st>>>(static_cast<const float*>(q), qr, tq,
+                                                                d, tq_pad, d_pad, groups);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  CUtensorMap map_doc, map_q;
+  err = make_doc_map(&map_doc, tokens, p_rows, td, d * static_cast<int>(sizeof(T)), sizeof(T) == 1);
+  if (err == 0)
+    err = hopper::make_tensor_map(&map_q, qr, static_cast<uint64_t>(b) * tq_pad, d_pad * 2, d_pad * 2, kN);
+  if (err != 0) return err;
+  const WgShape sh{p_rows, td, d, tq, b, k, tq_pad, d_pad / kWgKElems, (td + kWgDocRows - 1) / kWgDocRows,
+                   tq_pad / kN};
+  const int items = b * ((k + 1) / 2), grid = items < sms ? items : sms;
+  maxsim_wgmma_kernel<T, kN><<<grid, kWgThreads, kSmem, st>>>(
+      map_doc, map_q, static_cast<const uint8_t*>(tok_mask), static_cast<const int64_t*>(parent),
+      static_cast<const float*>(qw), static_cast<float*>(out), sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum PlanKind { kPlanStaged = 0, kPlanWgmma = 1, kPlanGeneral = 2 };
+
+// The current device's ordinal, SM count and shared-memory opt-in limit.
+int device_limits(int* dev, int* sms, int* max_smem) {
+  static int sms_of[per_device::kMaxDevices] = {}, max_smem_of[per_device::kMaxDevices] = {};
+  if (const cudaError_t e = per_device::current(dev); e != cudaSuccess) return static_cast<int>(e);
+  int &s = sms_of[*dev], &m = max_smem_of[*dev];
+  if (s == 0) {
+    cudaError_t err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, *dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&m, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (err != cudaSuccess) {
+      s = 0;
+      return static_cast<int>(err);
+    }
+  }
+  *sms = s;
+  *max_smem = m;
+  return 0;
+}
+
+// The plan of a shape, by shape alone: the staged plan wherever it fits, else the
+// wgmma plan wherever TMA reaches the rows (a multiple of 16 bytes, from a 16-byte
+// aligned store: tma_rows), else the general plan.
+template <typename T>
+int choose(int d, int tq, int b, int k, int tma_rows, int* dev, int* sms, Launch& l, int* plan) {
+  int max_smem = 0;
+  int err = device_limits(dev, sms, &max_smem);
+  if (err == 0) err = launch_for<T>(*dev, d, tq, b, k, *sms, max_smem, l);
+  if (err != 0) return err;
+  *plan = l.queries > 0 ? kPlanStaged : tma_rows != 0 ? kPlanWgmma : kPlanGeneral;
+  return 0;
+}
+
 template <typename T>
 int launch(const void* tokens, const void* tok_mask, const void* parent, const void* q,
-           const void* qw, void* out, int p_rows, int td, int d, int tq, int b, int k,
+           const void* qw, void* out, void* scratch, int p_rows, int td, int d, int tq, int b, int k,
            int tma_rows, void* stream) {
   if (p_rows < 1 || td < 1 || d < 1 || tq < 1 || b < 1 || k < 1 ||
       static_cast<int64_t>(p_rows) * td > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  static int sms_of[per_device::kMaxDevices] = {}, max_smem_of[per_device::kMaxDevices] = {};
   static Map maps[per_device::kMaxDevices];  // of each device's last store
-  int dev = 0;
-  if (const cudaError_t e = per_device::current(&dev); e != cudaSuccess) return static_cast<int>(e);
-  int &sms = sms_of[dev], &max_smem = max_smem_of[dev];  // of the current device
-  Map& map = maps[dev];
-  if (sms == 0) {
-    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) {
-      sms = 0;
-      return static_cast<int>(err);
+  int dev = 0, sms = 0, plan = 0;
+  Launch l;
+  int err = choose<T>(d, tq, b, k, tma_rows, &dev, &sms, l, &plan);
+  if (err != 0) return err;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (plan == kPlanWgmma) {
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    switch (wgmma_tile_n(tq)) {
+      case 64:
+        return launch_wgmma<T, 64>(dev, sms, tokens, tok_mask, parent, q, qw, out, scratch, p_rows, td, d, tq, b, k, st);
+      case 128:
+        return launch_wgmma<T, 128>(dev, sms, tokens, tok_mask, parent, q, qw, out, scratch, p_rows, td, d, tq, b, k, st);
+      default:
+        return launch_wgmma<T, 256>(dev, sms, tokens, tok_mask, parent, q, qw, out, scratch, p_rows, td, d, tq, b, k, st);
     }
   }
   constexpr int E = sizeof(T);
-  Launch l;
-  int err = launch_for<T>(dev, d, tq, b, k, sms, max_smem, l);
-  if (err != 0) return err;
+  Map& map = maps[dev];
   // one TMA box per stage where TMA can address the rows (16-byte multiples from a
   // 16-byte aligned store: the caller says so) and the padded row fits a box
   const bool tma = tma_rows != 0 && l.rs <= kMaxTmaRow;
@@ -691,42 +1169,65 @@ int launch(const void* tokens, const void* tok_mask, const void* parent, const v
     err = make_map(map, tokens, static_cast<uint64_t>(p_rows) * td, d * E, l.rs);
     if (err != 0) return err;
   }
-  const Plan& plan = l.plan;
+  const Plan& pl = l.plan;
   const int64_t total = static_cast<int64_t>(b) * k;
   Shape sh{p_rows, td, d, tq, b, k, l.chunk, l.queries, l.rs, tma, l.dc, l.pass};
-  auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((total + l.chunk - 1) / l.chunk)), block(plan.warps * 32);
+  const dim3 grid(static_cast<unsigned>((total + l.chunk - 1) / l.chunk)), block(pl.warps * 32);
   const auto* tok = static_cast<const T*>(tokens);
   const auto* msk = static_cast<const uint8_t*>(tok_mask);
   const auto* pid = static_cast<const int64_t*>(parent);
   const auto* qv = static_cast<const float*>(q);
   const auto* wv = static_cast<const float*>(qw);
   auto* o = static_cast<float*>(out);
-  if (l.queries > 0)
-    maxsim_kernel<T, true><<<grid, block, plan.smem, st>>>(map.tok, tok, msk, pid, qv, wv, o, sh);
+  if (plan == kPlanStaged)
+    maxsim_kernel<T, true><<<grid, block, pl.smem, st>>>(map.tok, tok, msk, pid, qv, wv, o, sh);
   else
-    maxsim_kernel<T, false><<<grid, block, plan.smem, st>>>(map.tok, tok, msk, pid, qv, wv, o, sh);
+    maxsim_kernel<T, false><<<grid, block, pl.smem, st>>>(map.tok, tok, msk, pid, qv, wv, o, sh);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan (PlanKind) a shape takes on the current device, and the bytes of scratch
+// its launch needs (the wgmma plan's rounded query; else 0).
+template <typename T>
+int plan_of(int d, int tq, int b, int k, int tma_rows, void* plan_out, void* scratch_out) {
+  if (d < 1 || tq < 1 || b < 1 || k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, plan = 0;
+  Launch l;
+  const int err = choose<T>(d, tq, b, k, tma_rows, &dev, &sms, l, &plan);
+  if (err != 0) return err;
+  *static_cast<int*>(plan_out) = plan;
+  *static_cast<int64_t*>(scratch_out) = plan == kPlanWgmma ? wgmma_scratch_bytes(d, tq, b) : 0;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// tma_rows: 1 when a token row is a multiple of 16 bytes and the store 16-byte
-// aligned (the tiles then come by TMA), else 0
+// scratch: the plan's scratch (maxsim_plan_*), or null when it needs none. tma_rows: 1
+// when a token row is a multiple of 16 bytes and the store 16-byte aligned, else 0.
 int maxsim_scores_bf16(const void* tokens, const void* tok_mask, const void* parent,
-                       const void* q, const void* qw, void* out, int p_rows, int td, int d,
-                       int tq, int b, int k, int tma_rows, void* stream) {
-  return launch<__nv_bfloat16>(tokens, tok_mask, parent, q, qw, out, p_rows, td, d, tq, b, k,
-                               tma_rows, stream);
+                       const void* q, const void* qw, void* out, void* scratch, int p_rows, int td,
+                       int d, int tq, int b, int k, int tma_rows, void* stream) {
+  return launch<__nv_bfloat16>(tokens, tok_mask, parent, q, qw, out, scratch, p_rows, td, d, tq, b,
+                               k, tma_rows, stream);
 }
 
 int maxsim_scores_int8(const void* tokens, const void* tok_mask, const void* parent,
-                       const void* q, const void* qw, void* out, int p_rows, int td, int d,
-                       int tq, int b, int k, int tma_rows, void* stream) {
-  return launch<int8_t>(tokens, tok_mask, parent, q, qw, out, p_rows, td, d, tq, b, k, tma_rows,
-                        stream);
+                       const void* q, const void* qw, void* out, void* scratch, int p_rows, int td,
+                       int d, int tq, int b, int k, int tma_rows, void* stream) {
+  return launch<int8_t>(tokens, tok_mask, parent, q, qw, out, scratch, p_rows, td, d, tq, b, k,
+                        tma_rows, stream);
+}
+
+// *plan (int): 0 the staged plan, 1 the wgmma plan, 2 the general plan; *scratch
+// (int64): bytes of scratch the launch needs
+int maxsim_plan_bf16(int d, int tq, int b, int k, int tma_rows, void* plan, void* scratch) {
+  return plan_of<__nv_bfloat16>(d, tq, b, k, tma_rows, plan, scratch);
+}
+
+int maxsim_plan_int8(int d, int tq, int b, int k, int tma_rows, void* plan, void* scratch) {
+  return plan_of<int8_t>(d, tq, b, k, tma_rows, plan, scratch);
 }
 
 }  // extern "C"

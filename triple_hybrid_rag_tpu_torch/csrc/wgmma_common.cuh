@@ -144,6 +144,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// one box of a 3-D tensor map, at (byte c0 of row c1 of matrix c2)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 template <int kRegs>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -302,6 +312,22 @@ struct WgmmaS8N128 {
 #undef HOPPER_R8
 #undef HOPPER_R64
 #undef HOPPER_D64
+
+// v[i] = max(v[i], the partner lane's v[i]) for the half of v[0 .. 2 kHalf) that this
+// lane keeps (the upper half if its bit kBit is set), handing the other half to
+// the partner, lane ^ kBit. The kept half ends in v[0 .. kHalf). Three such steps
+// over lane bits 16, 8 and 4 take a column maximum over the eight rows a warp's
+// accumulator fragment spreads across lanes.
+template <int kHalf, int kBit = kHalf, int kV>
+__device__ __forceinline__ void max_exchange(float (&v)[kV], int lane) {
+  const bool upper = (lane & kBit) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = upper ? v[i] : v[i + kHalf];
+    const float keep = upper ? v[i + kHalf] : v[i];
+    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, kBit));
+  }
+}
 
 // ------------------------------------------------- producer / consumer main loop
 

@@ -110,8 +110,8 @@ class RAG:
     @property
     def retriever(self) -> Retriever:
         """The current snapshot's retriever, rebuilt when the corpus changed; the
-        engine takes the new state through :meth:`Engine.refresh`, or is rebuilt
-        lazily when the shapes changed."""
+        engine takes the new retriever through ``ShardedEngine.refresh``, or is
+        rebuilt lazily when the shapes changed or placement failed."""
         if self._retriever is None or self.ingestor.corpus.dirty:
             kwargs = {}
             if self._planner is not None:
@@ -119,7 +119,7 @@ class RAG:
             if self._rerank_fn is not None:
                 kwargs["rerank_llm_fn"] = self._rerank_fn
             self._retriever = self.ingestor.make_retriever(**kwargs)
-            if self._engine is not None and not self._engine.refresh(self._retriever.state):
+            if self._engine is not None and not self._engine.refresh(self._retriever):
                 self._engine = None
         return self._retriever
 

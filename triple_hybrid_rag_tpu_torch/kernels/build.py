@@ -37,8 +37,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "fused_bucket_maxima_int4": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "maxsim": {
-        "maxsim_scores_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-        "maxsim_scores_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "maxsim_scores_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "maxsim_scores_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "maxsim_plan_bf16": [_I, _I, _I, _I, _I, _P, _P],
+        "maxsim_plan_int8": [_I, _I, _I, _I, _I, _P, _P],
     },
     "termtable": {
         "termtable_scores_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -12,15 +12,22 @@ rounded to bf16 and f32 sums. Invalid candidates and parents without tokens scor
 as they are scored. :func:`maxsim_scores` launches the hand-written kernel
 ``csrc/maxsim.cu`` on a CUDA tensor (it gathers the parents' token rows itself,
 with a bf16 and an int8 body, at any number of query tokens and any width, as the
-reference's einsum) and runs :func:`maxsim_scores_plain` on a CPU tensor.
+reference's einsum) and runs :func:`maxsim_scores_plain` on a CPU tensor. The
+kernel's launcher picks one of three plans by shape (:func:`maxsim_plan`):
+``staged`` (the served shapes: every query of a block in shared memory),
+``wgmma`` (past them, where TMA reaches the rows: the query rounded to bf16 once,
+then wgmma over whole rows) and ``general`` (the rest: rows TMA cannot address).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 INT8_TOKEN_SCALE = 127.0
 _BODIES = {torch.bfloat16: "bf16", torch.int8: "int8"}  # token dtype -> kernel body
+PLANS = ("staged", "wgmma", "general")  # csrc/maxsim.cu's PlanKind, in order
 
 
 def calibrate_maxsim(scores: torch.Tensor, calibration: float) -> torch.Tensor:
@@ -70,6 +77,40 @@ def maxsim_scores_plain(
     return torch.where((parent_ids >= 0) & has_doc, score, torch.zeros_like(score))
 
 
+def _tma_rows(tok: torch.Tensor) -> int:
+    """1 when TMA can address the store's rows: 16-byte multiples from a 16-byte
+    aligned store."""
+    d = tok.shape[-1]
+    return int((d * tok.element_size()) % 16 == 0 and tok.data_ptr() % 16 == 0)
+
+
+def _plan(body: str, tok: torch.Tensor, b: int, k: int, tq: int):
+    """(plan name, scratch bytes) the kernel's launcher takes for this shape on the
+    store's device."""
+    from ..kernels.build import check, load
+
+    plan, scratch = ctypes.c_int(-1), ctypes.c_int64(0)
+    fn = f"maxsim_plan_{body}"
+    with torch.cuda.device(tok.device):
+        err = getattr(load("maxsim"), fn)(
+            tok.shape[-1], tq, b, k, _tma_rows(tok), ctypes.addressof(plan), ctypes.addressof(scratch)
+        )
+    check(err, fn)
+    return PLANS[plan.value], scratch.value
+
+
+def maxsim_plan(tokens: torch.Tensor, parent_ids: torch.Tensor, q_tokens: torch.Tensor) -> str:
+    """The plan the kernel takes for these inputs: ``staged``, ``wgmma`` or
+    ``general`` on a CUDA store, ``plain`` on a CPU one."""
+    if tokens.device.type != "cuda":
+        return "plain"
+    body = _BODIES.get(tokens.dtype)
+    if body is None:
+        raise TypeError(f"the MaxSim kernel takes a bf16 or int8 token store, not {tokens.dtype}")
+    b, k = parent_ids.shape
+    return _plan(body, tokens.contiguous(), b, k, q_tokens.shape[1])[0]
+
+
 def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
     from ..kernels.build import check, load
 
@@ -96,17 +137,19 @@ def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
     out = torch.empty((b, k), dtype=torch.float32, device=dev)
     if b * k == 0:
         return out
-    # TMA takes rows of 16-byte multiples from a 16-byte aligned store; else plain loads
-    tma_rows = int((d * tok.element_size()) % 16 == 0 and tok.data_ptr() % 16 == 0)
+    plan, scratch_bytes = _plan(body, tok, b, k, tq)
+    # the wgmma plan's query, rounded to bf16 by the launch
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev) if scratch_bytes else None
     fn = f"maxsim_scores_{body}"
     with torch.cuda.device(dev):  # the launch code's state is the current device's
         err = getattr(load("maxsim"), fn)(
             tok.data_ptr(), msk.data_ptr(), pid.data_ptr(), q.data_ptr(), w.data_ptr(),
-            out.data_ptr(), p_rows, td, d, tq, b, k, tma_rows,
-            torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(), p_rows, td, d, tq,
+            b, k, _tma_rows(tok), torch.cuda.current_stream(dev).cuda_stream,
         )
     check(err, fn)
     maxsim_scores.launches_by_tokens[body] += 1
+    maxsim_scores.launches_by_plan[plan] += 1
     return out
 
 
@@ -124,5 +167,6 @@ def maxsim_scores(
     return maxsim_scores_plain(tokens, tok_mask, parent_ids, q_tokens, q_weights)
 
 
-# kernel launches by token dtype (CUDA tensors only)
+# kernel launches by token dtype and by plan (CUDA tensors only)
 maxsim_scores.launches_by_tokens = dict.fromkeys(_BODIES.values(), 0)
+maxsim_scores.launches_by_plan = dict.fromkeys(PLANS, 0)

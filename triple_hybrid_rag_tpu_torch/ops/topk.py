@@ -41,8 +41,16 @@ def _order_key(x: torch.Tensor) -> torch.Tensor:
 
 
 def lax_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` over the last axis: (values, positions), k <= width."""
+    """``jax.lax.top_k`` over the last axis: (values, positions), k <= width.
+    Raises ValueError, as ``jax.lax.top_k`` does, for k < 0 or k past the width."""
     n = x.shape[-1]
+    if k < 0:
+        raise ValueError(f"k argument to top_k must be nonnegative, got {k}")
+    if k > n:
+        raise ValueError(
+            "k argument to top_k must be no larger than size along axis; "
+            f"got k={k} with shape={list(x.shape)} and axis={x.dim() - 1}"
+        )
     pos = torch.arange(n, device=x.device)
     composite = _order_key(x) * 2**32 + (_LOW - pos)
     idx = torch.topk(composite, k, dim=-1, largest=True, sorted=True).indices
