@@ -172,6 +172,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    docstrings on the card and on the host CPU, 128 queries through ``query_batch``
    and 8 through ``RAG.query``: the card's ids against the host CPU's up to near
    ties, and the MaxSim kernel launched in both, every launch on its wgmma plan.
+14. the port's public surface: (a) ``examples/torch_basic_usage.py`` and
+   ``examples/torch_production_serving.py`` as new processes on the card, at once:
+   exit 0, no JAX module loaded, the answers of the JAX examples (the gibberish query
+   refused, the ``/rerank`` winner, tenant_b's collection answering with its own text,
+   the int8 checkpoint answering), and the kernels of their paths launched (dense
+   scores and MaxSim for the staged queries, bucket maxima and MaxSim for the
+   engine); (b) ``maxsim_scores_batch`` on gathered tokens at the default RAGConfig's
+   shape (B 128, K 50, Td 64, D 128, Tq 32) and at phase 13's (B 8, Tq 256, D 1024),
+   bf16 and int8, about 1 candidate in 8 invalid, empty parents, a query without
+   tokens: one launch on the staged and on the wgmma plan, within 1e-6 of its plain
+   version and of the gather entry over the store the tokens came from, all three
+   timed with a cold L2; (c) the reference's BM25 ops over term frequencies
+   (``score_postings``, ``score_postings_topk``) over phase 6's stdlib index for its
+   128 queries, the ids and bits of the precomputed forms, and
+   ``chunk_scores_from_entities_batch`` at B = 128 over phase 3's 1,000,448-row
+   chunk-entity table, the bits of ``chunk_scores_from_entities``.
 
 Each phase prints its wall time. Any failed check exits non-zero. The second-to-last line is a JSON object with
 each kernel's launches (``launches`` on phase 3's main path, ``staged_launches``
@@ -179,8 +195,9 @@ over phase 7, ``serve_launches`` over phase 8's served requests,
 ``formats_launches`` and ``http_launches`` over phase 9's queries,
 ``eval_launches`` over phase 10(a)-(f) (``eval_f32_launches``: of them, the f32-row
 body's), ``legacy_launches`` over phase 10(g), ``train_launches`` over phase
-11(d), ``sharded_launches`` over phase 12(b)-(e) and ``repaired_launches`` over
-phase 13, and per further path; MaxSim's also by plan: ``counted_launches_by_plan``
+11(d), ``sharded_launches`` over phase 12(b)-(e), ``repaired_launches`` over
+phase 13 and ``public_launches`` over phase 14(a)-(b) (MaxSim's entries also carry
+``batch_*`` times of 14(b)), and per further path; MaxSim's also by plan: ``counted_launches_by_plan``
 over the windows that check its body, ``repaired_launches_by_plan`` over phase 13),
 error and
 times; the last line is
@@ -195,6 +212,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -4449,6 +4467,247 @@ def repaired_maxsim_path(dev, card) -> dict:
     return out, batch_plans
 
 
+# ---------------------------------------------------------------- phase 14
+
+# the port's examples: what each must answer, and the kernels its path reaches
+EXAMPLES = {
+    "torch_basic_usage.py": {
+        "launches": ("dense_scores", "maxsim"),
+        "lines": ["Q: completely unrelated gibberish zzz\n  REFUSED: ",
+                  "Q: How long do we have to pay an invoice?\n  [",
+                  "Q: Who works for Acme Corp?\n  [", "graph: '# Service Agreement",
+                  "Q: what animals live in the forest\n  [", ": '# Wildlife Notes",
+                  "entities related to Acme Corp: ['Maria Silva'", "restored corpus: {'documents': 2"],
+    },
+    "torch_production_serving.py": {
+        "launches": ("bucket_maxima", "maxsim"),
+        "lines": ["batched [invoice...] -> # Billing policy", "batched [customs...] -> # Shipping",
+                  "cross-tenant top -> # Shipping", "HTTP /rerank -> winner index 1 (maxsim",
+                  "migrated int8 checkpoint answers: refused=False, top='# Billing policy'"],
+    },
+}
+# maxsim_scores_batch: the default RAGConfig's shape and phase 13's, (B, K, Td, D, Tq)
+# and the plan the kernel must take for a store of B * K rows
+MAXSIM_BATCH_SHAPES = {"default": ((BATCH, RERANK_K, 64, 128, 32), "staged"),
+                       "past_staged": ((8, RERANK_K, 64, REPAIRED_DIM, REPAIRED_QUERY_TOKENS), "wgmma")}
+MAXSIM_BATCH_ATOL = 1e-6  # tests/test_torch_contracts.py's, against the reference
+MAXSIM_BATCH_PARENTS = 20_000  # the store the gather entry reads the same tokens from
+N_GRAPH_CHECKS = 8
+
+
+def run_examples(card) -> dict:
+    """14(a): both port examples as new processes on the card, at once: exit 0, no
+    JAX module loaded, the expected answers, and each kernel of their path launched.
+    Returns the launches by the kernels line's names."""
+    t0 = time.time()
+    root = Path(__file__).resolve().parent
+    procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / name)], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name in EXAMPLES}
+    done = {}
+    try:
+        for name, p in procs.items():
+            done[name] = p.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 14(a): {name} did not finish in 400 s")
+    finally:
+        for p in procs.values():  # none outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    names = {"dense_scores": "dense_scores", "bucket_maxima": "fused_bucket_maxima",
+             "maxsim": "maxsim_scores"}
+    for name, (stdout, stderr) in done.items():
+        if procs[name].returncode != 0:
+            fail(f"phase 14(a): {name} exited {procs[name].returncode}: {stderr[-2000:]}")
+        want = EXAMPLES[name]
+        missing = [line for line in want["lines"] if line not in stdout]
+        if missing:
+            fail(f"phase 14(a): {name} did not answer {missing}; its output:\n{stdout}")
+        tail = dict(line.split(": ", 1) for line in stdout.splitlines()
+                    if line.startswith(("jax loaded: ", "kernel launches: ")))
+        launches = json.loads(tail.get("kernel launches", "{}"))
+        log(f"phase 14(a): {name}: jax loaded {tail.get('jax loaded')}, kernel launches {launches}")
+        for line in stdout.splitlines():
+            log(f"  | {line}")
+        if tail.get("jax loaded") != "False":
+            fail(f"phase 14(a): {name} loaded a JAX module")
+        if sorted(launches) != sorted(want["launches"]) or min(launches.values()) < 1:
+            fail(f"phase 14(a): {name} did not launch each kernel of its path: {launches}")
+        for k, v in launches.items():
+            out[names[k]] = out.get(names[k], 0) + v
+    log(f"phase 14(a): both examples ran on the card in {time.time() - t0:.1f} s (at once); card {card}")
+    return out
+
+
+def batch_inputs(dev, gen, b, k, td, d, tq):
+    """A store of unit bf16 tokens with mask holes and empty parents, candidates
+    gathered from it (about 1 in 8 invalid), and f16-wire queries with masked
+    tokens, one query with none."""
+    store = torch.randn((MAXSIM_BATCH_PARENTS, td, d), generator=gen, device=dev)
+    store = (store / store.norm(dim=-1, keepdim=True)).to(torch.bfloat16)
+    store_mask = torch.rand((MAXSIM_BATCH_PARENTS, td), generator=gen, device=dev) > 0.2
+    store_mask[::97] = False  # parents without any token
+    parent = torch.randint(0, MAXSIM_BATCH_PARENTS, (b, k), generator=gen, device=dev)
+    valid = torch.rand((b, k), generator=gen, device=dev) > 0.125
+    q = torch.randn((b, tq, d), generator=gen, device=dev)
+    q = (q / q.norm(dim=-1, keepdim=True)).half().float()
+    q_mask = torch.rand((b, tq), generator=gen, device=dev) > 0.25
+    q_mask[-1] = False
+    return store, store_mask, parent, valid, q, q_mask
+
+
+def maxsim_batch_check(dev, gen, card) -> dict:
+    """14(b): ``maxsim_scores_batch`` on gathered tokens at the default shape and at
+    phase 13's, bf16 and int8: its launches counted (the kernel on the plan the shape
+    must take), against its plain version within MAXSIM_BATCH_ATOL, against the
+    gather entry over the store the tokens came from, and both timed (cold L2).
+    Returns {body: {launches, max_abs_err, timings by shape}}."""
+    from triple_hybrid_rag_tpu_torch.ops import maxsim as mx
+
+    t0 = time.time()
+    out = {body: {"launches": 0, "max_abs_err": 0.0} for body in ("bf16", "int8")}
+    for label, ((b, k, td, d, tq), plan) in MAXSIM_BATCH_SHAPES.items():
+        store, store_mask, parent, valid, q, q_mask = batch_inputs(dev, gen, b, k, td, d, tq)
+        for tokens in (store, mx.quantize_tokens(store)):
+            body = "int8" if tokens.dtype == torch.int8 else "bf16"
+            docs = tokens[parent]  # [B, K, Td, D], the candidates' tokens gathered
+            dmask = store_mask[parent]
+            args = (docs, dmask, q, q_mask, valid)
+            torch.cuda.synchronize()
+            maxsim_counts_reset()
+            got = mx.maxsim_scores_batch(*args)
+            torch.cuda.synchronize()
+            launched, plans = dict(mx.maxsim_scores.launches_by_tokens), maxsim_plan_counts()
+            if launched[body] != 1 or plans[plan] != 1:
+                fail(f"phase 14(b): maxsim_scores_batch ({body}, {label}) launches {launched}, "
+                     f"plans {plans}: one launch on the {plan} plan expected")
+            out[body]["launches"] += launched[body]
+            view = docs.reshape(b * k, td, d)
+            rows = torch.arange(b * k, device=dev).view(b, k)
+            ids = torch.where(valid, rows, torch.full_like(rows, -1))
+            want = mx.maxsim_scores_plain(view, dmask.reshape(b * k, td), ids, q, q_mask.float())
+            gather_ids = torch.where(valid, parent, torch.full_like(parent, -1))
+            gathered = mx.maxsim_scores(tokens, store_mask, gather_ids, q, q_mask.float())
+            torch.cuda.synchronize()
+            err, err_gather = max_err(got, want), max_err(got, gathered)
+            if got.shape != (b, k) or not err <= MAXSIM_BATCH_ATOL or not err_gather <= MAXSIM_BATCH_ATOL:
+                fail(f"phase 14(b): maxsim_scores_batch ({body}, {label}) against its plain version "
+                     f"{err}, against the gather entry {err_gather}")
+            if bool((got[~valid] != 0).any()) or bool((got[-1] != 0).any()):
+                fail(f"phase 14(b): maxsim_scores_batch ({body}, {label}): an invalid candidate or "
+                     "a query without tokens scored")
+            ms = time_ms(lambda: mx.maxsim_scores_batch(*args), iters=50, cold_l2=True)
+            gather_ms = time_ms(lambda: mx.maxsim_scores(tokens, store_mask, gather_ids, q,
+                                                         q_mask.float()), iters=50, cold_l2=True)
+            plain_ms = time_ms(lambda: mx.maxsim_scores_plain(view, dmask.reshape(b * k, td), ids, q,
+                                                              q_mask.float()), iters=10, cold_l2=True)
+            b_ms, b_by = maxsim_bound(view, dmask.reshape(b * k, td), ids, tq)
+            log(f"phase 14(b): maxsim_scores_batch {body} tokens, {label} B={b} K={k} Td={td} D={d} "
+                f"Tq={tq} ({plan} plan): max |kernel - plain| = {err:.3g}, against the gather entry "
+                f"{err_gather:.3g}; batch {ms:.4f} ms, gather entry {gather_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); card {card}")
+            o = out[body]
+            o["max_abs_err"] = max(o["max_abs_err"], err, err_gather)
+            o.update({f"batch_ms_{label}": ms, f"batch_gather_ms_{label}": gather_ms,
+                      f"batch_plain_ms_{label}": plain_ms, f"batch_bound_ms_{label}": b_ms,
+                      f"batch_plan_{label}": plan})
+            del docs, dmask, view, got, want, gathered
+        del store, store_mask
+        torch.cuda.empty_cache()
+    log(f"phase 14(b): wall {time.time() - t0:.1f} s")
+    return out
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in f32 units in the last place between two tensors."""
+    return int((a.float().view(torch.int32).long() - b.float().view(torch.int32).long()).abs().max())
+
+
+def bm25_graph_check(dev, lexical, graph_tables, card) -> None:
+    """14(c): the reference's BM25 ops over term frequencies on the card, over phase
+    6's stdlib index for its 128 queries: ``score_postings_topk`` the ids and score
+    bits of ``score_postings_topk_pre``, ``score_postings`` the bits of
+    ``score_postings_pre``; then ``chunk_scores_from_entities_batch`` at B = 128
+    over phase 3's 1,000,448-row chunk-entity table, k-hop entity scores from random
+    seeds, the bits of ``chunk_scores_from_entities`` for 8 queries."""
+    from triple_hybrid_rag_tpu_torch.analyzer import Analyzer
+    from triple_hybrid_rag_tpu_torch.ops import bm25, graph
+
+    t0 = time.time()
+    index, queries = lexical
+    cfg = index.config
+    analyzer = Analyzer(cfg)
+    qt = torch.from_numpy(np.stack([index.encode_query(analyzer.tokenize(x)) for x in queries])).to(dev)
+    on = {name: torch.from_numpy(np.asarray(getattr(index, name))).to(dev) for name in (
+        "offsets", "lengths", "postings_doc", "postings_tf", "contrib_denom_k1", "idf",
+        "postings_weight")}
+    tf_args = (on["offsets"], on["lengths"], on["postings_doc"], on["postings_tf"],
+               on["contrib_denom_k1"], on["idf"], cfg.bm25_k1 + 1.0)
+    pre_args = (on["offsets"], on["lengths"], on["postings_doc"], on["postings_weight"])
+    shape = dict(l_max=index.l_max, n_pad=index.n_pad)
+    top_k = cfg.lexical_top_k
+    t1 = time.time()
+    ids, vals = bm25.score_postings_topk(*tf_args, qt, **shape, top_k=top_k)
+    torch.cuda.synchronize()
+    topk_s = time.time() - t1
+    want_ids, want_vals = bm25.score_postings_topk_pre(*pre_args, qt, **shape, top_k=top_k)
+    if not torch.equal(ids, want_ids) or not torch.equal(vals.view(torch.int32), want_vals.view(torch.int32)):
+        fail(f"phase 14(c): score_postings_topk against score_postings_topk_pre: ids equal "
+             f"{torch.equal(ids, want_ids)}, scores {ulps(vals, want_vals)} ulps apart")
+    worst = 0
+    t1 = time.time()
+    for i in range(qt.shape[0]):
+        got = bm25.score_postings(*tf_args, qt[i], **shape)
+        want = bm25.score_postings_pre(*pre_args, qt[i], **shape)
+        worst = max(worst, ulps(got, want))
+    torch.cuda.synchronize()
+    dense_s = time.time() - t1
+    if worst:
+        fail(f"phase 14(c): score_postings against score_postings_pre: {worst} ulps apart")
+    matched = int((ids >= 0).sum())
+    log(f"phase 14(c): BM25 over term frequencies, {qt.shape[0]} stdlib queries over {index.n_docs} "
+        f"chunks ({index.postings_tf.nbytes / 1e6:.2f} MB of postings_tf, "
+        f"{index.contrib_denom_k1.nbytes / 1e6:.3f} MB of contrib_denom_k1 on the host): "
+        f"score_postings_topk the ids and bits of score_postings_topk_pre ({matched} ids, one "
+        f"batch in {topk_s * 1e3:.1f} ms), score_postings the bits of score_postings_pre "
+        f"({dense_s / qt.shape[0] * 1e3:.2f} ms a query); card {card}")
+    nbr, chunk_entities = graph_tables
+    gen = torch.Generator(device=dev).manual_seed(14)
+    seeds = graph.seed_vectors(torch.randint(0, nbr.shape[0], (BATCH, 4), generator=gen, device=dev),
+                               nbr.shape[0])
+    scores = graph.khop_entity_scores(nbr, seeds, hops=2)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    got = graph.chunk_scores_from_entities_batch(chunk_entities, scores)
+    torch.cuda.synchronize()
+    batch_s = time.time() - t1
+    for i in range(N_GRAPH_CHECKS):
+        want = graph.chunk_scores_from_entities(chunk_entities, scores[i])
+        if not torch.equal(got[i].view(torch.int32), want.view(torch.int32)):
+            fail(f"phase 14(c): chunk_scores_from_entities_batch row {i}: {ulps(got[i], want)} ulps "
+                 "from chunk_scores_from_entities")
+    log(f"phase 14(c): chunk_scores_from_entities_batch B={BATCH} over {chunk_entities.shape[0]} x "
+        f"{chunk_entities.shape[1]} chunk entities in {batch_s * 1e3:.1f} ms; {N_GRAPH_CHECKS} rows "
+        f"the bits of chunk_scores_from_entities ({int((got > 0).sum())} chunk scores above 0); "
+        f"phase 14(c) wall {time.time() - t0:.1f} s")
+
+
+def public_surface_path(dev, card, lexical, graph_tables):
+    """Phase 14: the port's public surface on the card. Returns the launches of its
+    paths by the kernels line's names, and MaxSim's batch entry by body."""
+    t0 = time.time()
+    launches = run_examples(card)
+    gen = torch.Generator(device=dev).manual_seed(1414)
+    batch = maxsim_batch_check(dev, gen, card)
+    launches["maxsim_scores"] = launches.get("maxsim_scores", 0) + batch["bf16"]["launches"]
+    launches["maxsim_scores_int8"] = batch["int8"]["launches"]
+    bm25_graph_check(dev, lexical, graph_tables, card)
+    log(f"phase 14 wall time {time.time() - t0:.1f} s; public launches {launches}")
+    return launches, batch
+
+
 def maxsim_plan_counts() -> dict:
     """The MaxSim launches by plan since the last reset."""
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
@@ -4608,6 +4867,9 @@ def main() -> int:
     log(f"phase 11 wall time {time.time() - t_phase:.1f} s; trained-checkpoint launches {trained}")
     t_phase = time.time()
     sharded = sharded_path(run, stdlib, dev, card)
+    # phase 14 reads phase 6's lexical index and phase 3's graph tables
+    lexical = (stdlib[0].retriever.bm25_index, stdlib[1])
+    graph_tables = (run.syn.state.nbr, run.syn.state.chunk_entities)
     del run, stdlib
     torch.cuda.empty_cache()
     t0 = time.time()
@@ -4615,6 +4877,8 @@ def main() -> int:
     log(f"phase 12(h) wall time {time.time() - t0:.1f} s")
     log(f"phase 12 wall time {time.time() - t_phase:.1f} s; sharded launches {sharded}")
     repaired, repaired_plans = repaired_maxsim_path(dev, card)
+    public, batch = public_surface_path(dev, card, lexical, graph_tables)
+    del lexical, graph_tables
     ivf_bodies = {"maxsim_scores": "bf16", "maxsim_scores_int8": "int8"}
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -4632,6 +4896,11 @@ def main() -> int:
         k["train_launches"] = trained.get(k["name"], 0)
         k["sharded_launches"] = sharded.get(k["name"], 0)
         k["repaired_launches"] = repaired.get(k["name"], 0)
+        k["public_launches"] = public.get(k["name"], 0)
+        if k["name"] in ivf_bodies:  # MaxSim's batch entry (phase 14(b))
+            k.update({key: v for key, v in batch[ivf_bodies[k["name"]]].items()
+                      if key not in ("launches", "max_abs_err")})
+            k["max_abs_err"] = max(k["max_abs_err"], batch[ivf_bodies[k["name"]]]["max_abs_err"])
         if k["name"] in ivf_bodies:  # MaxSim: the launches by plan
             k["counted_launches_by_plan"] = MAXSIM_PLAN_LAUNCHES[ivf_bodies[k["name"]]]
             k["repaired_launches_by_plan"] = repaired_plans  # both bodies' (the bf16 store's)

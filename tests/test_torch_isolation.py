@@ -95,7 +95,8 @@ def test_exports_cover_the_reference():
     """Each ``__all__`` of the reference (root, ``index``, ``ops``, ``models``) is
     a subset of the port's, and every exported name resolves; ``from
     triple_hybrid_rag_tpu_torch import Retriever, Ingestor`` works in a process
-    with no JAX."""
+    with no JAX, as do the names the port added last (the batched MaxSim, BM25 and
+    graph ops, the encoder's parameter files, ``pretrain.DATA_DIR``)."""
     import importlib
 
     for sub in ("", ".index", ".ops", ".models"):
@@ -108,6 +109,12 @@ def test_exports_cover_the_reference():
         "import json, sys\n"
         "from triple_hybrid_rag_tpu_torch import RAG, Retriever, Ingestor, Engine, IndexState\n"
         "from triple_hybrid_rag_tpu_torch import *\n"
+        "from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores_batch\n"
+        "from triple_hybrid_rag_tpu_torch.ops.bm25 import score_postings, score_postings_topk\n"
+        "from triple_hybrid_rag_tpu_torch.ops.graph import chunk_scores_from_entities_batch\n"
+        "from triple_hybrid_rag_tpu_torch.models.encoder import save_encoder_params, load_encoder_params\n"
+        "from triple_hybrid_rag_tpu_torch.models.pretrain import DATA_DIR\n"
+        "assert DATA_DIR.is_dir()\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(json.dumps([Retriever.__module__, Ingestor.__module__, bad]))\n"

@@ -114,6 +114,24 @@ def test_native_arrays_bit_equal_to_reference(built, df_cap, term_capacity):
     assert (got.overflow_docs > 0) == (term_capacity == 3)
 
 
+@pytest.mark.parametrize("df_cap", [0, 2])
+def test_native_record_carries_the_references_fields(built, df_cap):
+    """The native build fills the reference's ``postings_tf``,
+    ``contrib_denom_k1``, ``host_csr`` and ``host_weights``, bit-equal to the
+    reference's native build (and so to its Python build)."""
+    cfg = RAGConfig(capacity_round=8, doc_term_capacity=8, max_query_terms=8, bm25_df_cap=df_cap)
+    ref = ref_build_bm25(CORPUS, cfg.replace(use_native=False))
+    got = port_bm25.build_bm25_index(CORPUS, torch_config(cfg))
+    for name in ("postings_tf", "contrib_denom_k1", "host_weights"):
+        mine, want = getattr(got, name), np.asarray(getattr(ref, name))
+        assert mine.dtype == want.dtype and mine.shape == want.shape, name
+        np.testing.assert_array_equal(mine.view(np.uint8), np.ascontiguousarray(want).view(np.uint8),
+                                      err_msg=name)
+    for mine, want in zip(got.host_csr, ref.host_csr, strict=True):
+        assert mine.dtype == want.dtype
+        np.testing.assert_array_equal(mine, want)
+
+
 def test_native_build_conditions(built, monkeypatch):
     """The native build is taken only under the reference's conditions: the stock
     analyzer, ``use_native`` and accent folding, and no given tokens or vocabulary."""

@@ -31,7 +31,7 @@ from triple_hybrid_rag_tpu_torch.index import bm25_index as port_bm25
 from triple_hybrid_rag_tpu_torch.index.maxsim_index import MaxSimIndex
 from triple_hybrid_rag_tpu_torch.index.state import IndexState
 from triple_hybrid_rag_tpu_torch.observability import rag_metrics
-from triple_hybrid_rag_tpu_torch.ops.bm25 import score_postings
+from triple_hybrid_rag_tpu_torch.ops.bm25 import score_postings_pre
 from triple_hybrid_rag_tpu_torch.ops.graph import khop_chunk_scores
 from triple_hybrid_rag_tpu_torch.retrieval import retrieve
 
@@ -174,7 +174,7 @@ def test_module_level_retrieve(cfg):
 
 @pytest.mark.parametrize("backend", ["postings", "sorted", "auto"])
 def test_lexical_channel_bit_equal(cfg, backend):
-    """``score_postings`` over the placed CSR's folded weights gives the reference's
+    """``score_postings_pre`` over the placed CSR's folded weights gives the reference's
     on-the-fly ``idf * tf * (k1+1) / (tf + denom)`` sums bit for bit, and each
     backend's staged search the reference's ids and score bits."""
     rng = np.random.default_rng(0)
@@ -197,8 +197,8 @@ def test_lexical_channel_bit_equal(cfg, backend):
         qt = ref.encode_query(kws)
         if backend == "postings":
             want = np.asarray(ref.score(jnp.asarray(qt)))
-            got = score_postings(st.lex_offsets, st.lex_lengths, st.lex_pd, st.lex_pt,
-                                 torch.from_numpy(qt), l_max=st.lex_l_max, n_pad=st.n_pad)
+            got = score_postings_pre(st.lex_offsets, st.lex_lengths, st.lex_pd, st.lex_pt,
+                                     torch.from_numpy(qt), l_max=st.lex_l_max, n_pad=st.n_pad)
             np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
         row_mask = None if trial % 2 else mask
         want_ids, want_vals = ref.search(kws, 10, None if row_mask is None else jnp.asarray(row_mask))

@@ -34,7 +34,7 @@ from ..device import resolve_device
 from ..ops.bm25 import (
     DOC_PAD,
     QUERY_PAD,
-    score_postings,
+    score_postings_pre,
     score_postings_topk_pre,
     score_termtable,
 )
@@ -46,23 +46,48 @@ AUTO_SORTED_DOCS = 4096
 
 @dataclass
 class BM25Index:
-    """The lexical arrays of one corpus snapshot, as host NumPy."""
+    """The lexical arrays of one corpus snapshot, as host NumPy, with the
+    reference's fields: the term frequencies and per-document denominators the
+    reference's ``score_postings`` reads, and ``host_csr`` / ``host_weights``,
+    which here are the record's own arrays (filled when not given)."""
 
     offsets: np.ndarray  # i32[V + 1] CSR term offsets
     lengths: np.ndarray  # i32[V] stored postings per term (capped df)
     postings_doc: np.ndarray  # i32[nnz + l_max], n_pad in the tail
-    postings_weight: np.ndarray  # f32[nnz + l_max] precomputed BM25 contributions
+    postings_tf: np.ndarray  # f32[nnz + l_max] term frequency per posting
     term_ids: np.ndarray  # i32[n_pad, L] doc-major term table, DOC_PAD in empty slots
     term_weights: np.ndarray  # f32[n_pad, L]
+    contrib_denom_k1: np.ndarray  # f32[n_pad] per-doc k1 * (1 - b + b * dl / avgdl)
     idf: np.ndarray  # f32[V]
     n_docs: int
     n_pad: int
     l_max: int  # longest stored postings window
     vocab: Vocabulary
-    overflow_docs: int = 0  # docs whose unique terms exceeded doc_term_capacity
     config: Optional[RAGConfig] = None  # the build's (query width, backend, tiers)
+    overflow_docs: int = 0  # docs whose unique terms exceeded doc_term_capacity
+    # (offsets, lengths, postings_doc, postings_tf), as the reference keeps them
+    host_csr: Optional[tuple] = None
+    # f32[nnz + l_max] precomputed BM25 contribution per posting (folded from the
+    # term frequencies when not given); ``host_weights`` is the same array
+    postings_weight: Optional[np.ndarray] = None
+    host_weights: Optional[np.ndarray] = None
     # device -> the arrays placed there (:meth:`placed`)
     _placed: Dict[str, "PlacedLexical"] = field(default_factory=dict, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        if self.host_csr is None:
+            self.host_csr = (self.offsets, self.lengths, self.postings_doc, self.postings_tf)
+        if self.postings_weight is None:
+            self.postings_weight = (
+                self.host_weights if self.host_weights is not None
+                else _fold_posting_weights(
+                    self.postings_doc, self.postings_tf, int(self.offsets[-1]),
+                    np.asarray(self.lengths, np.int64), self.idf, self.contrib_denom_k1,
+                    self.n_pad, (self.config or RAGConfig()).bm25_k1 + 1.0,
+                )
+            )
+        if self.host_weights is None:
+            self.host_weights = self.postings_weight
 
     def arrays(self) -> Dict[str, np.ndarray]:
         """The ``bm25_*`` arrays of :meth:`IndexState.from_numpy`."""
@@ -342,9 +367,11 @@ def build_bm25_index(
         offsets=offsets,
         lengths=stored_df_i32,  # stored window; idf keeps true df
         postings_doc=postings_doc,
+        postings_tf=postings_tf,
         postings_weight=pw,
         term_ids=term_ids,
         term_weights=term_weights,
+        contrib_denom_k1=denom,
         idf=idf,
         n_docs=n_docs,
         n_pad=n_pad,
@@ -464,9 +491,11 @@ def _build_native(texts: Sequence[str], config: RAGConfig) -> BM25Index:
         offsets=offsets.astype(np.int32),
         lengths=stored_df_i32,
         postings_doc=postings_doc,
+        postings_tf=postings_tf,
         postings_weight=pw,
         term_ids=term_ids,
         term_weights=term_weights,
+        contrib_denom_k1=denom,
         idf=idf,
         n_docs=n_docs,
         n_pad=n_pad,
@@ -499,7 +528,7 @@ def lexical_scores(
     if backend == "auto":
         backend = "termtable" if _n_docs(state) >= AUTO_SORTED_DOCS else "postings"
     if backend == "postings" and state.lex_offsets is not None:
-        return score_postings(
+        return score_postings_pre(
             state.lex_offsets, state.lex_lengths, state.lex_pd, state.lex_pt, query_terms,
             l_max=state.lex_l_max, n_pad=state.n_pad,
         )

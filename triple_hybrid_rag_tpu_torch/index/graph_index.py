@@ -55,11 +55,18 @@ class GraphIndex:
     config: RAGConfig
     entity_rows: List[Entity] = field(default_factory=list)  # row -> entity
     host_adj: Dict[int, List[int]] = field(default_factory=dict)  # undirected, uncapped
+    # the host copy of chunk_entities the reference keeps beside its device table;
+    # here the table itself (filled when not given)
+    host_chunk_entities: Optional[np.ndarray] = None
     overflow_entities: int = 0  # entities whose degree exceeded graph_max_degree
     seed_stop: Optional[np.ndarray] = None  # bool[E_pad]: too ubiquitous to seed a query
     # the IndexState these tables were placed in (set by the Retriever): the device
     # lookups read its nbr / chunk_entities
     placed: Any = None
+
+    def __post_init__(self) -> None:
+        if self.host_chunk_entities is None:
+            self.host_chunk_entities = self.chunk_entities
 
     # ------------------------------------------------------------------
     # lookup / traversal API
@@ -300,6 +307,7 @@ def build_graph_index(
         config=config,
         entity_rows=entities,
         host_adj=host_adj,
+        host_chunk_entities=chunk_entities,
         overflow_entities=overflow,
         seed_stop=seed_stop,
     )

@@ -69,13 +69,22 @@ class MaxSimIndex:
         return MaxSimIndex(tokens=toks, mask=mask, n_parents=new_total, config=self.config)
 
     def score_candidates(
-        self, parent_rows: torch.Tensor, q_tokens: torch.Tensor, q_mask: torch.Tensor
+        self,
+        parent_rows: torch.Tensor,
+        q_tokens: torch.Tensor,
+        q_mask: torch.Tensor,
+        use_pallas: bool = False,
+        interpret: bool = False,
     ) -> torch.Tensor:
         """f32[K] MaxSim scores of one query's candidate parent rows i[K] (-1
         invalid, scoring 0) against its tokens f32[Tq, D] with weights f32[Tq] (the
-        reference's ``MaxSimIndex.score_candidates``): the MaxSim kernel on a CUDA
-        store, whatever the reference's ``use_pallas`` says; the plain version on
-        the CPU. The kernel gathers the candidates' rows from the store itself."""
+        reference's ``MaxSimIndex.score_candidates``). The store's device picks the
+        body, as every wrapper of the port does: the hand-written MaxSim kernel on a
+        CUDA store, the plain version on a CPU store. ``use_pallas`` and
+        ``interpret`` pick the reference's TPU rung and change nothing here: the
+        kernel is the only body on the card, and no flag puts the plain version
+        there. The kernel gathers the candidates' rows from the store itself."""
+        del use_pallas, interpret
         return maxsim_scores(
             self.tokens, self.mask, parent_rows[None, :], q_tokens[None], q_mask[None]
         )[0]

@@ -412,12 +412,13 @@ def init_params_(module: nn.Module, gen: torch.Generator) -> None:
                 raise KeyError(f"no initializer for parameter {name}")
 
 
-def init_encoder(cfg: EncoderConfig, seed: int = 0, device=None) -> Encoder:
+def init_encoder(enc_cfg: EncoderConfig, seed: int = 0, device=None) -> Encoder:
     """A fresh :class:`Encoder` with f32 parameters on ``device`` (CUDA unless
     ``device="cpu"``), drawn on the host from ``torch.Generator(seed)`` so a seed
-    gives the same weights on every device."""
+    gives the same weights on every device. (The reference returns the flax
+    module and its parameter tree; here the module holds its parameters.)"""
     dev = resolve_device(device)
-    model = Encoder(cfg)
+    model = Encoder(enc_cfg)
     init_params_(model, torch.Generator().manual_seed(seed))
     return model.to(dev)
 
@@ -489,6 +490,41 @@ def encoder_params_to_flax(
     return dict(sorted(out.items()))
 
 
+def save_encoder_params(params, path, n_heads: Optional[int] = None) -> None:
+    """The reference's parameter file: an npz of flax's flattened paths
+    (``params/block_0/attn/query/kernel``, ...) in the parameters' own dtype, which
+    its ``load_encoder_params`` reads. ``params`` is an :class:`Encoder`, or a
+    state dict with ``n_heads`` given (the attention's shapes need it)."""
+    if isinstance(params, Encoder):
+        n_heads = params.cfg.n_heads if n_heads is None else n_heads
+        params = params.state_dict()
+    if n_heads is None:
+        raise ValueError("save_encoder_params needs n_heads for a bare state dict")
+    np.savez_compressed(path, **encoder_params_to_flax(params, n_heads))
+
+
+def load_encoder_params(template_params: "Encoder", path) -> "Encoder":
+    """Fill ``template_params`` (an :class:`Encoder`) in place from a file of
+    :func:`save_encoder_params` or the reference's, and return it. Every parameter
+    must be there with its shape, as the reference checks: a missing one raises
+    ``KeyError``, a wrong shape ``ValueError``. Values take the template's dtype."""
+    want = encoder_params_to_flax(template_params.state_dict(), template_params.cfg.n_heads)
+    with np.load(path) as npz:
+        flat = {}
+        for name, leaf in want.items():
+            if name not in npz.files:
+                raise KeyError(f"checkpoint missing parameter {name}")
+            arr = npz[name]
+            if arr.shape != leaf.shape:
+                raise ValueError(f"shape mismatch for {name}: {arr.shape} vs {leaf.shape}")
+            flat[name] = arr
+    state = template_params.state_dict()
+    with torch.no_grad():
+        for key, t in encoder_params_from_flax(flat).items():
+            state[key].copy_(t)
+    return template_params
+
+
 class EncoderEmbedder(_ImageHashMixin):
     """Embedder-protocol adapter over :class:`Encoder` on one device.
 
@@ -506,19 +542,30 @@ class EncoderEmbedder(_ImageHashMixin):
 
     def __init__(
         self,
-        enc_cfg: EncoderConfig,
+        enc_cfg: Optional[EncoderConfig] = None,
         rag_cfg: Optional[RAGConfig] = None,
-        *,
-        params: Mapping[str, torch.Tensor],
+        params: Optional[Mapping[str, torch.Tensor]] = None,
         batch_size: int = 64,
+        seed: int = 0,
         device=None,
     ) -> None:
-        self.enc_cfg = enc_cfg
+        """``enc_cfg`` defaults to the reference's (``rag_cfg``'s hash buckets,
+        dense and token widths); without ``params`` the weights are
+        :func:`init_encoder`'s for ``seed``."""
+        rag_cfg = rag_cfg or get_settings()
+        self.enc_cfg = enc_cfg or EncoderConfig(
+            vocab_buckets=rag_cfg.vocab_hash_buckets,
+            out_dim=rag_cfg.embedding_dim_full,
+            token_dim=rag_cfg.maxsim_dim,
+        )
         self.device = resolve_device(device)
-        model = Encoder(enc_cfg)
-        model.load_state_dict(params)
+        if params is None:
+            model = init_encoder(self.enc_cfg, seed, device="cpu")
+        else:
+            model = Encoder(self.enc_cfg)
+            model.load_state_dict(params)
         self.model = model.cast_for_compute().to(self.device).eval()
-        self.hasher = TextHasher(enc_cfg, rag_cfg)
+        self.hasher = TextHasher(self.enc_cfg, rag_cfg)
         self.batch_size = batch_size
         self.dim = self.enc_cfg.out_dim
 

@@ -241,8 +241,10 @@ def make_overlap_pairs(n: int, rng: np.random.Generator) -> List[Tuple[str, str]
 _ROOT = Path(__file__).resolve().parents[2]
 # the JAX package, whose files the port reads and never writes
 _REFERENCE_DIR = _ROOT / "triple_hybrid_rag_tpu"
-# the reference's packaged weights, in the checkout beside this package
-DEFAULT_PARAMS = _REFERENCE_DIR / "models" / "data" / "encoder.npz"
+# the directory of the reference's packaged weights, in the checkout beside this
+# package (read by path, never written)
+DATA_DIR = _REFERENCE_DIR / "models" / "data"
+DEFAULT_PARAMS = DATA_DIR / "encoder.npz"
 # where a training run writes by default (``build/`` is not committed)
 TRAINED_PARAMS = _ROOT / "build" / "models" / "encoder.npz"
 

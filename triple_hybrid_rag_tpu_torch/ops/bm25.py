@@ -10,14 +10,17 @@ unique terms ``term_ids[N, L]`` and their precomputed BM25 contributions
 hand-written kernel ``csrc/termtable.cu`` (the port of the Pallas kernel
 ``ops/pallas/lexical_kernel.py``), on a CPU tensor :func:`score_termtable_batch_plain`.
 
-**CSR postings, term at a time** (:func:`score_postings`): one query's dense score
-vector, each query slot's postings window added in slot order (the staged
-retriever's ``"postings"`` backend).
+**CSR postings, term at a time** (:func:`score_postings_pre`): one query's dense
+score vector, each query slot's postings window of precomputed weights added in
+slot order (the staged retriever's ``"postings"`` backend). :func:`score_postings`
+is the reference's form of the same op: it computes each posting's contribution
+``idf * tf * (k1 + 1) / (tf + denom)`` from the term frequencies as it goes.
 
-**Sorted CSR postings** (:func:`score_postings_topk_pre`, ``_tiered``): work is
+**Sorted CSR postings** (:func:`score_postings_topk_pre`, ``_tiered``, and the
+reference's :func:`score_postings_topk` over term frequencies): work is
 O(matched postings), independent of corpus size:
 
-1. gather each query term's postings window (contiguous slices of precomputed
+1. gather each query term's postings window (contiguous slices of the
    per-posting BM25 weights),
 2. sort the (doc, query-slot) pairs,
 3. reduce each run of equal docs with a segmented *doubling* tree,
@@ -36,6 +39,8 @@ from typing import Optional, Tuple
 import torch
 
 from .topk import NEG_INF, lax_top_k
+
+__all__ = ["score_postings", "score_termtable", "QUERY_PAD", "DOC_PAD"]
 
 QUERY_PAD = -1  # query slot sentinel (also the OOV term id)
 DOC_PAD = -2  # term-table pad sentinel; distinct from QUERY_PAD so pads never match
@@ -112,7 +117,7 @@ def _launch_termtable(term_ids, term_weights, query_terms):
 def score_termtable_batch(
     term_ids: torch.Tensor,  # i32[N, L]
     term_weights: torch.Tensor,  # f32|bf16[N, L]
-    query_terms: torch.Tensor,  # i32[B, Q]
+    query_terms_batch: torch.Tensor,  # i32[B, Q]
 ) -> torch.Tensor:
     """Doc-major membership scoring, f32[B, N]: the CUDA kernel on a CUDA tensor (or
     raise), the plain version on a CPU tensor. The kernel reads the table once per
@@ -120,8 +125,8 @@ def score_termtable_batch(
     Sums run over the table's slots in another order than the reference's reduce,
     so scores agree to rounding, not bit for bit."""
     if term_ids.device.type == "cuda":
-        return _launch_termtable(term_ids, term_weights, query_terms)
-    return score_termtable_batch_plain(term_ids, term_weights, query_terms)
+        return _launch_termtable(term_ids, term_weights, query_terms_batch)
+    return score_termtable_batch_plain(term_ids, term_weights, query_terms_batch)
 
 
 score_termtable_batch.launches = 0  # kernel launches (CUDA tensors only)
@@ -161,7 +166,7 @@ def gather_windows(
     return docs, contrib
 
 
-def score_postings(
+def score_postings_pre(
     offsets: torch.Tensor,  # i32[V + 1] CSR offsets
     lengths: torch.Tensor,  # i32[V] stored df
     postings_doc: torch.Tensor,  # i32[nnz_pad] doc row per posting
@@ -171,19 +176,74 @@ def score_postings(
     l_max: int,
     n_pad: int,
 ) -> torch.Tensor:
-    """Term-at-a-time CSR scoring of one query: dense f32[n_pad] BM25 scores (the
-    reference's ``score_postings``). Each query slot adds its window's weights into
-    the score vector in slot order, as the reference's loop of scatters does; a
-    term's postings name each doc once, so every doc's sum runs over the slots in
-    order and the scores are the reference's bits. Invalid postings go to a spill
-    slot past ``n_pad`` that is dropped."""
+    """Term-at-a-time CSR scoring of one query over precomputed per-posting
+    weights: dense f32[n_pad] BM25 scores. Each query slot adds its window's
+    weights into the score vector in slot order, as the reference's loop of
+    scatters does; a term's postings name each doc once, so every doc's sum runs
+    over the slots in order and the scores are the reference's bits. Invalid
+    postings go to a spill slot past ``n_pad`` that is dropped."""
     docs, contrib = gather_windows(
         offsets, lengths, postings_doc, postings_weight, query_terms[None, :], l_max, n_pad
     )
+    return _add_windows(docs[0], contrib[0], n_pad)
+
+
+def _add_windows(docs: torch.Tensor, contrib: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Each slot's window [Q, W] added into f32[n_pad + 1] in slot order; the
+    spill slot ``n_pad`` is dropped."""
     scores = torch.zeros((n_pad + 1,), dtype=torch.float32, device=docs.device)
-    for q in range(docs.shape[1]):
-        scores.index_add_(0, docs[0, q], contrib[0, q])
+    for q in range(docs.shape[0]):
+        scores.index_add_(0, docs[q], contrib[q])
     return scores[:n_pad]
+
+
+def posting_contributions(
+    offsets: torch.Tensor,
+    lengths: torch.Tensor,
+    postings_doc: torch.Tensor,
+    postings_tf: torch.Tensor,  # f32[nnz_pad] term frequency per posting
+    contrib_denom_k1: torch.Tensor,  # f32[n_pad] per-doc k1 * (1 - b + b * dl / avgdl)
+    idf: torch.Tensor,  # f32[V]
+    k1_plus1,  # f32 scalar k1 + 1
+    terms: torch.Tensor,  # i[B, Q] term ids (-1 = empty slot)
+    window: int,
+    n_pad: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(docs i64[B, Q, window], contrib f32[B, Q, window]) with each posting's
+    contribution ``idf[t] * tf * (k1 + 1) / (tf + denom[doc])`` computed in the
+    reference's order of operations (f32 throughout); invalid slots hold doc
+    ``n_pad`` and contribution 0, as :func:`gather_windows`."""
+    docs, tfs = gather_windows(offsets, lengths, postings_doc, postings_tf, terms, window, n_pad)
+    t = terms.long()
+    term_idf = idf.float()[torch.where(t >= 0, t, torch.zeros_like(t))]  # [B, Q]
+    denom = contrib_denom_k1.float()[docs.clamp(0, n_pad - 1)]
+    k1p1 = torch.as_tensor(k1_plus1, dtype=torch.float32, device=tfs.device)
+    contrib = term_idf[..., None] * tfs * k1p1 / (tfs + denom)
+    return docs, torch.where(docs < n_pad, contrib, torch.zeros((), device=tfs.device))
+
+
+def score_postings(
+    offsets: torch.Tensor,  # i32[V + 1] CSR offsets
+    lengths: torch.Tensor,  # i32[V] stored df
+    postings_doc: torch.Tensor,  # i32[nnz_pad] doc row per posting
+    postings_tf: torch.Tensor,  # f32[nnz_pad] term frequency per posting
+    contrib_denom_k1: torch.Tensor,  # f32[n_pad] per-doc k1 * (1 - b + b * dl / avgdl)
+    idf: torch.Tensor,  # f32[V]
+    k1_plus1,  # f32 scalar k1 + 1
+    query_terms: torch.Tensor,  # i[Q] padded query term ids (-1 = empty slot)
+    *,
+    l_max: int,
+    n_pad: int,
+) -> torch.Tensor:
+    """Term-at-a-time CSR scoring of one query, the reference's ``score_postings``:
+    dense f32[n_pad] BM25 scores with each posting's contribution computed from its
+    term frequency (:func:`posting_contributions`), added slot by slot as
+    :func:`score_postings_pre` adds precomputed weights."""
+    docs, contrib = posting_contributions(
+        offsets, lengths, postings_doc, postings_tf, contrib_denom_k1, idf, k1_plus1,
+        query_terms[None, :], l_max, n_pad,
+    )
+    return _add_windows(docs[0], contrib[0], n_pad)
 
 
 def sparse_topk_from_windows(
@@ -238,28 +298,74 @@ def sparse_topk_from_windows(
     return ids, vals
 
 
+def _as_batch(query_terms: torch.Tensor, row_mask: Optional[torch.Tensor]):
+    """(single, terms i[B, Q], mask bool[B, n_pad] or None): the reference's one
+    query i[Q] (with a bool[n_pad] mask) as a batch of one."""
+    if query_terms.dim() != 1:
+        return False, query_terms, row_mask
+    return True, query_terms[None, :], None if row_mask is None else row_mask[None, :]
+
+
+def _window_topk(single: bool, docs, contrib, n_pad: int, top_k: int, row_mask):
+    """The sorted top-k over windows [B, Q, W] whose slot is their Q index; one
+    query's row alone when ``single``."""
+    b, q, w = docs.shape
+    slots = torch.arange(q, device=docs.device)[None, :, None].expand(b, q, w)
+    ids, vals = sparse_topk_from_windows(
+        docs.reshape(b, -1), slots.reshape(b, -1), contrib.reshape(b, -1),
+        q, n_pad, top_k, row_mask,
+    )
+    return (ids[0], vals[0]) if single else (ids, vals)
+
+
 def score_postings_topk_pre(
     offsets: torch.Tensor,
     lengths: torch.Tensor,
     postings_doc: torch.Tensor,
     postings_weight: torch.Tensor,
-    query_terms: torch.Tensor,  # i[B, Q]
-    row_mask: Optional[torch.Tensor] = None,  # bool[B, n_pad]
+    query_terms: torch.Tensor,  # i[B, Q], or the reference's one query i[Q]
+    row_mask: Optional[torch.Tensor] = None,  # bool[B, n_pad], or bool[n_pad]
     *,
     l_max: int,
     n_pad: int,
     top_k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched sparse BM25 top-k with one ``l_max`` window per query slot."""
-    b, q = query_terms.shape
+    """Batched sparse BM25 top-k with one ``l_max`` window per query slot: (ids
+    i64[B, top_k], scores f32[B, top_k]); one query i[Q] gives [top_k], as the
+    reference's op."""
+    single, query_terms, row_mask = _as_batch(query_terms, row_mask)
     docs, contrib = gather_windows(
         offsets, lengths, postings_doc, postings_weight, query_terms, l_max, n_pad
     )
-    slots = torch.arange(q, device=docs.device)[None, :, None].expand(b, q, l_max)
-    return sparse_topk_from_windows(
-        docs.reshape(b, -1), slots.reshape(b, -1), contrib.reshape(b, -1),
-        q, n_pad, top_k, row_mask,
+    return _window_topk(single, docs, contrib, n_pad, top_k, row_mask)
+
+
+def score_postings_topk(
+    offsets: torch.Tensor,  # i32[V + 1]
+    lengths: torch.Tensor,  # i32[V]
+    postings_doc: torch.Tensor,  # i32[nnz_pad]
+    postings_tf: torch.Tensor,  # f32[nnz_pad]
+    contrib_denom_k1: torch.Tensor,  # f32[n_pad]
+    idf: torch.Tensor,  # f32[V]
+    k1_plus1,  # f32 scalar k1 + 1
+    query_terms: torch.Tensor,  # i[Q], or i[B, Q]
+    row_mask: Optional[torch.Tensor] = None,  # bool[n_pad], or bool[B, n_pad]
+    *,
+    l_max: int,
+    n_pad: int,
+    top_k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's sparse BM25 top-k over term frequencies: (ids i64[top_k],
+    scores f32[top_k]), -1 / -inf in empty slots. The contributions are
+    :func:`posting_contributions`; the sort, the doubling tree and the top-k are
+    :func:`score_postings_topk_pre`'s, so the scores are the reference's bits. A
+    query batch i[B, Q] (with a bool[B, n_pad] mask) gives [B, top_k]."""
+    single, query_terms, row_mask = _as_batch(query_terms, row_mask)
+    docs, contrib = posting_contributions(
+        offsets, lengths, postings_doc, postings_tf, contrib_denom_k1, idf, k1_plus1,
+        query_terms, l_max, n_pad,
     )
+    return _window_topk(single, docs, contrib, n_pad, top_k, row_mask)
 
 
 def score_postings_topk_tiered(
@@ -280,7 +386,12 @@ def score_postings_topk_tiered(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """df-tiered variant: rare terms read ``l_small`` windows, the few large-tier
     slots read ``l_max``. The sort's secondary key is the ORIGINAL query slot, so
-    the summation order (and every ulp) matches the untiered op."""
+    the summation order (and every ulp) matches the untiered op. One query (1-D
+    term and slot arrays, as the reference's op takes) gives [top_k]."""
+    single, small_terms, row_mask = _as_batch(small_terms, row_mask)
+    if single:
+        small_slots, large_terms, large_slots = (
+            x[None, :] for x in (small_slots, large_terms, large_slots))
     b = small_terms.shape[0]
     ws = min(l_small, l_max)
     ds, cs = gather_windows(
@@ -295,6 +406,5 @@ def score_postings_topk_tiered(
     slots = torch.cat([ss.reshape(b, -1), sl.reshape(b, -1)], 1)
     contribs = torch.cat([cs.reshape(b, -1), cl.reshape(b, -1)], 1)
     q_slots = int(small_terms.shape[1] + large_terms.shape[1])
-    return sparse_topk_from_windows(
-        docs, slots, contribs, q_slots, n_pad, top_k, row_mask
-    )
+    ids, vals = sparse_topk_from_windows(docs, slots, contribs, q_slots, n_pad, top_k, row_mask)
+    return (ids[0], vals[0]) if single else (ids, vals)

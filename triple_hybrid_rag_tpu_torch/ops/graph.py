@@ -67,6 +67,27 @@ def chunk_scores_from_entities(
     return torch.where(valid, s, torch.zeros_like(s)).amax(dim=1)
 
 
+def chunk_scores_from_entities_batch(
+    chunk_entities: torch.Tensor,  # i32[N, M] entity rows per chunk (-1 = pad)
+    entity_scores: torch.Tensor,  # f32[B, E] per-query entity scores
+) -> torch.Tensor:
+    """f32[B, N] chunk scores of a query batch (the reference's batched form of
+    :func:`chunk_scores_from_entities`): each chunk's best entity score per query,
+    0 without any. Gathers from the transposed [E, B] table, as the reference does,
+    a block of rows at a time so the [rows, M, B] gather stays near 256 MB."""
+    n, m = chunk_entities.shape
+    b, e_pad = entity_scores.shape
+    ent_t = entity_scores.float().t().contiguous()  # [E, B]
+    out = torch.empty((n, b), dtype=torch.float32, device=entity_scores.device)
+    block = max(1, (1 << 26) // max(1, m * b))
+    zero = torch.zeros((), dtype=torch.float32, device=entity_scores.device)
+    for s in range(0, n, block):
+        ce = chunk_entities[s : s + block]
+        g = ent_t[ce.long().clamp(0, e_pad - 1)]  # [rows, M, B]
+        out[s : s + block] = torch.where((ce >= 0)[..., None], g, zero).amax(dim=1)
+    return out.t()
+
+
 def khop_chunk_scores(
     nbr: torch.Tensor, chunk_entities: torch.Tensor, seeds: torch.Tensor, *, hops: int
 ) -> torch.Tensor:

@@ -161,10 +161,37 @@ def maxsim_scores(
     q_weights: torch.Tensor,
 ) -> torch.Tensor:
     """f32[B, K] MaxSim scores: the CUDA kernel on a CUDA tensor (or raise), the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor. The kernel's entry, over a parent store and
+    the candidates' rows in it. The reference's single-query
+    ``maxsim_scores(doc_tokens, doc_mask, q_tokens, q_mask, valid)`` over gathered
+    tokens is :func:`maxsim_scores_batch` on a leading axis of 1."""
     if tokens.device.type == "cuda":
         return _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights)
     return maxsim_scores_plain(tokens, tok_mask, parent_ids, q_tokens, q_weights)
+
+
+def maxsim_scores_batch(
+    doc_tokens: torch.Tensor,  # [B, K, Td, D] gathered doc tokens, bf16 or int8 (or f32)
+    doc_mask: torch.Tensor,  # bool[B, K, Td]
+    q_tokens: torch.Tensor,  # [B, Tq, D]
+    q_mask: torch.Tensor,  # bool[B, Tq]
+    valid: torch.Tensor,  # bool[B, K] candidate validity
+) -> torch.Tensor:
+    """f32[B, K] MaxSim scores of gathered doc tokens (the reference's
+    ``maxsim_scores_batch``): invalid candidates and candidates without doc tokens
+    score 0, each query token's best match is clipped at 0, and the sum is divided
+    by ``max(sum(q_mask), 1)``. The tokens are viewed as a store of B*K parents
+    (no copy for contiguous input), candidate (b, k) is row b*K + k, and
+    :func:`maxsim_scores` scores them: the hand-written kernel on a CUDA tensor,
+    the plain version on a CPU tensor. f32 tokens are rounded to bf16 first, as
+    the reference's einsum rounds them."""
+    b, k, td, d = doc_tokens.shape
+    store = doc_tokens if doc_tokens.dtype in _BODIES else doc_tokens.to(torch.bfloat16)
+    store = store.reshape(b * k, td, d)
+    mask = doc_mask.reshape(b * k, td)
+    rows = torch.arange(b * k, device=doc_tokens.device).view(b, k)
+    parent_ids = torch.where(valid.bool(), rows, -1)
+    return maxsim_scores(store, mask, parent_ids, q_tokens, q_mask.float())
 
 
 # kernel launches by token dtype and by plan (CUDA tensors only)

@@ -272,9 +272,11 @@ class Retriever:
         parent_of: Optional[np.ndarray] = None,
         embedder=None,
         planner=None,
+        reranker=None,
         device=None,
     ) -> "Retriever":
-        """A retriever over prebuilt indexes, none of them re-derived."""
+        """A retriever over prebuilt indexes, none of them re-derived; a given
+        ``reranker`` is kept as it is."""
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.config = config
@@ -295,7 +297,7 @@ class Retriever:
         if config.rerank_enabled and dense_index is not None and maxsim_index is None and len(corpus):
             self.parent_emb = self._build_parent_embeddings()
         self.state = self._place()
-        self._init_reranker(None, None)
+        self._init_reranker(reranker, None)
         return self
 
     @classmethod
