@@ -46,7 +46,6 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .analyzer import Analyzer
 from .config import RAGConfig
@@ -62,6 +61,7 @@ from .index.ivf import ivf_topk_local
 from .index.state import IndexState
 from .models.embedder import get_default_embedder
 from .models.planner import get_planner
+from .observability.profiling import annotate
 from .ops.bm25 import (
     score_postings_topk_pre,
     score_postings_topk_tiered,
@@ -208,15 +208,21 @@ class Engine:
     ) -> Tuple[List[QueryPlan], QueryArgs]:
         """Host prep for a batch: plan, analyze, embed, seed, collection scope.
 
-        Embedding runs under the profiler range ``engine.encode``. With
-        ``device_query_encode`` and an embedder that has ``encode_queries_device``,
-        the query vectors and tokens are made on the device and stay there; a
-        failure there surfaces in :meth:`retrieve_batch`, which retries once
-        through the host path."""
+        While a profiler records, the prep is the range ``engine.prep``, holding
+        ``engine.plan``, ``engine.terms``, ``engine.encode``, ``engine.seeds`` and
+        ``engine.upload`` (the copies to the device). With ``device_query_encode``
+        and an embedder that has ``encode_queries_device``, the query vectors and
+        tokens are made on the device and stay there; a failure there surfaces in
+        :meth:`retrieve_batch`, which retries once through the host path."""
+        with annotate("engine.prep"):
+            return self._prepare(queries, collections)
+
+    def _prepare(self, queries, collections):
         st = self.state
         cfg = self.config
         b = len(queries)
-        plans = [self.planner.plan(q) for q in queries]
+        with annotate("engine.plan"):
+            plans = [self.planner.plan(q) for q in queries]
 
         coll_cid = np.full((b,), -1, np.int32)
         if collections is not None:
@@ -230,69 +236,74 @@ class Engine:
         ql_terms = np.full((b, cfg.bm25_large_slots), -1, np.int32)
         ql_slots = np.zeros((b, cfg.bm25_large_slots), np.int32)
         if st.vocab is not None:
-            for i, plan in enumerate(plans):
-                q_terms[i] = st.encode_query(plan.keywords)
-                if cfg.lexical_tiering and st.lexical_mode == "sorted":
-                    qs_terms[i], qs_slots[i], ql_terms[i], ql_slots[i] = (
-                        st.encode_query_tiered(plan.keywords)
-                    )
+            with annotate("engine.terms"):
+                for i, plan in enumerate(plans):
+                    q_terms[i] = st.encode_query(plan.keywords)
+                    if cfg.lexical_tiering and st.lexical_mode == "sorted":
+                        qs_terms[i], qs_slots[i], ql_terms[i], ql_slots[i] = (
+                            st.encode_query_tiered(plan.keywords)
+                        )
 
         sem_texts = [p.semantic_query_text or p.original_query for p in plans]
-        with record_function("engine.encode"):
+        with annotate("engine.encode"):
             q_vec, q_tokens, q_tok_mask = self._encode(sem_texts)
 
         seed_rows = np.full((b, cfg.graph_max_seeds), -1, np.int32)
         graph_on = np.zeros((b,), bool)
         if st.has_graph:
-            for i, plan in enumerate(plans):
-                if not plan.requires_graph:
-                    continue
-                n_seeds = 0
-                for name in plan.graph_entities or plan.keywords:
-                    for e in st.seed_lookup(name, 3):
-                        row = st.row_of.get(e.entity_id)
-                        if row is not None and n_seeds < cfg.graph_max_seeds:
-                            seed_rows[i, n_seeds] = row
-                            n_seeds += 1
-                            graph_on[i] = True
-                    if n_seeds >= cfg.graph_max_seeds:
-                        break
+            with annotate("engine.seeds"):
+                for i, plan in enumerate(plans):
+                    if not plan.requires_graph:
+                        continue
+                    n_seeds = 0
+                    for name in plan.graph_entities or plan.keywords:
+                        for e in st.seed_lookup(name, 3):
+                            row = st.row_of.get(e.entity_id)
+                            if row is not None and n_seeds < cfg.graph_max_seeds:
+                                seed_rows[i, n_seeds] = row
+                                n_seeds += 1
+                                graph_on[i] = True
+                        if n_seeds >= cfg.graph_max_seeds:
+                            break
 
-        weights = np.asarray(
-            [
+        with annotate("engine.upload"):
+            weights = np.asarray(
                 [
-                    p.weights.get("lexical", cfg.lexical_weight),
-                    p.weights.get("semantic", cfg.semantic_weight),
-                    p.weights.get("graph", cfg.graph_weight),
-                    cfg.rerank_blend_rrf_relational
-                    if p.requires_graph and p.intent in ("relational", "entity_lookup")
-                    else cfg.rerank_blend_rrf,
-                ]
-                for p in plans
-            ],
-            np.float32,
-        ).reshape(b, 4)
+                    [
+                        p.weights.get("lexical", cfg.lexical_weight),
+                        p.weights.get("semantic", cfg.semantic_weight),
+                        p.weights.get("graph", cfg.graph_weight),
+                        cfg.rerank_blend_rrf_relational
+                        if p.requires_graph and p.intent in ("relational", "entity_lookup")
+                        else cfg.rerank_blend_rrf,
+                    ]
+                    for p in plans
+                ],
+                np.float32,
+            ).reshape(b, 4)
 
-        dev = self.device
+            dev = self.device
 
-        def to_dev(x):  # numpy from the host, or a tensor the device encode made
-            x = x if torch.is_tensor(x) else torch.from_numpy(x)
-            return x.to(dev, non_blocking=True)
+            def to_dev(x):  # numpy from the host, or a tensor the device encode made
+                x = x if torch.is_tensor(x) else torch.from_numpy(x)
+                return x.to(dev, non_blocking=True)
 
-        args = QueryArgs(
-            *(to_dev(x) for x in (
-                q_terms, qs_terms, qs_slots, ql_terms, ql_slots, q_vec, q_tokens,
-                q_tok_mask, seed_rows, weights,
-            )),
-            threshold=torch.tensor(
-                cfg.safety_threshold if cfg.safety_enabled else -1e9, dtype=torch.float32, device=dev
-            ),
-            alpha=torch.tensor(
-                cfg.denoise_alpha if cfg.denoise_enabled else 0.0, dtype=torch.float32, device=dev
-            ),
-            graph_on=torch.from_numpy(graph_on).to(dev),
-            coll_cid=torch.from_numpy(coll_cid).to(dev),
-        )
+            args = QueryArgs(
+                *(to_dev(x) for x in (
+                    q_terms, qs_terms, qs_slots, ql_terms, ql_slots, q_vec, q_tokens,
+                    q_tok_mask, seed_rows, weights,
+                )),
+                threshold=torch.tensor(
+                    cfg.safety_threshold if cfg.safety_enabled else -1e9, dtype=torch.float32,
+                    device=dev,
+                ),
+                alpha=torch.tensor(
+                    cfg.denoise_alpha if cfg.denoise_enabled else 0.0, dtype=torch.float32,
+                    device=dev,
+                ),
+                graph_on=torch.from_numpy(graph_on).to(dev),
+                coll_cid=torch.from_numpy(coll_cid).to(dev),
+            )
         return plans, args
 
     def _encode(self, sem_texts: Sequence[str]):
@@ -311,22 +322,24 @@ class Engine:
             if st.maxsim_tokens is not None:
                 q_tokens, q_tok_mask = tok, self._token_weights(occupied, sem_texts)
         if q_vec is None:
-            q_vec_f32 = np.zeros((b, st.dim), np.float32)
-            if st.has_dense:
-                # one batched embed call; a failed embed yields zero vectors, which the
-                # program's zero-vector guard turns into an empty dense channel
-                try:
-                    raw = np.asarray(self.embedder.embed_texts(sem_texts), np.float32)
-                except Exception:
-                    raw = np.zeros((b, self.embedder.dim), np.float32)
-                q_vec_f32 = truncate_matryoshka(raw, cfg.embedding_dim)
-            q_vec = q_vec_f32.astype(np.float16)
+            with annotate("engine.encode.vectors"):
+                q_vec_f32 = np.zeros((b, st.dim), np.float32)
+                if st.has_dense:
+                    # one batched embed call; a failed embed yields zero vectors, which
+                    # the program's zero-vector guard turns into an empty dense channel
+                    try:
+                        raw = np.asarray(self.embedder.embed_texts(sem_texts), np.float32)
+                    except Exception:
+                        raw = np.zeros((b, self.embedder.dim), np.float32)
+                    q_vec_f32 = truncate_matryoshka(raw, cfg.embedding_dim)
+                q_vec = q_vec_f32.astype(np.float16)
         if q_tokens is None and st.maxsim_tokens is not None:
-            q_tokens_f32 = self.embedder.token_embeddings(
-                sem_texts, max_tokens=cfg.maxsim_query_tokens, dim=cfg.maxsim_dim
-            )
+            with annotate("engine.encode.tokens"):
+                q_tokens_f32 = self.embedder.token_embeddings(
+                    sem_texts, max_tokens=cfg.maxsim_query_tokens, dim=cfg.maxsim_dim
+                )
+                q_tokens = q_tokens_f32.astype(np.float16)
             q_tok_mask = self._token_weights(np.any(q_tokens_f32 != 0, axis=-1), sem_texts)
-            q_tokens = q_tokens_f32.astype(np.float16)
         elif q_tokens is None:
             q_tokens = np.zeros((b, 1, 1), np.float16)
             q_tok_mask = np.zeros((b, 1), np.float16)
@@ -335,9 +348,10 @@ class Engine:
     def _token_weights(self, occupied: np.ndarray, sem_texts: Sequence[str]) -> np.ndarray:
         """f16[B, T] MaxSim query-token weights: the occupied slots, with function
         words down-weighted (``maxsim_query_weights``)."""
-        w = occupied.astype(np.float16)
-        for i, t in enumerate(sem_texts):
-            w[i] *= maxsim_query_weights(t, self.analyzer, w.shape[1]).astype(np.float16)
+        with annotate("engine.encode.weights"):
+            w = occupied.astype(np.float16)
+            for i, t in enumerate(sem_texts):
+                w[i] *= maxsim_query_weights(t, self.analyzer, w.shape[1]).astype(np.float16)
         return w
 
     # ------------------------------------------------------------------ device program
@@ -361,13 +375,13 @@ class Engine:
         outs = []
         for r in range(dp):
             a = self.row_args(args, r)
-            with record_function("engine.lexical"):
+            with annotate("engine.lexical"):
                 lex = self._lexical(a, scoped, r)
-            with record_function("engine.dense"):
+            with annotate("engine.dense"):
                 sem = self._dense(a, scoped, r)
-            with record_function("engine.graph"):
+            with annotate("engine.graph"):
                 gr = self._graph(a, scoped, graph, r)
-            with record_function("engine.tail"):
+            with annotate("engine.tail"):
                 outs.append(self._tail(a, lex, sem, gr, r))
         if dp == 1:
             ids, scores, refused, max_score, fused, rerank = outs[0]
@@ -614,10 +628,11 @@ class Engine:
         plans, (ids, scores, refused, max_score, fused, rerank) = self.search_arrays(
             queries, colls
         )
-        ids, scores, refused, max_score, rerank = (
-            x.cpu().numpy() for x in (ids, scores, refused, max_score, rerank)
-        )
-        fused = FusedCandidates(*(x.cpu().numpy() for x in fused))
+        with annotate("engine.fetch"):
+            ids, scores, refused, max_score, rerank = (
+                x.cpu().numpy() for x in (ids, scores, refused, max_score, rerank)
+            )
+            fused = FusedCandidates(*(x.cpu().numpy() for x in fused))
         return plans, (ids, scores, refused, max_score, fused, rerank)
 
     def retrieve(self, query: str, top_k: Optional[int] = None, collection: Optional[str] = None
@@ -634,7 +649,14 @@ class Engine:
         """Batched retrieval with host decode. ``collection`` scopes the whole batch;
         ``collections`` scopes per query. The batch pads up to a multiple of the
         mesh's data axis with copies of the first query (each data row serves an
-        equal slice); only the real queries' results return."""
+        equal slice); only the real queries' results return. While a profiler
+        records, the call is the range ``engine.batch``, holding ``engine.prep``
+        (:meth:`prepare_queries`), the program's ranges (:meth:`run`),
+        ``engine.fetch`` (the copies back) and ``engine.decode``."""
+        with annotate("engine.batch"):
+            return self._retrieve_batch(queries, top_k, collection, collections)
+
+    def _retrieve_batch(self, queries, top_k, collection, collections):
         n_real = len(queries)
         padded = list(queries)
         colls = list(collections) if collections is not None else [collection] * n_real
@@ -659,31 +681,32 @@ class Engine:
         plans = plans[:n_real]
         dispatch_ms = (time.perf_counter() - t0) * 1e3
 
-        results: List[RetrievalResult] = []
-        for i, (query, plan) in enumerate(zip(queries, plans)):
-            t1 = time.perf_counter()
-            fused_i = FusedCandidates(*(x[i] for x in fused))
-            found = decode_results(self.corpus, fused_i, rerank[i], ids[i], scores[i])
-            if top_k is not None:
-                found = found[:top_k]
-            refused_b = bool(refused[i])
-            decode_ms = (time.perf_counter() - t1) * 1e3
-            results.append(
-                RetrievalResult(
-                    query=query,
-                    results=[] if refused_b else found,
-                    plan=plan,
-                    refused=refused_b,
-                    refusal_reason=(
-                        f"Max score {float(max_score[i]):.2f} below threshold "
-                        f"{self.config.safety_threshold}" if refused_b else None
-                    ),
-                    max_score=float(max_score[i]),
-                    timings={
-                        "dispatch_ms": dispatch_ms / len(padded),
-                        "decode_ms": decode_ms,
-                        "total_ms": dispatch_ms / len(padded) + decode_ms,
-                    },
+        with annotate("engine.decode"):
+            results: List[RetrievalResult] = []
+            for i, (query, plan) in enumerate(zip(queries, plans)):
+                t1 = time.perf_counter()
+                fused_i = FusedCandidates(*(x[i] for x in fused))
+                found = decode_results(self.corpus, fused_i, rerank[i], ids[i], scores[i])
+                if top_k is not None:
+                    found = found[:top_k]
+                refused_b = bool(refused[i])
+                decode_ms = (time.perf_counter() - t1) * 1e3
+                results.append(
+                    RetrievalResult(
+                        query=query,
+                        results=[] if refused_b else found,
+                        plan=plan,
+                        refused=refused_b,
+                        refusal_reason=(
+                            f"Max score {float(max_score[i]):.2f} below threshold "
+                            f"{self.config.safety_threshold}" if refused_b else None
+                        ),
+                        max_score=float(max_score[i]),
+                        timings={
+                            "dispatch_ms": dispatch_ms / len(padded),
+                            "decode_ms": decode_ms,
+                            "total_ms": dispatch_ms / len(padded) + decode_ms,
+                        },
+                    )
                 )
-            )
         return results

@@ -2,7 +2,9 @@
 stage timer.
 
 The port of the JAX package's ``observability/profiling.py``, with the same
-interface over ``torch.profiler`` in place of ``jax.profiler``.
+interface over ``torch.profiler`` in place of ``jax.profiler``. The query paths
+mark their stages with :func:`annotate` (the ``engine.*`` ranges), which costs a
+flag read while no profiler records.
 """
 
 from __future__ import annotations
@@ -11,9 +13,12 @@ import contextlib
 import tempfile
 import time
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()  # reusable: entering it does nothing
 
 
 @contextlib.contextmanager
@@ -37,11 +42,16 @@ def device_trace(log_dir: Optional[str | Path] = None) -> Iterator[Path]:
     prof.export_chrome_trace(str(log_dir / f"trace-{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside a device trace (``torch.profiler.record_function``)."""
-    with torch.profiler.record_function(name):
-        yield
+def annotate(name: str) -> ContextManager[None]:
+    """Named region inside a device trace (``torch.profiler.record_function``),
+    entered only while a profiler records; otherwise a null context.
+
+    The profiler records the range on the host and again on the device, from the
+    first to the last device operation launched while it was the innermost range
+    open."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StageTimer:
@@ -52,9 +62,12 @@ class StageTimer:
         self.timings: dict[str, float] = {}
 
     @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.timings[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+    def stage(self, name: str, span: Optional[str] = None) -> Iterator[None]:
+        """Time the block into ``timings[f"{name}_ms"]`` (host milliseconds); with
+        ``span`` the block is also the profiler range ``span`` (:func:`annotate`)."""
+        with annotate(span) if span is not None else _OFF:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.timings[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3

@@ -21,7 +21,8 @@ Every channel reads the placed state, the engine's own tensors: nothing is place
 twice. On CUDA the bf16 and f32 dense scan launches the dense-scores kernel, the
 term-table backend the term-table kernel and the MaxSim rerank the MaxSim kernel.
 Kernels run asynchronously, so a stage's device time shows in the stage that next
-reads a result on the host (the channel counts, the gate).
+reads a result on the host (the channel counts, the gate). While a profiler
+records, each step is also an ``engine.staged.*`` range (:meth:`Retriever.retrieve`).
 
 The helpers are ports of the reference's of the same names: MaxSim query-token
 weights, the parents' mean embeddings of the dot rerank, and the decode of device
@@ -30,7 +31,6 @@ rows into :class:`~triple_hybrid_rag_tpu_torch.types.SearchResult` records.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -55,6 +55,7 @@ from .models.embedder import get_default_embedder
 from .models.planner import get_planner
 from .models.reranker import Reranker, get_reranker
 from .observability import rag_metrics
+from .observability.profiling import StageTimer, annotate
 from .observability.trace import tracer
 from .ops.fusion import (
     GRAPH_BIT,
@@ -399,115 +400,132 @@ class Retriever:
     def retrieve(
         self, query: str, top_k: Optional[int] = None, collection: Optional[str] = None
     ) -> RetrievalResult:
-        """The staged query with per-stage host timings and decoded results."""
+        """The staged query with per-stage timings and decoded results.
+
+        The timings are host wall times: kernels run asynchronously, so a device
+        stage counts only its launches, and its kernels' time falls in the stage
+        that next reads a result back (the channel counts, the gate, the decode).
+        While a profiler records, the call is the range ``engine.staged.query`` and
+        each stage a range inside it: ``engine.staged.plan``, ``.channels``
+        (holding ``.lexical``, ``.semantic`` with ``.embed``, ``.graph`` and
+        ``.counts``), ``.fusion``, ``.expand``, ``.rerank`` (holding ``.tokens`` and
+        ``.maxsim``), ``.gate`` and ``.decode``."""
+        with annotate("engine.staged.query"):
+            return self._staged(query, top_k, collection)
+
+    def _staged(
+        self, query: str, top_k: Optional[int], collection: Optional[str]
+    ) -> RetrievalResult:
         cfg, st = self.config, self.state
         dev = self.device
         final_k = top_k or cfg.final_top_k
-        timings: Dict[str, float] = {}
-        t_total = time.perf_counter()
+        timer = StageTimer()
+        with timer.stage("total"):
+            # 1. plan
+            with timer.stage("planning", span="engine.staged.plan"):
+                plan = self.planner.plan(query, collection)
 
-        # 1. plan
-        t0 = time.perf_counter()
-        plan = self.planner.plan(query, collection)
-        timings["planning_ms"] = (time.perf_counter() - t0) * 1e3
+            # 2. channels (optionally scoped to a collection)
+            with timer.stage("retrieval", span="engine.staged.channels"):
+                row_mask = self._collection_mask(collection)
+                lex_ids, lex_scores = self._lexical_search(plan, row_mask)
+                sem_ids, sem_scores, query_vec = self._semantic_search(plan, row_mask)
+                gr_ids, gr_scores = self._graph_search(plan, row_mask)
+                with annotate("engine.staged.counts"):
+                    found = [(x >= 0).sum() for x in (lex_ids, sem_ids, gr_ids)]
+                    counts = torch.stack(found).tolist()
+                channel_counts = dict(zip(("lexical", "semantic", "graph"), counts))
 
-        # 2. channels (optionally scoped to a collection)
-        t0 = time.perf_counter()
-        row_mask = self._collection_mask(collection)
-        lex_ids, lex_scores = self._lexical_search(plan, row_mask)
-        sem_ids, sem_scores, query_vec = self._semantic_search(plan, row_mask)
-        gr_ids, gr_scores = self._graph_search(plan, row_mask)
-        counts = torch.stack([(x >= 0).sum() for x in (lex_ids, sem_ids, gr_ids)]).tolist()
-        channel_counts = dict(zip(("lexical", "semantic", "graph"), counts))
-        timings["retrieval_ms"] = (time.perf_counter() - t0) * 1e3
+            # 3. fusion
+            with timer.stage("fusion", span="engine.staged.fusion"):
+                weights = torch.tensor(
+                    [[
+                        plan.weights.get("lexical", cfg.lexical_weight),
+                        plan.weights.get("semantic", cfg.semantic_weight),
+                        plan.weights.get("graph", cfg.graph_weight),
+                    ]],
+                    dtype=torch.float32, device=dev,
+                )
+                fused = fuse_rrf(
+                    lex_ids[None], lex_scores[None], sem_ids[None], sem_scores[None],
+                    gr_ids[None], gr_scores[None], weights,
+                    rrf_k=cfg.rrf_k, top_k=cfg.rerank_top_k,
+                    score_blend=cfg.fusion_score_blend, lex_conf_gate=cfg.fusion_lex_conf_gate,
+                )
+                fused = FusedCandidates(*(x[0] for x in fused))
+                if cfg.conformal_denoise_enabled:
+                    keep = conformal_denoise_mask(
+                        fused.ids[None], fused.rrf[None], torch.tensor(cfg.conformal_alpha)
+                    )[0]
+                    fused = fused._replace(
+                        ids=torch.where(keep, fused.ids, torch.full_like(fused.ids, -1))
+                    )
 
-        # 3. fusion
-        t0 = time.perf_counter()
-        weights = torch.tensor(
-            [[
-                plan.weights.get("lexical", cfg.lexical_weight),
-                plan.weights.get("semantic", cfg.semantic_weight),
-                plan.weights.get("graph", cfg.graph_weight),
-            ]],
-            dtype=torch.float32, device=dev,
-        )
-        fused = fuse_rrf(
-            lex_ids[None], lex_scores[None], sem_ids[None], sem_scores[None],
-            gr_ids[None], gr_scores[None], weights,
-            rrf_k=cfg.rrf_k, top_k=cfg.rerank_top_k,
-            score_blend=cfg.fusion_score_blend, lex_conf_gate=cfg.fusion_lex_conf_gate,
-        )
-        fused = FusedCandidates(*(x[0] for x in fused))
-        if cfg.conformal_denoise_enabled:
-            keep = conformal_denoise_mask(
-                fused.ids[None], fused.rrf[None], torch.tensor(cfg.conformal_alpha)
-            )[0]
-            fused = fused._replace(ids=torch.where(keep, fused.ids, torch.full_like(fused.ids, -1)))
-        timings["fusion_ms"] = (time.perf_counter() - t0) * 1e3
+            # 4. parent expansion
+            with timer.stage("expansion"):
+                parent_ids = self._expand_to_parents(fused.ids)
 
-        # 4. parent expansion
-        t0 = time.perf_counter()
-        parent_ids = self._expand_to_parents(fused.ids)
-        timings["expansion_ms"] = (time.perf_counter() - t0) * 1e3
+            # 5. rerank
+            with timer.stage("rerank", span="engine.staged.rerank"):
+                if cfg.rerank_enabled:
+                    qctx: Dict[str, object] = {"query_text": query}
+                    if query_vec is not None:
+                        qctx["query_vec"] = query_vec
+                    if self.maxsim_view is not None:
+                        qctx.update(self._query_token_ctx(plan))
+                    with annotate("engine.staged.maxsim"):
+                        rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
+                else:
+                    rerank_scores = fused.rrf
+                # the ordering score may fold the fused evidence back in; the gate
+                # below still reads the pure rerank score
+                b = cfg.rerank_blend_rrf
+                if plan.requires_graph and plan.intent in ("relational", "entity_lookup"):
+                    # relation-mediated answers: trust the fused ranks more
+                    b = cfg.rerank_blend_rrf_relational
+                if cfg.rerank_enabled and b > 0:
+                    fused_norm = minmax_normalize(fused.ids, fused.rrf)
+                    order_scores = (1.0 - b) * rerank_scores + b * fused_norm
+                else:
+                    order_scores = rerank_scores
 
-        # 5. rerank
-        t0 = time.perf_counter()
-        if cfg.rerank_enabled:
-            qctx: Dict[str, object] = {"query_text": query}
-            if query_vec is not None:
-                qctx["query_vec"] = query_vec
-            if self.maxsim_view is not None:
-                qctx.update(self._query_token_ctx(plan))
-            rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
-        else:
-            rerank_scores = fused.rrf
-        # the ordering score may fold the fused evidence back in; the gate below
-        # still reads the pure rerank score
-        b = cfg.rerank_blend_rrf
-        if plan.requires_graph and plan.intent in ("relational", "entity_lookup"):
-            # relation-mediated answers: trust the fused ranks more
-            b = cfg.rerank_blend_rrf_relational
-        if cfg.rerank_enabled and b > 0:
-            order_scores = (1.0 - b) * rerank_scores + b * minmax_normalize(fused.ids, fused.rrf)
-        else:
-            order_scores = rerank_scores
-        timings["rerank_ms"] = (time.perf_counter() - t0) * 1e3
+            # 6. safety + denoise
+            with timer.stage("safety", span="engine.staged.gate"):
+                if cfg.safety_enabled or cfg.denoise_enabled:
+                    threshold = cfg.safety_threshold if cfg.safety_enabled else float("-inf")
+                    alpha = cfg.denoise_alpha if cfg.denoise_enabled else 0.0
+                    gate = apply_safety_denoise(
+                        fused.ids[None], order_scores[None],
+                        torch.tensor(threshold, dtype=torch.float32, device=dev),
+                        torch.tensor(alpha, dtype=torch.float32, device=dev),
+                        top_k=final_k, gate_scores=rerank_scores[None],
+                    )
+                    final_ids, final_scores = gate.ids[0], gate.scores[0]
+                    refused, max_score = bool(gate.refused[0]), float(gate.max_score[0])
+                else:
+                    slots, final_scores = masked_top_k(
+                        torch.where(
+                            fused.ids >= 0, order_scores, torch.full_like(order_scores, NEG_INF)
+                        ),
+                        final_k, invalid_score_floor=NEG_INF,
+                    )
+                    # slots are positions in the candidate list; map them to rows
+                    final_scores = torch.where(
+                        slots >= 0, final_scores, torch.zeros_like(final_scores)
+                    )
+                    final_ids = torch.where(
+                        slots >= 0, fused.ids[slots.clamp(min=0)], torch.full_like(slots, -1)
+                    )
+                    refused, max_score = False, float(rerank_scores.max())
 
-        # 6. safety + denoise
-        t0 = time.perf_counter()
-        if cfg.safety_enabled or cfg.denoise_enabled:
-            threshold = cfg.safety_threshold if cfg.safety_enabled else float("-inf")
-            alpha = cfg.denoise_alpha if cfg.denoise_enabled else 0.0
-            gate = apply_safety_denoise(
-                fused.ids[None], order_scores[None],
-                torch.tensor(threshold, dtype=torch.float32, device=dev),
-                torch.tensor(alpha, dtype=torch.float32, device=dev),
-                top_k=final_k, gate_scores=rerank_scores[None],
-            )
-            final_ids, final_scores = gate.ids[0], gate.scores[0]
-            refused, max_score = bool(gate.refused[0]), float(gate.max_score[0])
-        else:
-            slots, final_scores = masked_top_k(
-                torch.where(fused.ids >= 0, order_scores, torch.full_like(order_scores, NEG_INF)),
-                final_k, invalid_score_floor=NEG_INF,
-            )
-            # slots are positions in the candidate list; map them to rows
-            final_scores = torch.where(slots >= 0, final_scores, torch.zeros_like(final_scores))
-            final_ids = torch.where(
-                slots >= 0, fused.ids[slots.clamp(min=0)], torch.full_like(slots, -1)
-            )
-            refused, max_score = False, float(rerank_scores.max())
-        timings["safety_ms"] = (time.perf_counter() - t0) * 1e3
-
-        # decode on the host
-        t0 = time.perf_counter()
-        fused_np = FusedCandidates(*(x.cpu().numpy() for x in fused))
-        results = decode_results(
-            self.corpus, fused_np, rerank_scores.cpu().numpy(), final_ids.cpu().numpy(),
-            final_scores.cpu().numpy(),
-        )
-        timings["decode_ms"] = (time.perf_counter() - t0) * 1e3
-        timings["total_ms"] = (time.perf_counter() - t_total) * 1e3
+            # decode on the host
+            with timer.stage("decode", span="engine.staged.decode"):
+                fused_np = FusedCandidates(*(x.cpu().numpy() for x in fused))
+                results = decode_results(
+                    self.corpus, fused_np, rerank_scores.cpu().numpy(), final_ids.cpu().numpy(),
+                    final_scores.cpu().numpy(),
+                )
+        timings = timer.timings
 
         if cfg.metrics_enabled:
             rag_metrics.counter("retrieval_queries_total").inc()
@@ -547,35 +565,45 @@ class Retriever:
             torch.zeros((_EMPTY_CHANNEL_K,), dtype=torch.float32, device=self.device),
         )
 
+    # Each channel and the expansion open their range inside the method: the
+    # profiler ties a device operation to the innermost range open at its launch,
+    # so a range around the call would read none of the device time of a method
+    # that a caller wraps in a range of its own.
+
     def _lexical_search(self, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None):
-        if not self.config.lexical_enabled or self.state.vocab is None or not plan.keywords:
-            return self._empty_channel()
-        return lexical_search(self.state, plan.keywords, plan.lexical_top_k, row_mask)
+        with annotate("engine.staged.lexical"):
+            if not self.config.lexical_enabled or self.state.vocab is None or not plan.keywords:
+                return self._empty_channel()
+            return lexical_search(self.state, plan.keywords, plan.lexical_top_k, row_mask)
 
     def _semantic_search(self, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None):
-        if not self.config.semantic_enabled or not self.state.has_dense:
-            return (*self._empty_channel(), None)
-        try:
-            raw = self.embedder.embed_query(plan.semantic_query_text or plan.original_query)
-        except Exception:
-            # a failed embed (the encoder raises on a query with no tokens; an embed
-            # server may be down) drops the semantic channel for this query only
-            rag_metrics.counter("semantic_channel_failures_total").inc()
-            return (*self._empty_channel(), None)
-        qv = torch.from_numpy(truncate_matryoshka(raw[None], self.config.embedding_dim)[0])
-        qv = qv.to(self.device)
-        ids, scores = semantic_search(self.state, qv, plan.semantic_top_k, row_mask)
-        return ids, scores, qv
+        with annotate("engine.staged.semantic"):
+            if not self.config.semantic_enabled or not self.state.has_dense:
+                return (*self._empty_channel(), None)
+            try:
+                with annotate("engine.staged.embed"):
+                    raw = self.embedder.embed_query(plan.semantic_query_text or plan.original_query)
+            except Exception:
+                # a failed embed (the encoder raises on a query with no tokens; an
+                # embed server may be down) drops the semantic channel for this query
+                rag_metrics.counter("semantic_channel_failures_total").inc()
+                return (*self._empty_channel(), None)
+            qv = torch.from_numpy(truncate_matryoshka(raw[None], self.config.embedding_dim)[0])
+            qv = qv.to(self.device)
+            ids, scores = semantic_search(self.state, qv, plan.semantic_top_k, row_mask)
+            return ids, scores, qv
 
     def _graph_search(self, plan: QueryPlan, row_mask: Optional[torch.Tensor] = None):
-        if not self.config.graph_enabled or not self.state.has_graph or not plan.requires_graph:
-            return self._empty_channel()
-        return graph_search_plan(self.state, plan, row_mask)
+        with annotate("engine.staged.graph"):
+            if not self.config.graph_enabled or not self.state.has_graph or not plan.requires_graph:
+                return self._empty_channel()
+            return graph_search_plan(self.state, plan, row_mask)
 
     def _expand_to_parents(self, child_rows: torch.Tensor) -> torch.Tensor:
-        parent_of = self.state.parent_of
-        safe = child_rows.clamp(0, parent_of.shape[0] - 1)
-        return torch.where(child_rows >= 0, parent_of.long()[safe], torch.full_like(safe, -1))
+        with annotate("engine.staged.expand"):
+            parent_of = self.state.parent_of
+            safe = child_rows.clamp(0, parent_of.shape[0] - 1)
+            return torch.where(child_rows >= 0, parent_of.long()[safe], torch.full_like(safe, -1))
 
     def _collection_mask(self, collection: Optional[str]) -> Optional[torch.Tensor]:
         """bool[n_pad] row filter of a collection; None = unscoped. An unknown
@@ -585,16 +613,20 @@ class Retriever:
         return self.state.collection_of == self.collection_ids.get(collection, -2)
 
     def _query_token_ctx(self, plan: QueryPlan) -> Dict[str, torch.Tensor]:
-        """The query's MaxSim tokens and weights (the embedder that built the store)."""
+        """The query's MaxSim tokens and weights (the embedder that built the store).
+        The range ``engine.staged.tokens`` covers their making on the host; the
+        copies to the device stay in the caller's range, so that its device
+        interval opens before the rerank's kernels."""
         cfg = self.config
         text = plan.semantic_query_text or plan.original_query
-        toks = self.embedder.token_embeddings(
-            [text], max_tokens=cfg.maxsim_query_tokens, dim=cfg.maxsim_dim
-        )[0]
-        mask = np.any(toks != 0, axis=-1)
-        weights = maxsim_query_weights(text, self.analyzer, cfg.maxsim_query_tokens) * mask.astype(
-            np.float32
-        )
+        with annotate("engine.staged.tokens"):
+            toks = self.embedder.token_embeddings(
+                [text], max_tokens=cfg.maxsim_query_tokens, dim=cfg.maxsim_dim
+            )[0]
+            mask = np.any(toks != 0, axis=-1)
+            weights = maxsim_query_weights(text, self.analyzer, cfg.maxsim_query_tokens) * (
+                mask.astype(np.float32)
+            )
         return {
             "q_tokens": torch.from_numpy(np.ascontiguousarray(toks, np.float32)).to(self.device),
             "q_mask": torch.from_numpy(weights).to(self.device),

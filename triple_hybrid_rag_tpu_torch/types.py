@@ -298,7 +298,9 @@ class RetrievalResult:
     refused: bool = False
     refusal_reason: Optional[str] = None
     max_score: float = 0.0
-    timings: Dict[str, float] = field(default_factory=dict)  # stage -> milliseconds
+    # stage -> host wall milliseconds; a device stage counts its launches, and its
+    # kernels' time falls in the stage that next reads a result back
+    timings: Dict[str, float] = field(default_factory=dict)
     channel_counts: Dict[str, int] = field(default_factory=dict)
 
     @property
