@@ -35,6 +35,16 @@ def _queries(rng, b, q, vocab):
     return terms
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors, so the suite's parallel
+    workers do not oversubscribe the cores; restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.asarray(x))
 
@@ -63,34 +73,120 @@ def test_pre_bit_equal(rng, scoped):
     _bit_equal(want, got)
 
 
-@pytest.mark.parametrize("scoped", [False, True])
-def test_tiered_bit_equal(rng, scoped):
-    n_pad, l_max, l_small, top_k, b = 320, 40, 8, 200, 4
-    csr = _csr(rng)
+def _tier(csr, rows, l_small, qs, ql):
+    """The host's tiering of query rows (as ``encode_query_tiered``): terms with df
+    <= l_small to the small tier, the rest to the large one, both with their
+    original slots; at most ``qs`` / ``ql`` of each."""
     lengths = csr[1]
-    qs = np.full((b, 8), -1, np.int32)
-    ss = np.zeros((b, 8), np.int32)
-    ql = np.full((b, 3), -1, np.int32)
-    sl = np.zeros((b, 3), np.int32)
-    for i, row in enumerate(_queries(rng, b, 8, 60)):
+    tiers = [np.full((len(rows), w), -1, np.int32) for w in (qs, qs, ql, ql)]
+    tiers[1][:] = tiers[3][:] = 0
+    for i, row in enumerate(rows):
         small = [(t, s) for s, t in enumerate(row) if t >= 0 and lengths[t] <= l_small]
-        large = [(t, s) for s, t in enumerate(row) if t >= 0 and lengths[t] > l_small][:3]
-        for j, (t, s) in enumerate(small):
-            qs[i, j], ss[i, j] = t, s
-        for j, (t, s) in enumerate(large):
-            ql[i, j], sl[i, j] = t, s
+        large = [(t, s) for s, t in enumerate(row) if t >= 0 and lengths[t] > l_small]
+        for (terms, slots), pairs in (((tiers[0], tiers[1]), small[:qs]),
+                                      ((tiers[2], tiers[3]), large[:ql])):
+            for j, (t, s) in enumerate(pairs):
+                terms[i, j], slots[i, j] = t, s
+    return tiers
+
+
+def _skewed_csr(rng, n_docs=300, vocab=60, l_max=240):
+    """A CSR whose dfs span 1..l_max (a few terms hold most postings), tail-padded."""
+    dfs = np.maximum(1, (l_max * rng.random(vocab) ** 6).astype(int))
+    dfs[:3] = (l_max, l_max // 2, 2)
+    offsets, docs = [0], []
+    for df in dfs:
+        docs.extend(np.sort(rng.choice(n_docs, size=df, replace=False)))
+        offsets.append(offsets[-1] + df)
+    nnz = offsets[-1]
+    weights = rng.random(nnz).astype(np.float32) * 3
+    return (np.array(offsets, np.int32), dfs.astype(np.int32),
+            np.array(docs + [-1] * l_max, np.int32),
+            np.concatenate([weights, np.zeros(l_max, np.float32)]))
+
+
+def _tiered_case(rng, case):
+    """(csr, tiers, l_small, l_max, n_pad, top_k) of one case of the tiered op."""
+    l_small, l_max, n_pad, top_k, b = 8, 40, 320, 200, 4
+    csr = _csr(rng)
+    rows = _queries(rng, b, 8, 60)
+    if case == "skewed":  # large slots hold up to 120x another's postings
+        l_max = 240
+        csr = _skewed_csr(rng, l_max=l_max)
+        rows = _queries(rng, b, 8, 60)
+        rows[0, :3] = (0, 1, 2)
+    elif case == "empty_query":  # one query without a valid slot
+        rows[1] = -1
+    elif case == "empty_batch":
+        rows[:] = -1
+    elif case == "few_entries":  # one term of df <= 40 each: top_k past the entries
+        top_k = 50
+        rows[:, 0] = rng.choice(60, size=b, replace=False)
+        rows[:, 1:] = -1
+    elif case == "equal_weights":  # every score ties: positions (docs) decide
+        csr = csr[:3] + (np.where(csr[2] >= 0, 1.0, 0.0).astype(np.float32),)
+        top_k = 30
+    elif case == "long_runs":  # 11 kept slots over 10 docs: runs of 9 to 11 entries
+        l_max = 10
+        dfs = np.repeat([10, 9], 30)  # terms 0-29 every doc (large), 30-59 nine (small)
+        docs = [np.sort(rng.choice(10, size=df, replace=False)) for df in dfs]
+        csr = (np.concatenate([[0], np.cumsum(dfs)]).astype(np.int32), dfs.astype(np.int32),
+               np.concatenate(docs + [np.full(10, -1)]).astype(np.int32),
+               np.concatenate([rng.random(dfs.sum()) * 3, np.zeros(10)]).astype(np.float32))
+        l_small = 9
+        rows = np.stack([np.concatenate([rng.choice(30, 3, replace=False),
+                                         30 + rng.choice(30, 8, replace=False)])
+                         for _ in range(b)]).astype(np.int32)
+    tiers = _tier(csr, rows, l_small, 8, 3)
+    if case == "small_overflow":  # a small slot whose df passes l_small reads l_small
+        long_terms = [t for t in range(60) if csr[1][t] > 2 * l_small]
+        tiers[0][:, -1], tiers[1][:, -1] = long_terms[:b], 8
+    elif case == "wide_keys":  # B * n_pad * slots past 32 bits: the int64 sort key
+        n_pad = 2**30
+    return csr, tiers, l_small, l_max, n_pad, top_k
+
+
+TIERED_CASES = [
+    ("random", False), ("random", True), ("skewed", False), ("skewed", True),
+    ("empty_query", True), ("empty_batch", False), ("few_entries", False),
+    ("equal_weights", False), ("equal_weights", True), ("small_overflow", False),
+    ("long_runs", False), ("wide_keys", False), ("single", False), ("single", True),
+]
+
+
+@pytest.mark.parametrize(  # the random cases keep their ids, [False] and [True]
+    "case,scoped",
+    [pytest.param(c, m, id=str(m) if c == "random" else f"{c}-{m}") for c, m in TIERED_CASES])
+def test_tiered_bit_equal(rng, case, scoped):
+    """The exact flat gather against the reference's windowed op, ids and score
+    bits; ``single`` is the reference's one-query form (1-D arrays)."""
+    csr, tiers, l_small, l_max, n_pad, top_k = _tiered_case(rng, case)
+    b = tiers[0].shape[0]
     masks = rng.random((b, n_pad)) > 0.4 if scoped else None
-    want = jax.vmap(
-        lambda a, c, d, e, m: ref.score_postings_topk_tiered(
-            *map(jnp.asarray, csr), a, c, d, e, m,
-            l_small=l_small, l_max=l_max, n_pad=n_pad, top_k=top_k),
-        in_axes=(0, 0, 0, 0, 0 if scoped else None),
-    )(*map(jnp.asarray, (qs, ss, ql, sl)), jnp.asarray(masks) if scoped else None)
+    shape = dict(l_small=l_small, l_max=l_max, n_pad=n_pad, top_k=top_k)
+    if case == "single":
+        tiers, masks = [x[0] for x in tiers], None if masks is None else masks[0]
+        want = ref.score_postings_topk_tiered(
+            *map(jnp.asarray, csr), *map(jnp.asarray, tiers),
+            None if masks is None else jnp.asarray(masks), **shape)
+    else:
+        want = jax.vmap(
+            lambda a, c, d, e, m: ref.score_postings_topk_tiered(
+                *map(jnp.asarray, csr), a, c, d, e, m, **shape),
+            in_axes=(0, 0, 0, 0, 0 if scoped else None),
+        )(*map(jnp.asarray, tiers), jnp.asarray(masks) if scoped else None)
+    before = port.score_postings_topk_tiered.entries
     got = port.score_postings_topk_tiered(
-        *map(_t, csr), *map(_t, (qs, ss, ql, sl)), _t(masks) if scoped else None,
-        l_small=l_small, l_max=l_max, n_pad=n_pad, top_k=top_k,
-    )
+        *map(_t, csr), *map(_t, tiers), _t(masks) if scoped else None, **shape)
     _bit_equal(want, got)
+    assert got[0].shape == np.asarray(want[0]).shape
+    df = csr[1]
+    read = sum(min(int(df[t]), w) for terms, w in ((tiers[0], min(l_small, l_max)),
+                                                    (tiers[2], l_max))
+               for t in np.ravel(terms) if t >= 0)
+    assert port.score_postings_topk_tiered.entries - before == read
+    if case == "empty_batch":
+        assert read == 0 and (got[0] == -1).all()
 
 
 def test_sparse_windows_max_combine(rng):

@@ -247,3 +247,29 @@ def test_engine_refresh_and_unported_options(cfg):
     _compare(ShardedEngine(ret2, single_device_mesh()).retrieve_batch(QUERIES),
              two.retrieve_batch(QUERIES))
     assert torch.is_tensor(eng.run(eng.prepare_queries(QUERIES[:2])[1])[0])
+
+
+def test_tiered_lexical_entries_count(cfg):
+    """One ``retrieve_batch`` sorts exactly sum(min(df, window)) lexical entries over
+    the slots ``encode_query_tiered`` keeps: the small tier's window is
+    ``bm25_small_window``, the large tier's ``l_max``, and terms past
+    ``bm25_large_slots`` read nothing."""
+    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_postings_topk_tiered
+
+    c = cfg.replace(bm25_small_window=3, bm25_large_slots=1)
+    st = state_from_retriever(_retriever(c, False))
+    eng = Engine(st, device="cpu")
+    assert st.lexical_mode == "sorted" and eng.config.lexical_tiering
+    df = st.stored_df
+    small_read, large_read, dropped = 0, 0, 0
+    for q in QUERIES:
+        kws = eng.planner.plan(q).keywords
+        small, _, large, _ = st.encode_query_tiered(kws)
+        small_read += sum(min(int(df[t]), 3) for t in small if t >= 0)
+        large_read += sum(min(int(df[t]), st.lex_l_max) for t in large if t >= 0)
+        dropped += int((st.encode_query(kws) >= 0).sum() - (small >= 0).sum()
+                       - (large >= 0).sum())
+    assert small_read and large_read and dropped  # both tiers read, a large term left out
+    before = score_postings_topk_tiered.entries
+    eng.retrieve_batch(QUERIES)
+    assert score_postings_topk_tiered.entries - before == small_read + large_read

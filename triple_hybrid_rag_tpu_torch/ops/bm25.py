@@ -17,14 +17,18 @@ is the reference's form of the same op: it computes each posting's contribution
 ``idf * tf * (k1 + 1) / (tf + denom)`` from the term frequencies as it goes.
 
 **Sorted CSR postings** (:func:`score_postings_topk_pre`, ``_tiered``, and the
-reference's :func:`score_postings_topk` over term frequencies): work is
-O(matched postings), independent of corpus size:
+reference's :func:`score_postings_topk` over term frequencies), independent of
+corpus size:
 
-1. gather each query term's postings window (contiguous slices of the
-   per-posting BM25 weights),
+1. gather each query term's postings (contiguous slices of the per-posting BM25
+   weights),
 2. sort the (doc, query-slot) pairs,
 3. reduce each run of equal docs with a segmented *doubling* tree,
 4. top-k over the run totals.
+
+Only :func:`score_postings_topk_tiered` does work O(matched postings): it gathers
+each slot's valid postings exactly, into one flat array. The others gather a fixed
+window per query slot (``l_max`` wide), whatever the term's df.
 
 The doubling tree is kept in the reference's order on purpose: a run's total depends
 only on run-relative offsets, so every score is bit-identical to the JAX op (the
@@ -38,7 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .topk import NEG_INF, lax_top_k
+from .topk import NEG_INF, _float_order_key, lax_top_k
 
 __all__ = ["score_postings", "score_termtable", "QUERY_PAD", "DOC_PAD"]
 
@@ -368,6 +372,20 @@ def score_postings_topk(
     return _window_topk(single, docs, contrib, n_pad, top_k, row_mask)
 
 
+def _flat_run_totals(run: torch.Tensor, acc: torch.Tensor, bound: int) -> torch.Tensor:
+    """The segmented doubling sum of :func:`sparse_topk_from_windows` over one flat
+    sorted array: entries with equal ``run`` ids are one run; at each run's start
+    the result is the run's total, summed in the reference's order."""
+    p = acc.shape[0]
+    step = 1
+    while step < bound:
+        shifted_acc = torch.cat([acc[step:], acc.new_zeros(min(step, p))])[:p]
+        shifted_run = torch.cat([run[step:], run.new_full((min(step, p),), -9)])[:p]
+        acc = acc + shifted_acc.masked_fill(shifted_run != run, 0.0)
+        step <<= 1
+    return acc
+
+
 def score_postings_topk_tiered(
     offsets: torch.Tensor,
     lengths: torch.Tensor,
@@ -384,27 +402,84 @@ def score_postings_topk_tiered(
     n_pad: int,
     top_k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """df-tiered variant: rare terms read ``l_small`` windows, the few large-tier
-    slots read ``l_max``. The sort's secondary key is the ORIGINAL query slot, so
-    the summation order (and every ulp) matches the untiered op. One query (1-D
-    term and slot arrays, as the reference's op takes) gives [top_k]."""
+    """df-tiered sparse BM25 top-k: (ids i64[B, top_k], scores f32[B, top_k]); one
+    query (1-D term and slot arrays, as the reference's op takes) gives [top_k].
+
+    The reference gathers an ``l_small`` window for each small-tier slot and an
+    ``l_max`` window for each large-tier slot, whatever the term's df. Here each
+    slot reads exactly the ``min(df, window)`` postings the window holds valid,
+    into one flat array of per-query segments, so the work is O(matched postings).
+    Its size is the one host read of the call. The entries are sorted once by
+    (query, doc, original slot), packed into int32 when the sizes fit; the
+    reference's doubling tree sums each (query, doc) run, and each query's run
+    starts are ranked by score, then doc, as ``lax_top_k`` ranks them. A run's
+    total depends only on run-relative offsets, so the ids and every score bit are
+    the reference's. ``.entries`` counts the flat entries sorted so far."""
     single, small_terms, row_mask = _as_batch(small_terms, row_mask)
     if single:
         small_slots, large_terms, large_slots = (
             x[None, :] for x in (small_slots, large_terms, large_slots))
-    b = small_terms.shape[0]
-    ws = min(l_small, l_max)
-    ds, cs = gather_windows(
-        offsets, lengths, postings_doc, postings_weight, small_terms, ws, n_pad
-    )
-    dl, cl = gather_windows(
-        offsets, lengths, postings_doc, postings_weight, large_terms, l_max, n_pad
-    )
-    ss = small_slots.long()[:, :, None].expand(-1, -1, ws)
-    sl = large_slots.long()[:, :, None].expand(-1, -1, l_max)
-    docs = torch.cat([ds.reshape(b, -1), dl.reshape(b, -1)], 1)
-    slots = torch.cat([ss.reshape(b, -1), sl.reshape(b, -1)], 1)
-    contribs = torch.cat([cs.reshape(b, -1), cl.reshape(b, -1)], 1)
-    q_slots = int(small_terms.shape[1] + large_terms.shape[1])
-    ids, vals = sparse_topk_from_windows(docs, slots, contribs, q_slots, n_pad, top_k, row_mask)
+    dev = small_terms.device
+    b, qs = small_terms.shape
+    # columns in the reference's order: the small slots, then the large ones
+    terms = torch.cat([small_terms, large_terms], 1).long()
+    slots = torch.cat([small_slots, large_slots], 1).long()
+    c = terms.shape[1]
+    window = torch.full((c,), l_max, dtype=torch.long, device=dev)
+    window[:qs] = min(l_small, l_max)
+    valid = terms >= 0
+    t = torch.where(valid, terms, torch.zeros_like(terms))
+    # gather_windows' clamp: the window stays inside the postings
+    start = torch.minimum(offsets[t].long().clamp(min=0), postings_doc.shape[0] - window)
+    count = torch.where(valid, torch.minimum(lengths[t].long(), window).clamp(min=0), 0)
+    total = int(count.sum())  # the one host read: the flat array's size
+    score_postings_topk_tiered.entries += total
+    if total == 0:
+        ids = torch.full((b, top_k), -1, dtype=torch.long, device=dev)
+        vals = torch.full((b, top_k), NEG_INF, dtype=torch.float32, device=dev)
+        return (ids[0], vals[0]) if single else (ids, vals)
+
+    # the flat gather: entry e of segment (query, column) reads start + e - seg_start
+    seg_len = count.reshape(-1)
+    seg_start = seg_len.cumsum(0) - seg_len
+    seg = torch.repeat_interleave(
+        torch.arange(b * c, device=dev), seg_len, output_size=total)
+    idx = start.reshape(-1)[seg] + torch.arange(total, device=dev) - seg_start[seg]
+    docs = postings_doc[idx].long()
+    contrib = postings_weight[idx].float()
+    # each column's rank by (original slot, column) within its query: the order the
+    # reference's (doc, slot) sort leaves a doc's entries in
+    col = torch.arange(c, device=dev)
+    earlier = (slots[:, None, :] < slots[:, :, None]) | (
+        (slots[:, None, :] == slots[:, :, None]) & (col[None, :] < col[:, None]))
+    rank = earlier.sum(-1).reshape(-1)[seg]
+    run = (seg // c) * n_pad + docs  # (query, doc)
+    key = run * c + rank
+    if b * n_pad * c <= 2**32:  # radix passes scale with the key's bits
+        key = (key - 2**31).to(torch.int32)
+    perm = torch.sort(key, stable=True).indices
+    run = run[perm]
+    acc = _flat_run_totals(run, contrib[perm], c)
+
+    ok = torch.ones_like(run, dtype=torch.bool)
+    ok[1:] = run[1:] != run[:-1]  # run starts
+    query, doc = run // n_pad, run % n_pad
+    if row_mask is not None:
+        ok &= row_mask[query, doc]
+    score = acc.masked_fill(~ok, NEG_INF)
+    # per query: score descending, then position (doc) ascending, as lax_top_k
+    desc = (2**31 - 1) - _float_order_key(score)
+    perm = torch.sort(query * 2**32 + desc, stable=True).indices
+    score, doc = score[perm], doc[perm]
+
+    q_len = count.sum(1)
+    pos = (q_len.cumsum(0) - q_len)[:, None] + torch.arange(top_k, device=dev)
+    have = torch.arange(top_k, device=dev)[None, :] < q_len[:, None]
+    pos = pos.clamp(max=total - 1)
+    found = have & (score[pos] > NEG_INF)
+    ids = torch.where(found, doc[pos], -1)
+    vals = torch.where(found, score[pos], NEG_INF)
     return (ids[0], vals[0]) if single else (ids, vals)
+
+
+score_postings_topk_tiered.entries = 0  # flat entries sorted (host count, every call)
