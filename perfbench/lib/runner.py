@@ -27,7 +27,7 @@ from ..reference.pipeline import Reference
 from . import trace as tr
 from .cell import Cell
 from .generator import build_corpus, make_texts
-from .system import build_system
+from .system import build_system, counters
 from .work import percentile
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "triple_hybrid_rag_tpu")
@@ -145,7 +145,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
     if cores:
         pin_cores(cores)
     t = time.time()
-    system = build_system(corpus, cell.config, device, variant)
+    system = build_system(corpus, cell.config, device, variant, seed, cell.models)
     if system.config.embedding_dtype != "bfloat16":  # the program keeps its own rows
         corpus.rows, corpus.tokens = corpus.rows.cpu(), corpus.tokens.cpu()
     sync()
@@ -184,6 +184,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
 
         spans = tr.Spans(sync)
         n_units = int(cell.traffic["trace_units"])
+        counted = counters()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with driver.traced(spans):
                 tt = time.perf_counter()
@@ -192,6 +193,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
                 sync()
                 traced_s = time.perf_counter() - tt
         traced_queries = len(win.done)
+        counted = {k: v - counted.get(k, 0.0) for k, v in counters().items()}
     while time.perf_counter() < deadline:
         win.unit()
     sync()
@@ -201,8 +203,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
     if trace:
         work = {"rows": corpus.n_pad, "dim": int(corpus.rows.shape[1]), "batch": driver.width,
                 "row_dtype": row_dtype}
+        own = tr.merge_kernels(tr.OWN_KERNELS, *(getattr(m.program, "OWN_KERNELS", {})
+                                                 for m in cell.models.values()))
         traced = tr.summarize(prof, cell.driver.UNIT, n_units, traced_queries, traced_s,
-                              spans.seconds, work)
+                              spans.seconds, work, config=cell.config, counters=counted,
+                              own_kernels=own)
         log(f"trace: {n_units} units in {traced_s:.3f} s, device busy {traced.busy_s:.4f} s; "
             f"device s by stage {traced.stage_s}")
         del prof
@@ -225,7 +230,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
     gc.collect()
     if on_gpu:
         torch.cuda.empty_cache()
-    ref = Reference(corpus, cell.config, device)
+    ref = Reference(corpus, cell.config, device, seed, cell.models)
     answers = ref.answers([s.text for s in served], cell.driver.PATH)
     numbers = judge.judge(served, answers)
     limits = cell.config["limits"]

@@ -7,11 +7,12 @@ records each range a second time on the device, from the first to the last
 operation launched inside it. A kernel launched through ``ctypes`` is tied to no
 range, so a hand-written kernel of the port that falls outside its stage's
 intervals is added to that stage by name (``OWN_KERNELS``, a frozen copy of
-``chip_smoke.py``'s ``stage_profile`` table). The reduction reads the profiler's
-raw events: its own device total of a range read the BM25 stage at a hundred times
-the device's whole busy time, and building its event tree took minutes. Busy time
-is the union of the device operations' intervals; idle gaps are labelled with the
-benchmark span and engine range the host was inside when the device went idle.
+``chip_smoke.py``'s ``stage_profile`` table, and in a cell whose model plug-ins
+export their own, those too). The reduction reads the profiler's raw events: its
+own device total of a range read the BM25 stage at a hundred times the device's
+whole busy time, and building its event tree took minutes. Busy time is the union
+of the device operations' intervals; idle gaps are labelled with the benchmark
+span and engine range the host was inside when the device went idle.
 """
 
 from __future__ import annotations
@@ -68,6 +69,10 @@ class TraceSummary:
     idle_s: List[Tuple[str, float]]  # host label -> idle device seconds, longest first
     spans: Dict[str, List[float]] = field(default_factory=dict)
     work: Dict[str, object] = field(default_factory=dict)  # shapes for the work counts
+    config: Dict[str, object] = field(default_factory=dict)  # the configuration file, as loaded
+    # how much each counter series of the program's rag_metrics grew over the units
+    counters: Dict[str, float] = field(default_factory=dict)
+    op_n: Dict[str, int] = field(default_factory=dict)  # device operation name -> launches
 
 
 def _interval_us(ev) -> Tuple[float, float]:
@@ -99,15 +104,32 @@ def _overlap(ivs: List[Tuple[float, float]], s: float, t: float) -> float:
     return total
 
 
+def merge_kernels(*tables: Dict[str, Tuple[str, ...]]) -> Dict[str, Tuple[str, ...]]:
+    """One table of hand-written kernels by stage from several (``OWN_KERNELS`` and
+    those of a cell's model plug-ins): each stage's name parts, in order, once."""
+    out: Dict[str, Tuple[str, ...]] = {}
+    for table in tables:
+        for stage, words in table.items():
+            have = out.get(stage, ())
+            out[stage] = have + tuple(w for w in words if w not in have)
+    return out
+
+
 def summarize(prof, unit: str, units: int, queries: int, window_s: float,
-              spans: Dict[str, List[float]], work: dict) -> TraceSummary:
-    """Reduce a finished ``torch.profiler.profile`` over ``units`` units."""
+              spans: Dict[str, List[float]], work: dict, config: Optional[dict] = None,
+              counters: Optional[Dict[str, float]] = None,
+              own_kernels: Optional[Dict[str, Tuple[str, ...]]] = None) -> TraceSummary:
+    """Reduce a finished ``torch.profiler.profile`` over ``units`` units; kernels
+    are tied to stages by ``own_kernels`` (default ``OWN_KERNELS``)."""
     from torch.autograd import DeviceType
+
+    own_kernels = OWN_KERNELS if own_kernels is None else own_kernels
 
     dev, host = [], []
     ranges: Dict[str, List[Tuple[float, float]]] = defaultdict(list)  # device-side ranges
     own: Dict[str, List[Tuple[float, float]]] = defaultdict(list)  # hand-written kernels
     op_total: Dict[str, float] = defaultdict(float)
+    op_n: Dict[str, int] = defaultdict(int)
     for ev in prof.profiler.kineto_results.events():  # raw events: no event tree is built
         name = ev.name()
         on_device = ev.device_type() == DeviceType.CUDA
@@ -121,7 +143,8 @@ def summarize(prof, unit: str, units: int, queries: int, window_s: float,
         else:
             dev.append((s, t))
             op_total[name] += (t - s) / 1e6
-            for stage, words in OWN_KERNELS.items():
+            op_n[name] += 1
+            for stage, words in own_kernels.items():
                 if any(w in name for w in words):
                     own[stage].append((s, t))
     op_s = sorted(op_total.items(), key=lambda x: -x[1])
@@ -168,6 +191,7 @@ def summarize(prof, unit: str, units: int, queries: int, window_s: float,
         unit=unit, units=units, queries=queries, window_s=window_s, busy_s=busy / 1e6,
         device_ops=len(dev), stage_s=stage_s, op_s=op_s,
         idle_s=sorted(idle.items(), key=lambda x: -x[1]), spans=dict(spans), work=work,
+        config=dict(config or {}), counters=dict(counters or {}), op_n=dict(op_n),
     )
 
 
@@ -182,3 +206,11 @@ def stage_ms_per_unit(t: TraceSummary, stage: str) -> Optional[float]:
     if not t.stage_s.get(stage) or t.units == 0:  # no device time read for the stage
         return None
     return 1e3 * t.stage_s[stage] / t.units
+
+
+def kernel_ms_per_launch(t: TraceSummary, word: str) -> Optional[float]:
+    """Device ms of one launch, on average, of the operations whose name holds
+    ``word``; None where none ran."""
+    n = sum(c for name, c in t.op_n.items() if word in name)
+    s = sum(v for name, v in t.op_s if word in name)
+    return 1e3 * s / n if n and s else None

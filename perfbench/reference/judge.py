@@ -11,8 +11,8 @@ sound runs separates nothing and is left out there):
   the program puts in a channel's list though the reference ranks it below that
   list's last entry (or keeps out though the reference ranks it above) counts by
   that distance, and a chunk the channel cannot return counts 1. The rerank
-  score against the reference's MaxSim of the chunk's parent, as is (both lie in
-  [0, 1]), counts here too.
+  score against the reference reranker's score of the chunk's parent, as is
+  (both lie in [0, 1]), counts here too.
 * ``score_gap``: how far each returned chunk's fused score and final score lie
   from the reference's for the same chunk, and the reported maximum rerank score
   from the reference's; a chunk outside the reference's fused candidates, a

@@ -1,12 +1,14 @@
 """The plain reference of the retrieval that the timed path serves: for each query,
 the three channels over the whole corpus, weighted fusion, parent expansion, the
-MaxSim rerank and the safety gate, in plain PyTorch and NumPy.
+configuration's rerank and the safety gate, in plain PyTorch and NumPy.
 
 It imports nothing of the program and reads only the benchmark's inputs (the
 corpus of ``lib/generator.py``). What the program derives from them it works out
-again: the int8 rows and their scales, the int8 token store, the query plans,
-vectors and tokens, the BM25 term selection. Scans run over the corpus in blocks
-of rows on the given device; float32 products stay float32 (TF32 off).
+again: the int8 rows and their scales, the query plans, the BM25 term selection.
+The configuration's query embedder and reranker are the plain sides of its model
+plug-ins (``reference/models/<name>.py``, found by ``lib/cell.models``), built
+from the run's seed. Scans run over the corpus in blocks of rows on the given
+device; float32 products stay float32 (TF32 off).
 
 The two entries differ in a few stated ways, which ``path`` selects:
 
@@ -27,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..lib.cell import Model, models as find_models
 from ..lib.generator import Corpus
 from . import text as T
 
@@ -49,17 +52,6 @@ def quantize_query_int8(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     q = q.float()
     scale = torch.clamp(q.abs().amax(dim=1, keepdim=True), min=1e-12) / INT8_LEVELS
     return torch.clamp(torch.round(q / scale), -INT8_LEVELS, INT8_LEVELS), scale
-
-
-def token_store_rows(tokens: torch.Tensor, parents: torch.Tensor, dtype: str, dev) -> torch.Tensor:
-    """f32 doc tokens [K, Td, Dm] of ``parents`` as the configuration stores them:
-    bf16, or int8 codes ``round(x * 127)`` read back as bf16(code * bf16(1/127))."""
-    t = tokens[parents.to(tokens.device)].to(dev)
-    if dtype in ("int8", "int4"):
-        codes = torch.clamp(torch.round(t.float() * INT8_LEVELS), -INT8_LEVELS, INT8_LEVELS)
-        inv = float(torch.tensor(1.0 / INT8_LEVELS, dtype=torch.bfloat16))
-        return (codes * inv).to(torch.bfloat16).float()
-    return t.to(torch.bfloat16).float()
 
 
 def top_desc(scores: torch.Tensor, ok: torch.Tensor, k: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -98,9 +90,12 @@ class Answer:
 
 
 class Reference:
-    """The reference over one corpus and configuration, on ``device``."""
+    """The reference over one corpus and configuration, on ``device``, with the
+    configuration's ``models`` (default: the plug-ins its file names) built from
+    ``seed``."""
 
-    def __init__(self, corpus: Corpus, config: dict, device) -> None:
+    def __init__(self, corpus: Corpus, config: dict, device, seed: int = 0,
+                 models: Optional[Dict[str, Model]] = None) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False  # float32 products stay float32
         torch.backends.cudnn.allow_tf32 = False
         self.c = corpus
@@ -117,6 +112,9 @@ class Reference:
         self.ce = corpus.chunk_entities.to(self.dev).long()
         self.parent_of = corpus.parent_of.to(self.dev).long()
         self.valid = corpus.valid.to(self.dev)
+        plugins = models if models is not None else find_models(config)
+        self.embedder = plugins["embedder"].reference.build(self, seed)
+        self.reranker = plugins["reranker"].reference.build(self, seed)
 
     # ------------------------------------------------------------ query side
 
@@ -124,14 +122,12 @@ class Reference:
         return T.plan(text, self.rules, self.cfg)
 
     def vector(self, text: str, path: str) -> np.ndarray:
-        v = T.query_vector(text, self.rules, self.cfg["embedding_dim_full"], self.cfg["embedding_dim"])
-        return v.astype(np.float16).astype(np.float32) if path == "batch" else v
+        """f32[D]: the embedder's query vector as ``path`` sends it."""
+        return self.embedder.vector(text, path)
 
     def tokens(self, text: str, path: str):
-        vecs, w = T.query_tokens(text, self.rules, self.cfg["maxsim_query_tokens"], self.cfg["maxsim_dim"])
-        if path == "batch":
-            vecs = vecs.astype(np.float16).astype(np.float32)
-        return vecs, w
+        """(f32[T, Dm] query tokens, f32[T] weights): the embedder's, as ``path`` sends them."""
+        return self.embedder.tokens(text, path)
 
     def terms(self, keywords: Sequence[str], path: str) -> List[int]:
         """The scored term ids: the known keywords, each once (up to
@@ -293,23 +289,6 @@ class Reference:
             for j in order
         ]
 
-    def maxsim(self, parents: np.ndarray, q_tok: np.ndarray, q_w: np.ndarray) -> np.ndarray:
-        """f32[K] MaxSim scores: per query token the best doc token's dot product
-        (both in bf16, sums in f32), clipped at 0, weighted mean over the tokens."""
-        if parents.size == 0:
-            return np.zeros(0, np.float32)
-        p = torch.from_numpy(parents).to(self.dev)
-        doc = token_store_rows(self.c.tokens, p, self.dtype, self.dev)  # [K, Td, Dm]
-        mask = self.c.tok_mask[p.to(self.c.tok_mask.device)].to(self.dev)
-        q = torch.from_numpy(q_tok).to(self.dev).to(torch.bfloat16).float()
-        sim = torch.einsum("ktd,qd->ktq", doc, q).masked_fill(~mask[..., None], NEG)
-        per_q = sim.amax(dim=1)
-        has = mask.any(dim=1)
-        per_q = torch.where(has[:, None], per_q.clamp(min=0.0), torch.zeros_like(per_q))
-        w = torch.from_numpy(q_w).to(self.dev)
-        score = (per_q * w[None, :]).sum(dim=1) / torch.clamp(w.sum(), min=1.0)
-        return torch.where(has, score, torch.zeros_like(score)).cpu().numpy()
-
     def answer(self, text: str, path: str, dense_row: torch.Tensor) -> Answer:
         """The reference's answer to ``text`` through ``path``; ``dense_row`` is the
         query's row of :meth:`dense_scores`."""
@@ -329,9 +308,8 @@ class Reference:
         fused = self.fuse([chans[c] for c in ("lexical", "semantic", "graph")], weights)
         rows = np.array([f["row"] for f in fused], np.int64)
         parents = self.parent_of[torch.from_numpy(rows).to(self.dev)].cpu().numpy() if rows.size else rows
-        q_tok, q_w = self.tokens(text, path)
-        rerank = self.maxsim(parents, q_tok, q_w).astype(f32)
         rrf = np.array([f["rrf"] for f in fused], f32)
+        rerank = np.asarray(self.reranker.scores(text, path, parents, rrf), f32)
         if rrf.size:
             lo, hi = rrf.min(), rrf.max()
             norm = ((rrf - lo) / (hi - lo) if hi - lo > 0 else np.ones_like(rrf)).astype(f32)

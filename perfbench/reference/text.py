@@ -1,14 +1,13 @@
 """The query side of the plain reference, written from the system's stated rules:
-text analysis, the rule planner, the BowHash query vector and MaxSim query tokens,
-and the entity lookup that seeds the graph channel.
+text analysis, the rule planner and the entity lookup that seeds the graph channel
+(the query embedder is a model plug-in, ``reference/models/``).
 
 It imports nothing of the program. The rules are those of the reference system's
-host code (``analyzer.py``, ``models/planner.py`` ``RuleBasedPlanner``,
-``models/embedder.py`` ``BowHashEmbedder``, ``retrieval.maxsim_query_weights``,
-``EntityStore.lookup``) for the texts the traffic makes (ASCII; stored entity
-names), as they stand when this benchmark was written; they are
-restated here so that a later change to the program's copies shows as a
-disagreement instead of moving the yardstick with it.
+host code (``analyzer.py``, ``models/planner.py`` ``RuleBasedPlanner``, the
+function words that ``retrieval.py`` weights down in a query's tokens,
+``EntityStore.lookup``) for the texts the traffic makes (ASCII; stored entity names), as they stand when this
+benchmark was written; they are restated here so that a later change to the
+program's copies shows as a disagreement instead of moving the yardstick with it.
 """
 
 from __future__ import annotations
@@ -16,10 +15,6 @@ from __future__ import annotations
 import re
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
-
-import numpy as np
-
-from ..lib.hashing import maxsim_direction, token_direction
 
 EN_STOPWORDS = frozenset(
     """a an and are as at be been but by for from had has have he her his i if in into is it its
@@ -43,7 +38,6 @@ FUNCTION_WORDS = frozenset(
     obter fazer feito dizer dito saber quis querer preciso precisa mostrar
     ajudar usar achar encontrar funciona funcionar""".split()
 )
-FUNCTION_WORD_WEIGHT = 0.25
 GRAPH_INDICATORS = (
     "relationship", "related", "connected", "connection", "between", "who", "what company",
     "which organization", "works for", "belongs to", "part of", "depends on", "relacionado",
@@ -184,32 +178,6 @@ def plan(query: str, rules: TextRules, cfg: dict) -> Plan:
         w["lexical"] *= cfg["planner_relational_text_scale"]
         w["semantic"] *= cfg["planner_relational_text_scale"]
     return Plan(keywords, entities, requires_graph and graph_on, intent, w)
-
-
-def query_vector(text: str, rules: TextRules, dim_full: int, dim: int) -> np.ndarray:
-    """f32[dim]: the BowHash embedding (the sum of the tokens' unit directions,
-    normalized), Matryoshka-truncated to ``dim`` and normalized again."""
-    tokens = rules.tokenize(text)
-    acc = np.zeros(dim_full, np.float32)
-    for t in tokens:
-        acc += token_direction(t, dim_full)
-    norm = np.linalg.norm(acc)
-    v = acc / norm if norm > 0 else acc
-    v = np.asarray(v[None], np.float32)[..., :dim]
-    return (v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-12))[0]
-
-
-def query_tokens(text: str, rules: TextRules, n_tokens: int, dim: int):
-    """(f32[T, dim] MaxSim query tokens, f32[T] weights): one unit vector per
-    analyzer token (the first ``n_tokens``), function words weighted 0.25."""
-    tokens = rules.tokenize(text)[:n_tokens]
-    vecs = np.zeros((n_tokens, dim), np.float32)
-    weights = np.zeros((n_tokens,), np.float32)
-    fw = rules.function_words()
-    for j, t in enumerate(tokens):
-        vecs[j] = maxsim_direction(t, dim)
-        weights[j] = FUNCTION_WORD_WEIGHT if t in fw else 1.0
-    return vecs, weights
 
 
 class EntityIndex:

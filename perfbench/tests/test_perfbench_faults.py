@@ -10,7 +10,8 @@ import triple_hybrid_rag_tpu_torch.engine as engine_mod
 import triple_hybrid_rag_tpu_torch.retrieval as retrieval_mod
 from perfbench.lib.runner import run
 
-ENTRIES = [("rag1m-bf16.batch128", engine_mod), ("rag1m-int8.staged", retrieval_mod)]
+ENTRIES = [("rag1m-bf16.batch128", engine_mod), ("rag1m-int8.staged", retrieval_mod),
+           ("rag1m-bf16.staged", retrieval_mod)]
 
 
 def altered(decode):

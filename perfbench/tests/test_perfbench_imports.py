@@ -1,6 +1,7 @@
 """Nothing the benchmark runs loads JAX or the JAX package, judged by whole
 top-level module names (``triple_hybrid_rag_tpu_torch`` is another name, not a
-prefix match), and the reference loads nothing of the program."""
+prefix match), and the reference, its model plug-ins included, loads nothing of
+the program."""
 
 from __future__ import annotations
 
@@ -24,7 +25,9 @@ def top_levels(code: str) -> set:
 
 
 def test_reference_loads_neither_jax_nor_the_program():
-    mods = top_levels("import perfbench.reference.pipeline, perfbench.reference.judge")
+    plugins = ", ".join(f"perfbench.reference.models.{p.stem}"
+                        for p in sorted((HERE / "reference" / "models").glob("[!_]*.py")))
+    mods = top_levels("import perfbench.reference.pipeline, perfbench.reference.judge, " + plugins)
     assert not mods & set(FORBIDDEN) and PROGRAM not in mods
 
 
@@ -53,7 +56,7 @@ def test_no_source_imports_jax():
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             for n in names:
                 assert n.split(".")[0] not in FORBIDDEN, (path, n)
-        if path.parent.name == "reference":
+        if "reference" in path.relative_to(HERE).parts:
             assert PROGRAM not in path.read_text().replace(f"``{PROGRAM}", ""), path
 
 

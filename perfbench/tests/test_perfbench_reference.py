@@ -9,7 +9,7 @@ import pytest
 
 from perfbench.lib.runner import run
 
-CELLS = ["rag1m-bf16.batch128", "rag1m-int8.staged"]
+CELLS = ["rag1m-bf16.batch128", "rag1m-int8.staged", "rag1m-bf16.staged"]
 
 
 @pytest.mark.parametrize("name", CELLS)
