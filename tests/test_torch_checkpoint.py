@@ -19,14 +19,13 @@ import pickle
 import numpy as np
 import pytest
 
-from triple_hybrid_rag_tpu.config import RAGConfig as RefConfig
 from triple_hybrid_rag_tpu.facade import RAG as RefRAG
 from triple_hybrid_rag_tpu.index import checkpoint as ref_ckpt
 from triple_hybrid_rag_tpu.ingest import Ingestor as RefIngestor
 from triple_hybrid_rag_tpu.parallel import ShardedEngine, single_device_mesh
 
 from test_torch_engine import _compare
-from torch_port_helpers import torch_config
+from torch_port_helpers import reference_config, torch_config
 from triple_hybrid_rag_tpu_torch.facade import RAG
 from triple_hybrid_rag_tpu_torch.index import checkpoint as ckpt
 from triple_hybrid_rag_tpu_torch.ingest import Ingestor
@@ -124,7 +123,9 @@ def test_checkpoint_loads_in_the_other_package(cfg, docs_dir, tmp_path, directio
         corpus, store, emb, got_cfg = ref_ckpt.load_checkpoint(d)
         src = port
     _assert_same_state(src.corpus, src.entity_store, src.embeddings, corpus, store, emb)
-    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(cfg)
+    # the port's config also holds its own fields, at their defaults
+    want = cfg if direction == "port_to_reference" else torch_config(cfg)
+    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("writer", ["reference", "port"])
@@ -283,7 +284,7 @@ def _case_numpy_metadata(cfg, docs_dir, tmp_path):
 def _case_v1_pickle_gate(cfg, docs_dir, tmp_path):
     """A v1 (pickle) checkpoint the reference wrote: refused without allow_pickle;
     with it, its classes read as the port's."""
-    ref = RefIngestor(config=RefConfig(**dataclasses.asdict(cfg)))
+    ref = RefIngestor(config=reference_config(cfg))
     ref.ingest_directory(docs_dir)
     d = tmp_path / "v1"
     d.mkdir()

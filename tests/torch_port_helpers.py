@@ -35,6 +35,18 @@ def torch_config(cfg) -> TorchConfig:
     return TorchConfig(**dataclasses.asdict(cfg))
 
 
+def reference_config(cfg: TorchConfig):
+    """The reference's config of a port config whose own fields
+    (``PORT_ONLY_FIELDS``) are at their defaults."""
+    from triple_hybrid_rag_tpu.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.config import PORT_ONLY_FIELDS
+
+    keys = dataclasses.asdict(cfg)
+    for k in PORT_ONLY_FIELDS:
+        assert keys.pop(k) == getattr(TorchConfig, k), k
+    return RAGConfig(**keys)
+
+
 def flat_params(params) -> dict:
     """A flax parameter tree flattened as the packaged encoder npz names its arrays
     (``params/block_0/attn/query/kernel``, ...), for ``encoder_params_from_flax``."""

@@ -2,7 +2,9 @@
 
 A copy of the JAX package's ``RAGConfig`` with the same fields and defaults, so one
 configuration describes both implementations (the tests build the port's config from
-the reference's with ``dataclasses.asdict``). The config is a frozen, hashable
+the reference's with ``dataclasses.asdict``), plus the port's own fields
+(``PORT_ONLY_FIELDS``: the on-device cross-encoder's), which a checkpoint records only
+when they differ from their defaults. The config is a frozen, hashable
 dataclass: built from ``RAG_*`` environment variables by :meth:`RAGConfig.from_env`
 and tweaked per call with :meth:`RAGConfig.replace`.
 
@@ -134,11 +136,16 @@ class RAGConfig:
     graph_sparse_max_batch: int = 4
 
     # ---- rerank / late interaction ----
-    rerank_backend: str = "maxsim"  # "maxsim" | "dot" | "none"
+    # "maxsim" | "dot" | "none" | "cross_encoder" (the port's on-device LLM judge,
+    # models/cross_encoder.py, over a placed document-token store and model)
+    rerank_backend: str = "maxsim"
     maxsim_doc_tokens: int = 64
     maxsim_query_tokens: int = 32
     maxsim_dim: int = 128
     rerank_max_candidates: int = 50
+    # the cross-encoder's stored weights: "bfloat16", or "float8_e4m3fn" (e4m3 codes
+    # with per-row scales, dequantized to bf16 at use)
+    cross_encoder_weight_dtype: str = "bfloat16"
     rerank_blend_rrf: float = 0.5  # order = (1-b)*rerank + b*minmax(rrf)
 
     # ---- plan-aware relational overrides ----
@@ -234,6 +241,8 @@ class RAGConfig:
         r = self.capacity_round
         return max(r, ((n + r - 1) // r) * r)
 
+
+PORT_ONLY_FIELDS = ("cross_encoder_weight_dtype",)
 
 _SETTINGS: Optional[RAGConfig] = None
 

@@ -131,6 +131,11 @@ class Engine:
         self.device = resolve_device(state.device if device is None and mesh is not None else device)
         cfg = config or state.config
         self.config = cfg
+        if cfg.rerank_enabled and cfg.rerank_backend == "cross_encoder":
+            raise NotImplementedError(
+                "the batched Engine has no cross-encoder rerank: serve rerank_backend="
+                "'cross_encoder' through the staged path (RAG.query, Retriever.retrieve)"
+            )
         if self.device != state.device:
             raise ValueError(f"index state lives on {state.device}, engine on {self.device}")
         # config.mesh_shape is only carried, as in the reference: the mesh decides

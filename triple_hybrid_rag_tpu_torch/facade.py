@@ -53,8 +53,12 @@ class RAG:
         ocr_fn=None,
         use_sharded_engine: bool = False,
         device=None,
+        cross_encoder=None,
     ) -> None:
         self.config = config or get_settings()
+        # the on-device cross-encoder of rerank_backend="cross_encoder"
+        # (models/cross_encoder.init_cross_encoder), handed to each retriever
+        self._cross_encoder = cross_encoder
 
         # external model servers: any *_api_base field wires the matching HTTP
         # client; explicit arguments always win
@@ -118,6 +122,8 @@ class RAG:
                 kwargs["planner"] = self._planner
             if self._rerank_fn is not None:
                 kwargs["rerank_llm_fn"] = self._rerank_fn
+            if self._cross_encoder is not None:
+                kwargs["cross_encoder"] = self._cross_encoder
             self._retriever = self.ingestor.make_retriever(**kwargs)
             if self._engine is not None and not self._engine.refresh(self._retriever):
                 self._engine = None

@@ -33,7 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from ..config import RAGConfig
+from ..config import PORT_ONLY_FIELDS, RAGConfig
 from ..corpus import CorpusStore
 from ..models.entity_extractor import EntityStore
 from ..types import (
@@ -195,6 +195,9 @@ def save_checkpoint(
     cfg_dict = dataclasses.asdict(config) if config else None
     if cfg_dict is not None:
         cfg_dict["api_key"] = ""  # NEVER persist bearer tokens into a portable artifact
+        for key in PORT_ONLY_FIELDS:  # at their defaults, the reference loads the file
+            if cfg_dict[key] == getattr(RAGConfig, key):
+                del cfg_dict[key]
     manifest = {
         "format_version": FORMAT_VERSION,
         "created_at": time.time(),

@@ -26,6 +26,7 @@ import torch
 
 from ..analyzer import Vocabulary
 from ..config import RAGConfig
+from ..models.cross_encoder import DocumentStore
 from ..models.entity_extractor import EntityStore
 from ..ops.bm25 import DOC_PAD
 from ..types import Entity
@@ -202,6 +203,10 @@ class IndexState:
     # block means
     ivf_perm: Optional[torch.Tensor] = None
     ivf_centroids: Optional[torch.Tensor] = None
+    # the cross-encoder rerank (rerank_backend="cross_encoder"): each parent's
+    # document as token ids (models/cross_encoder.DocumentStore) and the model
+    xenc_docs: Any = None
+    xenc_model: Any = None
 
     @property
     def has_graph(self) -> bool:
@@ -237,7 +242,9 @@ class IndexState:
         ``valid`` bool[N]; ``nbr`` i32[E, Dg], ``chunk_entities`` i32[N, M];
         ``collection_of`` i32[N]; ``maxsim_tokens`` bf16/int8[P, Td, Dm],
         ``maxsim_mask`` bool[P, Td]; ``parent_emb`` f32[P_pad, D] (the reference
-        reranker's ``parent_embeddings``, for the dot rerank).
+        reranker's ``parent_embeddings``, for the dot rerank); ``xenc_doc_ids``
+        i32[P, W] and ``xenc_doc_len`` i32[P], the cross-encoder's document tokens,
+        with its model as ``xenc_model`` (here or in ``host``).
 
         ``host``: ``vocab`` (list of terms), ``entity_keys`` + ``entities`` (the entity
         store's canonical keys and :class:`Entity` rows, in store order), ``row_of``,
@@ -260,7 +267,7 @@ class IndexState:
                      idf=np.asarray(arrays["bm25_idf"], np.float32))
         for key in ("parent_of", "embeddings", "dense_scales", "valid", "nbr", "collection_of",
                     "maxsim_tokens", "maxsim_mask", "bm25_term_ids", "bm25_term_weights",
-                    "parent_emb"):
+                    "parent_emb", "xenc_doc_ids", "xenc_doc_len"):
             if key in arrays and arrays[key] is not None:
                 t[key] = arrays[key]
         if "chunk_entities" in arrays:
@@ -270,6 +277,8 @@ class IndexState:
         tensors = {
             k: v.to(dev) if torch.is_tensor(v) else _to_tensor(v, dev) for k, v in t.items()
         }
+        if "xenc_model" in arrays:
+            h["xenc_model"] = arrays["xenc_model"]
         return cls.from_tensors(tensors, h, config, dev)
 
     @classmethod
@@ -288,7 +297,8 @@ class IndexState:
         retriever's scan). ``chunk_entities`` is placed in every graph mode."""
         cfg = config
         dev = torch.device(device)
-        tt = {k: v.to(dev) for k, v in tensors.items()}
+        xenc_model = tensors.get("xenc_model", host.get("xenc_model"))
+        tt = {k: v.to(dev) for k, v in tensors.items() if k != "xenc_model"}
         n_rows = [tt["parent_of"].shape[0], int(host.get("n_rows", 0))]
         n_rows += [tt[k].shape[0] for k in ("embeddings", "bm25_term_ids") if k in tt]
         n_pad = max(n_rows)
@@ -413,6 +423,11 @@ class IndexState:
             maxsim_tokens=tokens, maxsim_mask=mask,
             corpus=host.get("corpus"),
             parent_emb=tt["parent_emb"].float().contiguous() if "parent_emb" in tt else None,
+            xenc_docs=(
+                DocumentStore(tt["xenc_doc_ids"], tt["xenc_doc_len"])
+                if "xenc_doc_ids" in tt else None
+            ),
+            xenc_model=xenc_model,
         )
         return ivf_layout(state, cfg) if ivf else state
 
@@ -449,10 +464,13 @@ class IndexState:
             "parent_emb": [self.parent_emb],
             "ivf": [self.ivf_perm, self.ivf_centroids],
         }
-        return {
+        out = {
             k: sum(t.numel() * t.element_size() for t in v if t is not None)
             for k, v in parts.items()
         }
+        out["cross_encoder"] = (self.xenc_docs.nbytes() if self.xenc_docs is not None else 0) + (
+            self.xenc_model.nbytes() if self.xenc_model is not None else 0)
+        return out
 
 
 def ivf_layout(state: IndexState, config: RAGConfig) -> IndexState:

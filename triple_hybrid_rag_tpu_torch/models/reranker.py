@@ -10,6 +10,9 @@ The port of the JAX package's ``models/reranker.py``. Every reranker has
 - :class:`DotReranker`: the query against the parents' mean embeddings;
 - :class:`NoopReranker`: the fused scores min-max normalised to [0, 1], order kept
   (the "rerank unavailable" rung, which keeps the 0.6 safety gate meaningful);
+- :class:`~triple_hybrid_rag_tpu_torch.models.cross_encoder.CrossEncoderReranker`:
+  an LLM cross-encoder on the device (``rerank_backend`` "cross_encoder"), over a
+  placed document-token store and model;
 - :class:`CallableReranker`: a host callable ``fn(query, texts) -> [0, 1] scores``
   (an LLM cross-encoder, say) over at most ``rerank_max_candidates`` candidates,
   falling back to its inner reranker on any failure.
@@ -106,13 +109,19 @@ def get_reranker(
     llm_fn=None,
     texts_of=None,
     maxsim_calibration: float = 1.0,
+    cross_encoder=None,
+    documents=None,
 ) -> Reranker:
-    """The fallback ladder: llm -> maxsim -> dot -> noop, each rung taken when its
-    inputs exist (``rerank_enabled=False`` means no rerank)."""
+    """The fallback ladder: llm -> maxsim (or the cross-encoder) -> dot -> noop, each
+    rung taken when its inputs exist (``rerank_enabled=False`` means no rerank)."""
     config = config or get_settings()
     backend = config.rerank_backend if config.rerank_enabled else "none"
     inner: Reranker
-    if backend == "maxsim" and maxsim_index is not None:
+    if backend == "cross_encoder" and cross_encoder is not None and documents is not None:
+        from .cross_encoder import CrossEncoderReranker
+
+        inner = CrossEncoderReranker(cross_encoder, documents, config)
+    elif backend == "maxsim" and maxsim_index is not None:
         from .maxsim_reranker import MaxSimReranker
 
         inner = MaxSimReranker(maxsim_index, config, calibration=maxsim_calibration)

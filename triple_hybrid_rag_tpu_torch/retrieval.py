@@ -14,7 +14,8 @@ default query path, in six steps with a host clock around each:
     2. three channels  (BM25, the exact dense scan, the k-hop graph walk)
     3. weighted RRF    (and conformal denoising when enabled)
     4. parent expand   (child rows -> parent rows)
-    5. rerank          (MaxSim / dot / none, or a host callable over them)
+    5. rerank          (MaxSim / the cross-encoder / dot / none, or a host callable
+                        over them)
     6. safety + denoise
 
 Every channel reads the placed state, the engine's own tensors: nothing is placed
@@ -51,6 +52,7 @@ from .index.graph_index import graph_search_plan
 from .index.ivf import dequant_f32
 from .index.maxsim_index import MaxSimIndex, build_maxsim_index
 from .index.state import IndexState
+from .models.cross_encoder import CrossEncoderReranker, DocumentStore, document_budget
 from .models.embedder import get_default_embedder
 from .models.planner import get_planner
 from .models.reranker import Reranker, get_reranker
@@ -223,7 +225,11 @@ class Retriever:
         rerank_llm_fn=None,
         maxsim_index: Optional[MaxSimIndex] = None,
         device=None,
+        cross_encoder=None,
     ) -> None:
+        """``cross_encoder`` (a :class:`~triple_hybrid_rag_tpu_torch.models.cross_encoder.CrossEncoder`
+        on ``device``) is the model of ``rerank_backend="cross_encoder"``: each parent's
+        text is then tokenized once into its document store."""
         self.device = resolve_device(device)
         cfg = self.config = config or get_settings()
         self.corpus = corpus
@@ -254,6 +260,14 @@ class Retriever:
                 self.maxsim_index = build_maxsim_index(
                     corpus.parent_texts(), self.embedder, cfg, device=self.device
                 )
+        self.xenc_model = self.xenc_docs = None
+        if (cfg.rerank_enabled and cfg.rerank_backend == "cross_encoder"
+                and cross_encoder is not None and corpus.n_parents > 0):
+            self.xenc_model = cross_encoder
+            self.xenc_docs = DocumentStore.from_texts(
+                corpus.parent_texts(), cross_encoder.cfg.vocab_size,
+                document_budget(cross_encoder.cfg), self.device,
+            )
         self.parent_emb = None
         if cfg.rerank_enabled and self.dense_index is not None and self.maxsim_index is None:
             self.parent_emb = self._build_parent_embeddings()
@@ -289,6 +303,7 @@ class Retriever:
         self.dense_index = dense_index
         self.graph_index = graph_index
         self.maxsim_index = maxsim_index
+        self.xenc_model = self.xenc_docs = None
         self.parent_of = (
             np.asarray(parent_of, np.int32) if parent_of is not None
             else _parent_of_table(corpus, config)
@@ -325,9 +340,10 @@ class Retriever:
         return self
 
     def _init_reranker(self, reranker: Optional[Reranker], rerank_llm_fn) -> None:
-        """The staged rerank over the placed state's MaxSim store or parent
-        embeddings (the reference's ``get_reranker`` ladder). ``self.maxsim_view``
-        is the store as placed, the one the engine reads."""
+        """The staged rerank over the placed state's MaxSim store, cross-encoder or
+        parent embeddings (the reference's ``get_reranker`` ladder, with the port's
+        cross-encoder rung). ``self.maxsim_view`` is the store as placed, the one the
+        engine reads; ``self.xenc`` the cross-encoder rung, when it was picked."""
         cfg, st = self.config, self.state
         self.maxsim_view = None
         if (
@@ -344,7 +360,11 @@ class Retriever:
             llm_fn=rerank_llm_fn,
             texts_of=self._parent_text_by_row if rerank_llm_fn is not None else None,
             maxsim_calibration=getattr(self.embedder, "maxsim_calibration", 1.0),
+            cross_encoder=st.xenc_model,
+            documents=st.xenc_docs,
         )
+        inner = getattr(self.reranker, "fallback", self.reranker)
+        self.xenc = inner if isinstance(inner, CrossEncoderReranker) else None
 
     def _parent_text_by_row(self, row: int) -> str:
         """Parent row -> text (the host lookup of a callable reranker)."""
@@ -389,6 +409,9 @@ class Retriever:
             arrays.update(maxsim_tokens=self.maxsim_index.tokens, maxsim_mask=self.maxsim_index.mask)
         if self.parent_emb is not None and cfg.rerank_backend in ("maxsim", "dot"):
             arrays["parent_emb"] = self.parent_emb
+        if self.xenc_docs is not None:
+            arrays.update(xenc_doc_ids=self.xenc_docs.ids, xenc_doc_len=self.xenc_docs.lengths,
+                          xenc_model=self.xenc_model)
         state = IndexState.from_numpy(arrays, host, cfg, self.device)
         if gx is not None:
             gx.placed = state  # its device lookups read the placed tables
@@ -409,7 +432,9 @@ class Retriever:
         each stage a range inside it: ``engine.staged.plan``, ``.channels``
         (holding ``.lexical``, ``.semantic`` with ``.embed``, ``.graph`` and
         ``.counts``), ``.fusion``, ``.expand``, ``.rerank`` (holding ``.tokens`` and
-        ``.maxsim``), ``.gate`` and ``.decode``."""
+        ``.maxsim``; under the cross-encoder ``engine.staged.rerank.pack``,
+        ``.attention``, ``.router``, ``.experts``, ``.shared`` and ``.head``),
+        ``.gate`` and ``.decode``."""
         with annotate("engine.staged.query"):
             return self._staged(query, top_k, collection)
 
@@ -473,8 +498,14 @@ class Retriever:
                         qctx["query_vec"] = query_vec
                     if self.maxsim_view is not None:
                         qctx.update(self._query_token_ctx(plan))
-                    with annotate("engine.staged.maxsim"):
+                    if self.xenc is not None:
+                        # the prompt's ids cross in this range, which so opens on the
+                        # device before the model's ranges
+                        qctx.update(self.xenc.prompt_ctx(query))
                         rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
+                    else:
+                        with annotate("engine.staged.maxsim"):
+                            rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
                 else:
                     rerank_scores = fused.rrf
                 # the ordering score may fold the fused evidence back in; the gate
