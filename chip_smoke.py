@@ -13,8 +13,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    bodies: B = 128 x K = 50 candidates over 200,704 parents at the smoke run's
    shape (32 doc tokens of width 64, 16 query tokens) and at the default
    RAGConfig's (64 x 128, 32); term-table BM25: a 1,000,448 x 128 table, 128
-   queries of 16 slots) and times kernel, plain version and, where one exists, the
-   library call, the bf16 bucket maxima also at B = 1; every kernel body is also
+   queries of 16 slots; the BowHash query encode, a batch of 128 traffic-like texts
+   at phase 3's widths and the default RAGConfig's, its draws bit for bit and its
+   f16 outputs within one step) and times kernel, plain version and, where one
+   exists, the library call, the bf16 bucket maxima also at B = 1; every kernel body is also
    held against its plain version over a list of small and ragged shapes (MaxSim
    up to 1,024 query tokens and D = 4,096, past the staged plan, each case's plan
    logged), the quantized bucket maxima bit for bit; MaxSim is also timed past its
@@ -23,7 +25,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 3. drives the port's main path: the batched three-channel query program over a
    synthetic 1M-chunk corpus built on the card (the construction of ``bench.py``),
    through ``Engine.search_arrays`` and ``Engine.retrieve_batch``; checks
-   self-retrieval, that both kernels were launched, the B=1 programs, and the
+   self-retrieval, that both kernels and the BowHash query encode were launched,
+   the B=1 programs, and the
    bucketed matmul path against the kernel path. Then, on the same corpus, the
    further configurations: float32 rows (the documents' rows unrounded; kernel
    path and unfused path must return equal ids up to near ties, and a dense
@@ -310,11 +313,16 @@ MAXSIM_EDGE_SHAPES = [(1, 1, 7, 1, 32, 1), (1, 50, 64, 33, 40, 32), (3, 1, 50, 1
 # edge cases whose every candidate is invalid: the first, and the last (the wgmma plan)
 MAXSIM_ALL_INVALID = (0, len(MAXSIM_EDGE_SHAPES) - 1)
 TERM_ATOL = 1e-5  # f32 sums of at most 16 weights below 1, in another slot order
+# BowHash query encode (csrc/bowhash.cu) at the main path's widths (dense DIM,
+# MaxSim QUERY_TOKENS x MAXSIM_DIM) and the default RAGConfig's (dense 2,048 cut to
+# 1,024, MaxSim 32 x 128): label -> (dense width, out width, query tokens, MaxSim width)
+BOWHASH_SHAPES = {"main": (DIM, DIM, QUERY_TOKENS, MAXSIM_DIM), "default": (2048, 1024, 32, 128)}
+F64_FLOPS = 34e12  # f64 outside the tensor cores, H100 SXM data sheet
 LEXICAL_ATOL = 1e-4  # BM25 sums of up to 16 weights of ~10, in another order
 TABLE_WIDTH, QUERY_TERMS = 128, 16  # doc_term_capacity, max_query_terms
 # substrings of the hand-written kernels' names, by the engine stage that launches them
 OWN_KERNELS = {"engine.dense": ("bucket_max",), "engine.lexical": ("termtable_kernel",),
-               "engine.tail": ("maxsim_kernel",)}
+               "engine.tail": ("maxsim_kernel",), "engine.encode.device": ("bowhash_",)}
 # the encoder's bf16 forward against its f32 forward: unit vectors, two bf16 ulps at
 # 1.0 (the tolerance tests/test_torch_encoder.py states, BF16_VS_F32_ATOL)
 ENCODER_ATOL = 2e-2
@@ -776,6 +784,84 @@ def check_termtable(dev, gen):
     }
 
 
+def bowhash_texts(rng, n: int):
+    """Query texts shaped as the benchmark's batch traffic: six terms of a
+    65,536-term vocabulary, a third of them a relation question over two entities."""
+    out = []
+    for _ in range(n):
+        terms = " ".join(f"t{int(t):06d}" for t in rng.integers(0, 65536, size=6))
+        if rng.random() < 1 / 3:
+            a, b = rng.integers(0, N_ENTITIES, size=2)
+            terms = f"How is entity{a:05d} related to entity{b:05d}? {terms}"
+        out.append(terms)
+    return out
+
+
+def f16_steps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two f16 tensors in steps of f16's grid."""
+    def line(x):
+        i = x.contiguous().view(torch.int16).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((line(a) - line(b)).abs().max()) if a.numel() else 0
+
+
+def check_bowhash(dev):
+    """The BowHash query encode against its plain version at BOWHASH_SHAPES, a batch
+    of BATCH traffic-like texts: the kernel's f32 draws bit for bit, the pooled
+    query vectors and MaxSim tokens within one f16 step; timed at the default
+    shape (the benchmark's). Returns its kernels-line entry."""
+    from triple_hybrid_rag_tpu_torch.config import RAGConfig
+    from triple_hybrid_rag_tpu_torch.models.embedder import BowHashEmbedder
+    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
+
+    rng = np.random.default_rng(2147483659)
+    entry = {"name": "bowhash_encode", "route": "cuda",
+             "source": "triple_hybrid_rag_tpu_torch/csrc/bowhash.cu",
+             "replaces": None, "library_ms": None, "max_abs_err": 0.0, "f16_steps": 0}
+    for label, (d_full, d_out, t_q, d_m) in BOWHASH_SHAPES.items():
+        emb = BowHashEmbedder(dim=d_full, config=RAGConfig())
+        seeds, n_tok, tok_idx, mtok_idx, _ = emb.query_streams(bowhash_texts(rng, BATCH), t_q, d_m)
+        cpu = (torch.from_numpy(seeds.view(np.int64)), n_tok, d_full, d_m,
+               torch.from_numpy(tok_idx), torch.from_numpy(mtok_idx), d_out)
+        card = tuple(x.to(dev) if isinstance(x, torch.Tensor) else x for x in cpu)
+        n_m = seeds.shape[0] - n_tok
+        draws = {where: (torch.empty((n_tok, d_full), dtype=torch.float32, device=where),
+                         torch.empty((n_m, d_m), dtype=torch.float32, device=where))
+                 for where in (dev, "cpu")}
+        got = bowhash_encode(*card, draws=draws[dev])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = bowhash_encode(*cpu, draws=draws["cpu"])
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(draws[dev], draws["cpu"]))
+        steps = max(f16_steps(g.cpu(), w) for g, w in zip(got, want))
+        err = max(max_err(g.cpu().float(), w.float()) for g, w in zip(got, want))
+        log(f"bowhash_encode {label} shape B={BATCH} (dense {d_full} cut to {d_out}, MaxSim "
+            f"{t_q} x {d_m}): {n_tok} dense and {n_m} MaxSim streams; draws bit-equal to the "
+            f"plain version {same}; pooled vectors and tokens within {steps} f16 steps "
+            f"(max |kernel - plain| {err:.3g})")
+        if not same or steps > 1:
+            fail(f"bowhash_encode ({label} shape) disagrees with its plain version: draws equal "
+                 f"{same}, {steps} f16 steps")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["f16_steps"] = max(entry["f16_steps"], steps)
+        if label != "default":
+            continue
+        ms = time_ms(lambda: bowhash_encode(*card))
+        n_draws = n_tok * d_full + n_m * d_m
+        # the draws written and read back in f32, the outputs in f16; one f64 multiply
+        # and one f64 multiply-add (the norm) a draw: a yardstick, since each stream's
+        # draws are a chain of dependent 128-bit LCG steps (PERF.md)
+        b_ms, b_by = bound(8 * n_draws + 2 * BATCH * (d_out + t_q * d_m) + 8 * seeds.shape[0],
+                           3.0 * n_draws, F64_FLOPS)
+        log(f"bowhash_encode default shape: kernel {ms:.4f} ms, plain (numpy, host) "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}), kernel / bound {ms / b_ms:.1f}")
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     streams=int(seeds.shape[0]))
+    return entry
+
+
 def maxsim_inputs(dev, gen, b, k, p_rows, td, d, tq):
     """Unit bf16 tokens with random mask holes, parents with no token, f16-wire
     queries with zero and fractional weights; candidate parents at random, with
@@ -1010,6 +1096,7 @@ def check_f32(data, dev, gen):
 def main_path(dev, card):
     from triple_hybrid_rag_tpu_torch.config import RAGConfig
     from triple_hybrid_rag_tpu_torch.engine import Engine
+    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
     from triple_hybrid_rag_tpu_torch.synthetic import build_synthetic, make_query_texts
 
@@ -1041,6 +1128,7 @@ def main_path(dev, card):
     # ---- the main path: counts set to 0 just before, read just after ----
     bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
     maxsim_counts_reset()
+    bowhash_encode.launches = 0
     hits = n_plain = n_graph = 0
     for lo in range(0, 2 * BATCH, BATCH):
         plans, out = eng.search_arrays(texts[lo:lo + BATCH])
@@ -1055,7 +1143,8 @@ def main_path(dev, card):
     res = eng.retrieve_batch(texts[2 * BATCH:3 * BATCH])
     torch.cuda.synchronize()
     launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
-                "maxsim_scores": maxsim_body_launches("bf16", "bf16 rows", st)}
+                "maxsim_scores": maxsim_body_launches("bf16", "bf16 rows", st),
+                "bowhash_encode": bowhash_encode.launches}
     frac = hits / max(n_plain, 1)
     log(f"self-retrieval: {hits}/{n_plain} plain queries have their row in the final "
         f"top-{cfg.final_top_k} ({frac:.4f}); {n_graph} of {2 * BATCH} queries used the graph")
@@ -1921,6 +2010,7 @@ def same_ingest(label: str, built) -> None:
 def staged_counts_reset() -> None:
     """Every kernel counter to 0 (the staged paths' windows)."""
     from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
     from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
 
@@ -1928,6 +2018,7 @@ def staged_counts_reset() -> None:
     dense_scores.launches_by_rows = dict.fromkeys(dense_scores.launches_by_rows, 0)
     score_termtable_batch.launches = 0
     bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
+    bowhash_encode.launches = 0
     maxsim_counts_reset()
 
 
@@ -1935,12 +2026,14 @@ def staged_counts() -> dict:
     """Kernel launches since :func:`staged_counts_reset`, by the kernels line's names,
     and those of the f32-row bodies apart (``*_f32``)."""
     from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
     from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
     by_rows = bucket_maxima.launches_by_rows
     return {
+        "bowhash_encode": bowhash_encode.launches,
         "dense_scores": dense_scores.launches,
         "termtable_scores": score_termtable_batch.launches,
         "maxsim_scores": maxsim_scores.launches_by_tokens["bf16"],
@@ -2385,10 +2478,12 @@ def serve_batched(loaded, queries, card: str, rounds: int = 2) -> dict:
                 fail(f"{label}: {len(bad)} requests failed, e.g. {bad[:2]}")
             if not 1 <= n_batches < n:
                 fail(f"{label}: {n_batches} engine batches for {n} requests: not coalesced")
+            searched = sum(v for k, v in launches.items() if k != "bowhash_encode")
             if launches["fused_bucket_maxima"] != n_batches or launches["maxsim_scores"] != n_batches \
-                    or sum(launches.values()) != 2 * n_batches:
-                fail(f"{label}: expected one bf16 bucket-maxima and one bf16 MaxSim launch per "
-                     f"engine batch, got {launches}")
+                    or searched != 2 * n_batches \
+                    or launches["bowhash_encode"] not in (0, n_batches):
+                fail(f"{label}: expected one bf16 bucket-maxima and one bf16 MaxSim launch (and "
+                     f"with BowHash one encode) per engine batch, got {launches}")
             same_ids(f"{label} against query_batch", want, http_pairs([b for _, _, b in out]), 1e-3)
             add_counts(total, launches)
     finally:
@@ -4078,12 +4173,13 @@ TRAIN_CHECK: dict = {}  # phase 11(a)'s batches, the card's losses and weights, 
 def sharded_counts() -> dict:
     """Launches since the last ``staged_counts_reset``, by kernel entry name."""
     from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
     from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
     by_rows, by_tokens = bucket_maxima.launches_by_rows, maxsim_scores.launches_by_tokens
-    return {"fused_bucket_maxima": by_rows["bf16"], "fused_bucket_maxima_int8": by_rows["int8"],
+    return {"bowhash_encode": bowhash_encode.launches, "fused_bucket_maxima": by_rows["bf16"], "fused_bucket_maxima_int8": by_rows["int8"],
             "fused_bucket_maxima_int4": by_rows["int4"], "fused_bucket_maxima_f32": by_rows["f32"],
             "maxsim_scores": by_tokens["bf16"], "maxsim_scores_int8": by_tokens["int8"],
             "termtable_scores": score_termtable_batch.launches, "dense_scores": dense_scores.launches}
@@ -4094,20 +4190,21 @@ def uncounted():
     """Launches inside the block (the 1-shard engines the sharded ones are held
     against) leave every counter as it was."""
     from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
+    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
     from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
     from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
     from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
 
     saved = (dict(bucket_maxima.launches_by_rows), dict(maxsim_scores.launches_by_tokens),
              score_termtable_batch.launches, dense_scores.launches,
-             dict(dense_scores.launches_by_rows), bucket_maxima.launches)
+             dict(dense_scores.launches_by_rows), bucket_maxima.launches, bowhash_encode.launches)
     try:
         yield
     finally:
         torch.cuda.synchronize()
         (bucket_maxima.launches_by_rows, maxsim_scores.launches_by_tokens,
          score_termtable_batch.launches, dense_scores.launches, dense_scores.launches_by_rows,
-         bucket_maxima.launches) = saved
+         bucket_maxima.launches, bowhash_encode.launches) = saved
 
 
 def mesh_engine(run, state, cfg, name: str):
@@ -4836,7 +4933,7 @@ def main() -> int:
     f32_bodies = check_f32(data, dev, gen)
     del data
     torch.cuda.empty_cache()
-    kernels += [*check_maxsim(dev, gen), check_termtable(dev, gen), dense]
+    kernels += [*check_maxsim(dev, gen), check_termtable(dev, gen), dense, check_bowhash(dev)]
     for k in kernels:
         k.update(f32_bodies.get(k["name"], {}))
     log(f"phase 2 wall time {time.time() - t_phase:.1f} s")

@@ -33,10 +33,13 @@ int4 rows), the term-table lexical backend through the term-table kernel
 With ``semantic_backend="ivf"`` the dense channel probes the blocked-IVF layout
 instead (``index/ivf.py``) and launches no bucket maxima.
 
-An embedder with ``encode_queries_device`` (the trained encoder) encodes a batch on
-the device, and its outputs feed the program without a copy to the host
-(``device_query_encode``, the reference's default); the hash embedders embed on
-the host.
+An embedder with ``encode_queries_device`` encodes a batch on the device, and its
+outputs feed the program without a copy to the host (``device_query_encode``, the
+reference's default): the trained encoder on any device, ``BowHashEmbedder`` on a
+CUDA device (its ``device_encode_types``; the draw kernel ``csrc/bowhash.cu``). The
+counters ``query_encode_device_batches_total`` and ``query_encode_host_batches_total``
+count the batches each way. ``HashEmbedder``, and BowHash on the CPU, embed on the
+host.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from .index.ivf import ivf_topk_local
 from .index.state import IndexState
 from .models.embedder import get_default_embedder
 from .models.planner import get_planner
+from .observability.metrics import rag_metrics
 from .observability.profiling import annotate
 from .ops.bm25 import (
     score_postings_topk_pre,
@@ -216,9 +220,11 @@ class Engine:
         While a profiler records, the prep is the range ``engine.prep``, holding
         ``engine.plan``, ``engine.terms``, ``engine.encode``, ``engine.seeds`` and
         ``engine.upload`` (the copies to the device). With ``device_query_encode``
-        and an embedder that has ``encode_queries_device``, the query vectors and
-        tokens are made on the device and stay there; a failure there surfaces in
-        :meth:`retrieve_batch`, which retries once through the host path."""
+        and an embedder that has ``encode_queries_device`` for this engine's device
+        type, the query vectors and tokens are made on the device and stay there
+        (the range ``engine.encode.device``); a failure of the trained encoder's
+        there surfaces in :meth:`retrieve_batch`, which retries once through the host
+        path (BowHash's kernel raises)."""
         with annotate("engine.prep"):
             return self._prepare(queries, collections)
 
@@ -319,13 +325,25 @@ class Engine:
         b = len(sem_texts)
         q_vec = q_tokens = q_tok_mask = None
         encode = getattr(self.embedder, "encode_queries_device", None)
+        # an embedder may encode on some device types only (BowHash: a CUDA kernel),
+        # and is then told this engine's device
+        types = getattr(self.embedder, "device_encode_types", None)
+        kw = {}
+        if types is not None:
+            encode = encode if self.device.type in types else None
+            kw["device"] = self.device
         if self.device_query_encode and st.has_dense and encode is not None:
-            t_q = cfg.maxsim_query_tokens if st.maxsim_tokens is not None else 1
-            q_vec, tok, occupied = encode(
-                sem_texts, out_dim=cfg.embedding_dim, max_tokens=t_q, token_dim=cfg.maxsim_dim
-            )
-            if st.maxsim_tokens is not None:
-                q_tokens, q_tok_mask = tok, self._token_weights(occupied, sem_texts)
+            with annotate("engine.encode.device"):
+                t_q = cfg.maxsim_query_tokens if st.maxsim_tokens is not None else 1
+                q_vec, tok, occupied = encode(
+                    sem_texts, out_dim=cfg.embedding_dim, max_tokens=t_q,
+                    token_dim=cfg.maxsim_dim, **kw,
+                )
+                if st.maxsim_tokens is not None:
+                    q_tokens, q_tok_mask = tok, self._token_weights(occupied, sem_texts)
+            rag_metrics.counter("query_encode_device_batches_total").inc()
+        else:
+            rag_metrics.counter("query_encode_host_batches_total").inc()
         if q_vec is None:
             with annotate("engine.encode.vectors"):
                 q_vec_f32 = np.zeros((b, st.dim), np.float32)
@@ -672,10 +690,12 @@ class Engine:
         try:
             plans, out = self._search_host(padded, colls)
         except RuntimeError:
-            # a failure of the device encode can surface only at the copy back to the
-            # host (kernels run asynchronously): retry once through the host path,
-            # then restore the fast path
-            if not self.device_query_encode:
+            # a failure of the trained encoder's device encode can surface only at
+            # the copy back to the host (kernels run asynchronously): retry once
+            # through the host path, then restore the fast path. A kernel of this
+            # package (an embedder with device_encode_types) that fails to build or
+            # launch raises instead
+            if not self.device_query_encode or hasattr(self.embedder, "device_encode_types"):
                 raise
             self.device_query_encode = False
             try:

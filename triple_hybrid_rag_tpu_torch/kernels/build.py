@@ -50,6 +50,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "dense_scores_bf16": [_P, _P, _P, _I, _I, _I, _P],
         "dense_scores_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "bowhash": {
+        "bowhash_encode": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 # query-tile widths of the f32-row bodies (csrc/simt_f32.cuh, template kQ)

@@ -321,6 +321,62 @@ class BowHashEmbedder(_ImageHashMixin):
                 out[i, j] = self.mtok_vec(tok, d)
         return out
 
+    # the device types whose engines take encode_queries_device: elsewhere the
+    # host draws (embed_texts, token_embeddings) stay the query path
+    device_encode_types = ("cuda",)
+
+    def query_streams(self, texts: Sequence[str], max_tokens: int, token_dim: int):
+        """The draws a query batch needs, each distinct token once a kind:
+        ``(seeds u64[S], n_dense, tok_idx i32[B, L], mtok_idx i32[B, max_tokens],
+        lengths i64[B])``. Seeds ``[0, n_dense)`` are the dense directions' (``tok``
+        keys, ``self.dim`` wide), the rest the MaxSim directions' (``mtok``,
+        ``token_dim`` wide); ``tok_idx`` lists each text's dense streams in token
+        order and ``mtok_idx`` its first ``max_tokens`` tokens' MaxSim streams, -1
+        after them."""
+        toks = [self._tok(t) for t in texts]
+        dense: dict = {}  # token -> its stream, in order of first use
+        maxsim: dict = {}
+        tok_idx = np.full((len(toks), max([len(t) for t in toks] + [1])), -1, np.int32)
+        mtok_idx = np.full((len(toks), max_tokens), -1, np.int32)
+        for i, ts in enumerate(toks):
+            tok_idx[i, :len(ts)] = [dense.setdefault(t, len(dense)) for t in ts]
+            head = ts[:max_tokens]
+            mtok_idx[i, :len(head)] = [maxsim.setdefault(t, len(maxsim)) for t in head]
+        seeds = np.array([_seed_from("tok\x00" + t) for t in dense]
+                         + [_seed_from(f"mtok{token_dim}\x00" + t) for t in maxsim], np.uint64)
+        return seeds, len(dense), tok_idx, mtok_idx, np.array([len(t) for t in toks], np.int64)
+
+    def encode_queries_device(
+        self, texts: Sequence[str], *, out_dim: int, max_tokens: int, token_dim: int, device
+    ):
+        """Encode a query batch for the engine on ``device``: each distinct token's
+        directions drawn once there, by the kernel ``csrc/bowhash.cu``
+        (``ops/bowhash.py``; its plain version on the CPU).
+
+        Returns ``(pooled f16[B, out_dim], tok f16[B, T, token_dim], mask bool[B, T])``
+        with ``T = max_tokens``: the two tensors stay on the device; ``mask`` is the
+        host's token occupancy (``j < len(tokens)``). The same values, up to f16
+        rounding, as ``embed_texts`` + ``truncate_matryoshka`` and
+        ``token_embeddings`` give (the norms are summed in another order)."""
+        import torch
+
+        from ..observability.metrics import rag_metrics
+        from ..ops.bowhash import bowhash_encode
+
+        device = torch.device(device)
+        seeds, n_dense, tok_idx, mtok_idx, lengths = self.query_streams(texts, max_tokens, token_dim)
+        # one copy to the device: the seeds' bits, then both index tables
+        n_s, n_t = 2 * seeds.shape[0], tok_idx.size
+        buf = torch.from_numpy(np.concatenate([seeds.view(np.int32), tok_idx.ravel(),
+                                               mtok_idx.ravel()])).to(device, non_blocking=True)
+        pooled, tok = bowhash_encode(
+            buf[:n_s].view(torch.int64), n_dense, self.dim, token_dim,
+            buf[n_s:n_s + n_t].view(tok_idx.shape), buf[n_s + n_t:].view(mtok_idx.shape), out_dim,
+        )
+        if device.type == "cuda":
+            rag_metrics.counter("bowhash_device_streams_total").inc(seeds.shape[0])
+        return pooled, tok, np.arange(max_tokens)[None, :] < lengths[:, None]
+
 
 def get_default_embedder(config: Optional[RAGConfig] = None, device=None):
     """Resolve ``config.embedder_backend`` to an embedder.
