@@ -331,7 +331,67 @@ T_START = time.time()
 # MaxSim launches by body and plan over every counted window that checks a body
 # (the windows maxsim_body_launches reads)
 MAXSIM_PLAN_LAUNCHES = {"bf16": {}, "int8": {}}
+# the kernels' launch tallies, each reset on its own: name -> its entry points' prefix
+# in the registry's kernel_launches_total (kernels/build.launch_counts)
+TALLIES = {"bucket_maxima": "fused_bucket_maxima_", "dense_scores": "dense_scores_",
+           "maxsim": "maxsim_scores_", "termtable": "termtable_scores_", "bowhash": "bowhash_encode"}
+_MARKS: dict = {}  # tally -> the launch counts (by kernel, by plan) at its last reset
 STAGE_MS: dict = {}  # engine stage -> device ms per batch of the last stage_profile
+
+
+def launch_snapshot() -> tuple:
+    """The registry's launch counts so far: (by kernel entry point, MaxSim's by plan)."""
+    from triple_hybrid_rag_tpu_torch.kernels.build import launch_counts
+
+    return launch_counts(), launch_counts(by="plan")
+
+
+def tally_reset(*names: str) -> None:
+    """Set the named tallies to 0."""
+    now = launch_snapshot()
+    for name in names:
+        _MARKS[name] = now
+
+
+def tally(name: str) -> dict:
+    """The tally's launches since its reset, by entry point."""
+    mark = _MARKS.get(name, ({}, {}))[0]
+    return {k: n - mark.get(k, 0) for k, n in launch_snapshot()[0].items()
+            if k.startswith(TALLIES[name])}
+
+
+def bucket_rows() -> dict:
+    """Bucket-maxima launches since the tally's reset, by row type."""
+    got = tally("bucket_maxima")
+    return {k: got.get(f"fused_bucket_maxima_{k}", 0) for k in ("bf16", "f32", "int8", "int4")}
+
+
+def dense_rows() -> dict:
+    """Dense-scores launches since the tally's reset, by row type."""
+    got = tally("dense_scores")
+    return {k: got.get(f"dense_scores_{k}", 0) for k in ("bf16", "f32")}
+
+
+def maxsim_tokens() -> dict:
+    """MaxSim launches since the tally's reset, by token store."""
+    got = tally("maxsim")
+    return {k: got.get(f"maxsim_scores_{k}", 0) for k in ("bf16", "int8")}
+
+
+def maxsim_plans() -> dict:
+    """MaxSim launches since the tally's reset, by plan."""
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import PLANS
+
+    mark, now = _MARKS.get("maxsim", ({}, {}))[1], launch_snapshot()[1]
+    return {k: now.get(k, 0) - mark.get(k, 0) for k in PLANS}
+
+
+def termtable_launches() -> int:
+    return sum(tally("termtable").values())
+
+
+def bowhash_launches() -> int:
+    return tally("bowhash").get("bowhash_encode", 0)
 
 
 def log(msg: str) -> None:
@@ -1096,8 +1156,6 @@ def check_f32(data, dev, gen):
 def main_path(dev, card):
     from triple_hybrid_rag_tpu_torch.config import RAGConfig
     from triple_hybrid_rag_tpu_torch.engine import Engine
-    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
     from triple_hybrid_rag_tpu_torch.synthetic import build_synthetic, make_query_texts
 
     cfg = RAGConfig(
@@ -1126,9 +1184,9 @@ def main_path(dev, card):
     torch.cuda.synchronize()
 
     # ---- the main path: counts set to 0 just before, read just after ----
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_counts_reset()
-    bowhash_encode.launches = 0
+    tally_reset("bucket_maxima")
+    tally_reset("maxsim")
+    tally_reset("bowhash")
     hits = n_plain = n_graph = 0
     for lo in range(0, 2 * BATCH, BATCH):
         plans, out = eng.search_arrays(texts[lo:lo + BATCH])
@@ -1142,9 +1200,9 @@ def main_path(dev, card):
                 hits += int(rows[lo + i] in ids[i].tolist())
     res = eng.retrieve_batch(texts[2 * BATCH:3 * BATCH])
     torch.cuda.synchronize()
-    launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
+    launches = {"fused_bucket_maxima": bucket_rows()["bf16"],
                 "maxsim_scores": maxsim_body_launches("bf16", "bf16 rows", st),
-                "bowhash_encode": bowhash_encode.launches}
+                "bowhash_encode": bowhash_launches()}
     frac = hits / max(n_plain, 1)
     log(f"self-retrieval: {hits}/{n_plain} plain queries have their row in the final "
         f"top-{cfg.final_top_k} ({frac:.4f}); {n_graph} of {2 * BATCH} queries used the graph")
@@ -1293,12 +1351,12 @@ def dense_kernel_path(run, eng) -> int:
 
     st = eng.state
     args = eng.prepare_queries(run.texts[:BATCH])[1]
-    dense_scores.launches = 0
+    tally_reset("dense_scores")
     scores = dense_scores(st.embeddings, args.q_vec.float())
     ids, _ = bucketed_masked_top_k_batch(scores, eng.config.semantic_top_k, valid=st.valid[None, :],
                                          invalid_score_floor=-2.0)
     torch.cuda.synchronize()
-    launches = dense_scores.launches
+    launches = sum(dense_rows().values())
     ids_e, vals_e = eng._dense(args)
     n_diff = near_ties_only(ids, ids_e, vals_e, FUSED_ATOL)
     if n_diff < 0:
@@ -1321,7 +1379,6 @@ def f32_path(run, cfg):
     them), served by the f32 bucket maxima (use_fused_topk=None) and by the f32
     matmul and bucketed top-k (False); then a dense channel through the f32
     dense-scores body. Returns the launches of both f32 bodies on this path."""
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
     from triple_hybrid_rag_tpu_torch.synthetic import document_rows
 
     st = run.syn.state
@@ -1339,17 +1396,17 @@ def f32_path(run, cfg):
         f"{round(st_f.nbytes()['embeddings'] / 1e9, 3)}")
     if not eng.use_fused() or eng_x.use_fused():
         fail("use_fused_topk=None must resolve to the kernel on CUDA, False to the unfused path")
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_counts_reset()
+    tally_reset("bucket_maxima")
+    tally_reset("maxsim")
     out_k = run.self_retrieval(eng, "f32 rows, kernel path")
     torch.cuda.synchronize()
-    by_rows = dict(bucket_maxima.launches_by_rows)
+    by_rows = bucket_rows()
     maxsim_body_launches("bf16", "f32 rows, kernel path", st_f)
     log(f"f32 rows: kernel launches by row type {by_rows}")
     if by_rows["f32"] < 1 or sum(by_rows.values()) != by_rows["f32"]:
         fail(f"the f32 kernel was not the one launched: {by_rows}")
     out_x = run.self_retrieval(eng_x, "f32 rows, use_fused_topk=False")
-    if bucket_maxima.launches_by_rows != by_rows:
+    if bucket_rows() != by_rows:
         fail("the use_fused_topk=False path launched the fused kernel")
     # f32 sums in two orders: the ids may differ only where scores nearly tie
     n_diff = near_ties_only(out_k[0], out_x[0], out_x[1], F32_ATOL)
@@ -1366,7 +1423,6 @@ def f32_path(run, cfg):
 
 
 def termtable_path(run, eng_sorted, cfg) -> int:
-    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
     from triple_hybrid_rag_tpu_torch.synthetic import build_term_table, term_str
 
     syn, st, dev = run.syn, run.syn.state, run.dev
@@ -1381,11 +1437,11 @@ def termtable_path(run, eng_sorted, cfg) -> int:
     eng = run.engine(st_t, cfg_t)
     log(f"term table {tuple(table_ids.shape)} built on the card in {time.time() - t0:.1f} s; "
         f"device GB {round(st_t.nbytes()['term_table'] / 1e9, 3)}")
-    score_termtable_batch.launches = 0
-    maxsim_counts_reset()
+    tally_reset("termtable")
+    tally_reset("maxsim")
     run.self_retrieval(eng, "termtable lexical backend")
     torch.cuda.synchronize()
-    launches = score_termtable_batch.launches
+    launches = termtable_launches()
     maxsim_body_launches("bf16", "termtable lexical backend", st_t)
     log(f"termtable lexical backend: kernel launches {launches}")
     if launches < 1:
@@ -1417,7 +1473,6 @@ def quantized_path(run, cfg, kind: str):
     stores it under both dtypes. Returns the launches of the bucket-maxima body and
     of the int8 MaxSim body over this path."""
     from triple_hybrid_rag_tpu_torch.index import dense_index as di
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
     from triple_hybrid_rag_tpu_torch.ops.maxsim import quantize_tokens
 
     st = run.syn.state
@@ -1434,19 +1489,19 @@ def quantized_path(run, cfg, kind: str):
         f"device GB {round(st_q.nbytes()['embeddings'] / 1e9, 3)}")
     if not eng.use_fused() or eng_x.use_fused():
         fail("use_fused_topk=None must resolve to the kernel on CUDA, False to the unfused path")
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_counts_reset()
+    tally_reset("bucket_maxima")
+    tally_reset("maxsim")
     out_k = run.self_retrieval(eng, f"{kind} rows, kernel path")
     torch.cuda.synchronize()
-    by_rows = dict(bucket_maxima.launches_by_rows)
+    by_rows = bucket_rows()
     n_int8 = maxsim_body_launches("int8", f"{kind} rows, kernel path", st_q)
     log(f"{kind} rows: kernel launches by row type {by_rows}")
     if by_rows[kind] < 1 or sum(by_rows.values()) != by_rows[kind]:
         fail(f"the {kind} kernel was not the one launched: {by_rows}")
-    maxsim_counts_reset()
+    tally_reset("maxsim")
     out_x = run.self_retrieval(eng_x, f"{kind} rows, use_fused_topk=False")
     n_int8 += maxsim_body_launches("int8", f"{kind} rows, use_fused_topk=False", st_q)
-    if bucket_maxima.launches_by_rows != by_rows:
+    if bucket_rows() != by_rows:
         fail("the use_fused_topk=False path launched the fused kernel")
     # both dense paths give the same bits, so the whole program's ids must be equal
     if not torch.equal(out_k[0], out_x[0]):
@@ -1505,8 +1560,6 @@ def encoder_path(run, card_name):
     from triple_hybrid_rag_tpu_torch.config import RAGConfig
     from triple_hybrid_rag_tpu_torch.engine import Engine
     from triple_hybrid_rag_tpu_torch.models.encoder import EncoderEmbedder
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
     from triple_hybrid_rag_tpu_torch.retrieval import build_parent_embeddings
     from triple_hybrid_rag_tpu_torch.synthetic import CHILDREN_PER_PARENT, encode_rows, maxsim_store
 
@@ -1561,8 +1614,8 @@ def encoder_path(run, card_name):
     ones = [i for i in range(len(texts)) if not is_graph[i]][:6] + \
            [i for i in range(len(texts)) if is_graph[i]][:2]
     outs = {}
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_counts_reset()
+    tally_reset("bucket_maxima")
+    tally_reset("maxsim")
     for device_encode in (True, False):
         eng.device_query_encode = device_encode
         before = dict(calls)
@@ -1591,11 +1644,11 @@ def encoder_path(run, card_name):
             fail(f"{label}: self-retrieval {frac} at B={BATCH}, {one_hits}/6 at B=1")
         outs[device_encode] = out0
     torch.cuda.synchronize()
-    launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
+    launches = {"fused_bucket_maxima": bucket_rows()["bf16"],
                 "maxsim_scores": maxsim_body_launches("bf16", "default config", st)}
     log(f"default config: kernel launches {launches} (bucket maxima by row type "
-        f"{bucket_maxima.launches_by_rows})")
-    if min(launches.values()) < 1 or sum(bucket_maxima.launches_by_rows.values()) != launches[
+        f"{bucket_rows()})")
+    if min(launches.values()) < 1 or sum(bucket_rows().values()) != launches[
             "fused_bucket_maxima"]:
         fail(f"default config: the bf16 bucket maxima and MaxSim bodies were not the ones launched")
     # f16 wires of vectors equal within the forward's rounding: ids may differ at near ties
@@ -1618,17 +1671,17 @@ def encoder_path(run, card_name):
                                  maxsim_mask=None, parent_emb=parent_emb)
     del tokens, tok_mask
     eng_dot = Engine(st_dot, device=dev)
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_counts_reset()
+    tally_reset("bucket_maxima")
+    tally_reset("maxsim")
     _, out = eng_dot.search_arrays(texts[:BATCH])
     ids = out[0].cpu().numpy()
     plain1 = [i for i in range(BATCH) if not is_graph[i]]
     frac = sum(int(rows[i] in ids[i].tolist()) for i in plain1) / len(plain1)
-    n_maxsim = sum(maxsim_scores.launches_by_tokens.values())
+    n_maxsim = sum(maxsim_tokens().values())
     log(f"dot rerank: parent_emb {tuple(parent_emb.shape)} built in {time.time() - t0:.1f} s, "
         f"device GB {st_dot.nbytes()['parent_emb'] / 1e9:.4f}; self-retrieval {frac:.4f} of "
         f"{len(plain1)} plain queries at B={BATCH}; refused {int(out[2].sum())}; bucket maxima "
-        f"launches {bucket_maxima.launches_by_rows['bf16']}, MaxSim launches {n_maxsim}")
+        f"launches {bucket_rows()['bf16']}, MaxSim launches {n_maxsim}")
     if frac < 0.95 or n_maxsim != 0 or not bool(torch.isfinite(out[1]).all()):
         fail(f"dot rerank: self-retrieval {frac}, MaxSim launches {n_maxsim}")
     del eng_dot, st_dot, parent_emb, st, eng
@@ -1731,8 +1784,7 @@ def ivf_path(run, eng_exact, cfg, card):
     from triple_hybrid_rag_tpu_torch.index import dense_index as di
     from triple_hybrid_rag_tpu_torch.index.ivf import dequant_f32, ivf_build_local, ivf_topk_local
     from triple_hybrid_rag_tpu_torch.index.state import ivf_layout
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores, quantize_tokens
+    from triple_hybrid_rag_tpu_torch.ops.maxsim import quantize_tokens
     from triple_hybrid_rag_tpu_torch.ops.topk import sort_topk_desc
 
     from triple_hybrid_rag_tpu_torch.config import RAGConfig
@@ -1776,12 +1828,12 @@ def ivf_path(run, eng_exact, cfg, card):
             f"build {build_peak:.3f} GB above the {held / 1e9:.2f} GB held; IVF arrays "
             f"(reordered rows and scales, perm, centroids) {ivf_gb:.3f} GB; card {card}")
         eng = run.engine(st_i, cfg_k)
-        bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-        maxsim_counts_reset()
+        tally_reset("bucket_maxima")
+        tally_reset("maxsim")
         run.self_retrieval(eng, label)
         torch.cuda.synchronize()
-        if sum(bucket_maxima.launches_by_rows.values()):
-            fail(f"{label}: bucket maxima launched under IVF: {bucket_maxima.launches_by_rows}")
+        if sum(bucket_rows().values()):
+            fail(f"{label}: bucket maxima launched under IVF: {bucket_rows()}")
         launches[kind] = maxsim_body_launches(kind, label, st_i)
         # the semantic channel against the exact scan of the same rows
         eng_x = run.engine(base, cfg_k.replace(semantic_backend="exact"))
@@ -1882,7 +1934,6 @@ def ingest_path(dev, card):
     maxima and the bf16 MaxSim body over the queries."""
     from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
     from triple_hybrid_rag_tpu_torch.models.encoder import EncoderEmbedder
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
 
     t0 = time.time()
     mods, defs = stdlib_docstrings()
@@ -1923,21 +1974,21 @@ def ingest_path(dev, card):
     queries, hits = chunk_queries(rag, BATCH)
     rag.query_batch(queries[:8])  # warm-up
     torch.cuda.synchronize()
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_counts_reset()
+    tally_reset("bucket_maxima")
+    tally_reset("maxsim")
     res = rag.query_batch(queries)
     ones = [rag.query_batch([queries[i]])[0] for i in range(8)]
     torch.cuda.synchronize()
-    launches = {"fused_bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
+    launches = {"fused_bucket_maxima": bucket_rows()["bf16"],
                 "maxsim_scores": maxsim_body_launches("bf16", "stdlib queries", st)}
     frac = hits(res, range(BATCH)) / BATCH
     one_frac = hits(ones, range(8)) / 8
     log(f"stdlib queries: self-retrieval {frac:.4f} of {BATCH} at B={BATCH} (refused "
         f"{sum(r.refused for r in res)}), {one_frac:.4f} of 8 at B=1; kernel launches {launches} "
-        f"(bucket maxima by row type {bucket_maxima.launches_by_rows})")
+        f"(bucket maxima by row type {bucket_rows()})")
     if frac < 0.95 or one_frac < 0.75:
         fail(f"stdlib queries: self-retrieval {frac} at B={BATCH}, {one_frac} at B=1")
-    if min(launches.values()) < 1 or sum(bucket_maxima.launches_by_rows.values()) != launches[
+    if min(launches.values()) < 1 or sum(bucket_rows().values()) != launches[
             "fused_bucket_maxima"]:
         fail("stdlib queries: the bf16 bucket maxima and MaxSim bodies were not the ones launched")
     eng = rag._engine
@@ -2008,40 +2059,24 @@ def same_ingest(label: str, built) -> None:
 
 
 def staged_counts_reset() -> None:
-    """Every kernel counter to 0 (the staged paths' windows)."""
-    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
-    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
-    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-
-    dense_scores.launches = 0
-    dense_scores.launches_by_rows = dict.fromkeys(dense_scores.launches_by_rows, 0)
-    score_termtable_batch.launches = 0
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    bowhash_encode.launches = 0
-    maxsim_counts_reset()
+    """Every kernel tally to 0 (the staged paths' windows)."""
+    tally_reset(*TALLIES)
 
 
 def staged_counts() -> dict:
     """Kernel launches since :func:`staged_counts_reset`, by the kernels line's names,
     and those of the f32-row bodies apart (``*_f32``)."""
-    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
-    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
-    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
-
-    by_rows = bucket_maxima.launches_by_rows
+    by_rows, dense, tokens = bucket_rows(), dense_rows(), maxsim_tokens()
     return {
-        "bowhash_encode": bowhash_encode.launches,
-        "dense_scores": dense_scores.launches,
-        "termtable_scores": score_termtable_batch.launches,
-        "maxsim_scores": maxsim_scores.launches_by_tokens["bf16"],
-        "maxsim_scores_int8": maxsim_scores.launches_by_tokens["int8"],
+        "bowhash_encode": bowhash_launches(),
+        "dense_scores": sum(dense.values()),
+        "termtable_scores": termtable_launches(),
+        "maxsim_scores": tokens["bf16"],
+        "maxsim_scores_int8": tokens["int8"],
         "fused_bucket_maxima": by_rows["bf16"] + by_rows["f32"],
         "fused_bucket_maxima_int8": by_rows["int8"],
         "fused_bucket_maxima_int4": by_rows["int4"],
-        "dense_scores_f32": dense_scores.launches_by_rows["f32"],
+        "dense_scores_f32": dense["f32"],
         "fused_bucket_maxima_f32": by_rows["f32"],
     }
 
@@ -4172,39 +4207,28 @@ TRAIN_CHECK: dict = {}  # phase 11(a)'s batches, the card's losses and weights, 
 
 def sharded_counts() -> dict:
     """Launches since the last ``staged_counts_reset``, by kernel entry name."""
-    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
-    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
-    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
-
-    by_rows, by_tokens = bucket_maxima.launches_by_rows, maxsim_scores.launches_by_tokens
-    return {"bowhash_encode": bowhash_encode.launches, "fused_bucket_maxima": by_rows["bf16"], "fused_bucket_maxima_int8": by_rows["int8"],
+    by_rows, tokens = bucket_rows(), maxsim_tokens()
+    return {"bowhash_encode": bowhash_launches(), "fused_bucket_maxima": by_rows["bf16"], "fused_bucket_maxima_int8": by_rows["int8"],
             "fused_bucket_maxima_int4": by_rows["int4"], "fused_bucket_maxima_f32": by_rows["f32"],
-            "maxsim_scores": by_tokens["bf16"], "maxsim_scores_int8": by_tokens["int8"],
-            "termtable_scores": score_termtable_batch.launches, "dense_scores": dense_scores.launches}
+            "maxsim_scores": tokens["bf16"], "maxsim_scores_int8": tokens["int8"],
+            "termtable_scores": termtable_launches(), "dense_scores": sum(dense_rows().values())}
 
 
 @contextlib.contextmanager
 def uncounted():
     """Launches inside the block (the 1-shard engines the sharded ones are held
-    against) leave every counter as it was."""
-    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_termtable_batch
-    from triple_hybrid_rag_tpu_torch.ops.bowhash import bowhash_encode
-    from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
-    from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
-
-    saved = (dict(bucket_maxima.launches_by_rows), dict(maxsim_scores.launches_by_tokens),
-             score_termtable_batch.launches, dense_scores.launches,
-             dict(dense_scores.launches_by_rows), bucket_maxima.launches, bowhash_encode.launches)
+    against) leave every tally by entry point as it was (MaxSim's by plan count
+    them)."""
+    before = launch_snapshot()[0]
     try:
         yield
     finally:
         torch.cuda.synchronize()
-        (bucket_maxima.launches_by_rows, maxsim_scores.launches_by_tokens,
-         score_termtable_batch.launches, dense_scores.launches, dense_scores.launches_by_rows,
-         bucket_maxima.launches, bowhash_encode.launches) = saved
+        after = launch_snapshot()[0]
+        for name in TALLIES:  # each tally's mark moves past the block's launches
+            kernels, plans = _MARKS.get(name, ({}, {}))
+            _MARKS[name] = ({k: kernels.get(k, 0) + n - before.get(k, 0) for k, n in after.items()},
+                            plans)
 
 
 def mesh_engine(run, state, cfg, name: str):
@@ -4537,9 +4561,9 @@ def repaired_maxsim_path(dev, card) -> dict:
         f"{tuple(st.maxsim_tokens.shape)}, queries of {cfg.maxsim_query_tokens} tokens")
     t1 = time.time()
     batched, batch_launches = counted(lambda: rag.query_batch(queries))
-    batch_plans = maxsim_plan_counts()
+    batch_plans = maxsim_plans()
     staged, staged_launches = counted(lambda: [rag.query(x) for x in staged_q])
-    staged_plans = maxsim_plan_counts()
+    staged_plans = maxsim_plans()
     log(f"phase 13: {BATCH} queries through query_batch and {len(staged_q)} through RAG.query on "
         f"the card in {time.time() - t1:.2f} s; self-retrieval {hits(batched, range(BATCH)) / BATCH:.4f}"
         f" batched, {hits(staged, range(len(staged_q))) / len(staged_q):.4f} staged; launches "
@@ -4673,10 +4697,10 @@ def maxsim_batch_check(dev, gen, card) -> dict:
             dmask = store_mask[parent]
             args = (docs, dmask, q, q_mask, valid)
             torch.cuda.synchronize()
-            maxsim_counts_reset()
+            tally_reset("maxsim")
             got = mx.maxsim_scores_batch(*args)
             torch.cuda.synchronize()
-            launched, plans = dict(mx.maxsim_scores.launches_by_tokens), maxsim_plan_counts()
+            launched, plans = maxsim_tokens(), maxsim_plans()
             if launched[body] != 1 or plans[plan] != 1:
                 fail(f"phase 14(b): maxsim_scores_batch ({body}, {label}) launches {launched}, "
                      f"plans {plans}: one launch on the {plan} plan expected")
@@ -4805,27 +4829,11 @@ def public_surface_path(dev, card, lexical, graph_tables):
     return launches, batch
 
 
-def maxsim_plan_counts() -> dict:
-    """The MaxSim launches by plan since the last reset."""
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
-
-    return dict(maxsim_scores.launches_by_plan)
-
-
-def maxsim_counts_reset() -> None:
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
-
-    maxsim_scores.launches_by_tokens = dict.fromkeys(maxsim_scores.launches_by_tokens, 0)
-    maxsim_scores.launches_by_plan = dict.fromkeys(maxsim_scores.launches_by_plan, 0)
-
-
 def maxsim_body_launches(body: str, label: str, state) -> int:
     """The MaxSim launches by token dtype since the last reset: the configuration's
     body must have run, and no other. Prints the token store's device GB."""
-    from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
-
-    by_tokens = dict(maxsim_scores.launches_by_tokens)
-    plans = maxsim_plan_counts()
+    by_tokens = maxsim_tokens()
+    plans = maxsim_plans()
     log(f"{label}: MaxSim launches by token store {by_tokens}, by plan {plans}; store "
         f"{state.maxsim_tokens.dtype} {tuple(state.maxsim_tokens.shape)}, device GB "
         f"{state.nbytes()['maxsim'] / 1e9:.4f} with the mask")

@@ -17,8 +17,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
-from triple_hybrid_rag_tpu_torch.ops.dense_kernel import dense_scores
-from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+from triple_hybrid_rag_tpu_torch.kernels.build import launch_counts
 
 
 def main(device=None) -> None:
@@ -50,8 +49,7 @@ def main(device=None) -> None:
     print("corpus:", rag.stats())
 
     # --- query: plan -> 3 channels -> RRF -> expand -> rerank -> safety ------
-    dense_scores.launches = 0
-    maxsim_scores.launches_by_tokens = dict.fromkeys(maxsim_scores.launches_by_tokens, 0)
+    before = launch_counts()
     for query in (
         "How long do we have to pay an invoice?",
         "Who works for Acme Corp?",          # lights up the graph channel
@@ -66,8 +64,10 @@ def main(device=None) -> None:
         for r in result.results:
             print(f"  [{r.final_score:.3f}] {'+'.join(r.source_channels)}: {r.text[:70]!r}")
         print(f"  ({result.timings['total_ms']:.1f} ms)")
-    launches = {"dense_scores": dense_scores.launches,
-                "maxsim": sum(maxsim_scores.launches_by_tokens.values())}
+    after = launch_counts()
+    grew = {k: v - before.get(k, 0) for k, v in after.items()}
+    launches = {"dense_scores": grew.get("dense_scores_bf16", 0) + grew.get("dense_scores_f32", 0),
+                "maxsim": grew.get("maxsim_scores_bf16", 0) + grew.get("maxsim_scores_int8", 0)}
 
     # --- graph API ------------------------------------------------------------
     gx = rag.retriever.graph_index

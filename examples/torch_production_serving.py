@@ -21,8 +21,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from triple_hybrid_rag_tpu_torch import RAG, RAGConfig
-from triple_hybrid_rag_tpu_torch.ops.fused_topk import bucket_maxima
-from triple_hybrid_rag_tpu_torch.ops.maxsim import maxsim_scores
+from triple_hybrid_rag_tpu_torch.kernels.build import launch_counts
 
 
 def main(device=None) -> None:
@@ -44,15 +43,15 @@ def main(device=None) -> None:
     # --- batched serving through the engine -----------------------------------
     # One batched program answers the whole batch: every query's lexical, dense
     # and graph channels, fusion, expansion, rerank and safety gate.
-    bucket_maxima.launches_by_rows = dict.fromkeys(bucket_maxima.launches_by_rows, 0)
-    maxsim_scores.launches_by_tokens = dict.fromkeys(maxsim_scores.launches_by_tokens, 0)
+    before = launch_counts()
     results = rag.query_batch(
         ["invoice settlement penalty", "customs delivery window"],
         collections=["tenant_a", "tenant_b"],
         top_k=2,
     )
-    launches = {"bucket_maxima": bucket_maxima.launches_by_rows["bf16"],
-                "maxsim": sum(maxsim_scores.launches_by_tokens.values())}
+    grew = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
+    launches = {"bucket_maxima": grew.get("fused_bucket_maxima_bf16", 0),
+                "maxsim": grew.get("maxsim_scores_bf16", 0) + grew.get("maxsim_scores_int8", 0)}
     for q, r in zip(["invoice...", "customs..."], results):
         top = r.results[0].text.splitlines()[0] if r.results else "(refused)"
         print(f"batched [{q}] -> {top}")

@@ -8,7 +8,7 @@ runs the df-tiered BM25 top-k of each batch two ways: ``score_postings_topk_tier
 (each slot's valid postings gathered exactly into one flat array) and the windowed
 formulation it replaced (``gather_windows`` of ``l_small`` / ``l_max`` per slot, then
 ``sparse_topk_from_windows``). Ids must be equal and scores equal bit for bit. It
-prints, per batch, the flat entries (``score_postings_topk_tiered.entries``), the
+prints, per batch, the flat entries (``rag_metrics``' ``bm25_tiered_entries_total``), the
 windowed op's entries, and each op's device milliseconds (CUDA events), then the
 medians. Exits 1 on any difference. It needs a CUDA card.
 """
@@ -66,8 +66,10 @@ def main(argv=None) -> int:
     from perfbench.lib.cell import load_benchmark, resolve
     from perfbench.lib.generator import build_corpus, make_texts
     from perfbench.lib.system import build_system
+    from triple_hybrid_rag_tpu_torch.observability import rag_metrics
     from triple_hybrid_rag_tpu_torch.ops.bm25 import score_postings_topk_tiered
 
+    entries_total = rag_metrics.counter("bm25_tiered_entries_total")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -84,12 +86,12 @@ def main(argv=None) -> int:
     bad, rows = 0, []
     for i in range(args.batches + 1):  # batch 0 warms both up and is not counted
         _, a = eng.prepare_queries(texts[i * width:(i + 1) * width])
-        before = score_postings_topk_tiered.entries
+        before = entries_total.value()
         (ids, vals), flat_ms = timed(lambda: score_postings_topk_tiered(
             st.lex_offsets, st.lex_lengths, st.lex_pd, st.lex_pt,
             a.qs_terms, a.qs_slots, a.ql_terms, a.ql_slots, None,
             l_small=l_small, l_max=st.lex_l_max, n_pad=st.n_pad, top_k=cfg.lexical_top_k))
-        entries = score_postings_topk_tiered.entries - before
+        entries = int(entries_total.value() - before)
         (w_ids, w_vals), win_ms = timed(lambda: windowed(st, a, l_small, cfg.lexical_top_k))
         torch.cuda.empty_cache()
         same = bool(torch.equal(ids, w_ids)) and bool(torch.equal(

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from triple_hybrid_rag_tpu.ops import bm25 as ref
+from triple_hybrid_rag_tpu_torch.observability import rag_metrics
 from triple_hybrid_rag_tpu_torch.ops import bm25 as port
 
 
@@ -175,7 +176,8 @@ def test_tiered_bit_equal(rng, case, scoped):
                 *map(jnp.asarray, csr), a, c, d, e, m, **shape),
             in_axes=(0, 0, 0, 0, 0 if scoped else None),
         )(*map(jnp.asarray, tiers), jnp.asarray(masks) if scoped else None)
-    before = port.score_postings_topk_tiered.entries
+    entries = rag_metrics.counter("bm25_tiered_entries_total")
+    before = entries.value()
     got = port.score_postings_topk_tiered(
         *map(_t, csr), *map(_t, tiers), _t(masks) if scoped else None, **shape)
     _bit_equal(want, got)
@@ -184,7 +186,7 @@ def test_tiered_bit_equal(rng, case, scoped):
     read = sum(min(int(df[t]), w) for terms, w in ((tiers[0], min(l_small, l_max)),
                                                     (tiers[2], l_max))
                for t in np.ravel(terms) if t >= 0)
-    assert port.score_postings_topk_tiered.entries - before == read
+    assert entries.value() - before == read
     if case == "empty_batch":
         assert read == 0 and (got[0] == -1).all()
 

@@ -20,6 +20,7 @@ import torch
 
 from triple_hybrid_rag_tpu_torch.config import RAGConfig
 from triple_hybrid_rag_tpu_torch.engine import Engine
+from triple_hybrid_rag_tpu_torch.kernels.build import launch_counts
 from triple_hybrid_rag_tpu_torch.models.embedder import BowHashEmbedder
 from triple_hybrid_rag_tpu_torch.observability.metrics import rag_metrics
 from triple_hybrid_rag_tpu_torch.ops.bowhash import MAX_POOL_DIM, bowhash_encode
@@ -83,12 +84,16 @@ def test_widest_pool_launches(card):
     midx = torch.tensor([[0, -1], [-1, -1]], dtype=torch.int32)  # MaxSim streams count from 0
     s = torch.from_numpy(np.array(seeds, np.uint64).view(np.int64))
     args = (3, MAX_POOL_DIM, 128)
-    launches = bowhash_encode.launches
+    launches = encode_launches()
     got = bowhash_encode(s.to(card), *args, idx.to(card), midx.to(card), 1024)
-    assert bowhash_encode.launches == launches + 1
+    assert encode_launches() == launches + 1
     want = bowhash_encode(s, *args, idx, midx, 1024)
     for g, w in zip(got, want):
         assert f16_steps(g.cpu().numpy(), w.numpy()) <= 1
+
+
+def encode_launches() -> int:
+    return launch_counts().get("bowhash_encode", 0)
 
 
 def traffic_texts(n: int, seed: int = 0):
@@ -109,11 +114,11 @@ def test_encode_matches_the_host_path(card):
     eng = Engine(syn.state, config=cfg,
                  embedder=BowHashEmbedder(dim=cfg.embedding_dim_full, config=cfg), device=card)
     texts = traffic_texts(128)
-    launches = bowhash_encode.launches
+    launches = encode_launches()
     streams = rag_metrics.counter("bowhash_device_streams_total").value()
     _, dev = eng.prepare_queries(texts)
     torch.cuda.synchronize()
-    assert bowhash_encode.launches == launches + 1
+    assert encode_launches() == launches + 1
     assert rag_metrics.counter("bowhash_device_streams_total").value() > streams
     eng.device_query_encode = False
     _, host = eng.prepare_queries(texts)
@@ -137,9 +142,9 @@ def test_retrieve_batch_same_ids(card):
     eng = Engine(syn.state, config=cfg, embedder=emb, device=card)
     device_batches = rag_metrics.counter("query_encode_device_batches_total")
     host_batches = rag_metrics.counter("query_encode_host_batches_total")
-    before = (device_batches.value(), host_batches.value(), bowhash_encode.launches)
+    before = (device_batches.value(), host_batches.value(), encode_launches())
     on = eng.retrieve_batch(texts)
-    assert (device_batches.value(), host_batches.value(), bowhash_encode.launches) == (
+    assert (device_batches.value(), host_batches.value(), encode_launches()) == (
         before[0] + 1, before[1], before[2] + 1)
     eng.device_query_encode = False
     off = eng.retrieve_batch(texts)

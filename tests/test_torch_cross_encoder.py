@@ -21,8 +21,10 @@ batched ``Engine`` refuses the backend.
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,6 +41,16 @@ TINY = dict(plain.PUBLISHED, hidden_size=64, intermediate_size=128, moe_intermed
             qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8, num_experts_per_tok=2,
             n_shared_experts=1, vocab_size=512)
 CFG = X.CrossEncoderConfig.from_hf(TINY)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module's small tensors, so the suite's parallel
+    workers do not oversubscribe the cores; restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +146,7 @@ def test_reranker_scores_counters_and_store(prompts):
     texts = ["alpha beta gamma", "delta", "epsilon zeta eta theta"]
     store = X.DocumentStore.from_texts(texts, CFG.vocab_size, 64, "cpu")
     assert store.ids.shape == (3, 4) and store.lengths_host.tolist() == [3, 1, 4]
-    rr = X.CrossEncoderReranker(m, store, RAGConfig(rerank_max_candidates=3))
+    rr = X.CrossEncoderReranker(m, store.ids, store.lengths, RAGConfig(rerank_max_candidates=3))
     before = {k: rag_metrics.counter(k).value() for k in (
         "rerank_xenc_prompts_total", "rerank_xenc_tokens_total",
         "rerank_xenc_padded_tokens_total", "rerank_xenc_attention_pairs_total")}
@@ -164,9 +176,10 @@ def placed():
     cell = resolve(load_benchmark(), "rag1m-moonlight.staged-xenc")
     config = json.loads(json.dumps(cell.config))
     config.update({k: TINY[k] for k in TINY})
-    config["documents"] = {"doc_tokens_min": 330, "doc_tokens_max": 360}
-    config["corpus"].update(n_chunks=5000, n_entities=500, vocab=2048, embedding_dim=64,
-                            embedding_dim_full=128, maxsim_dim=16, maxsim_doc_tokens=16)
+    config["documents"] = {"doc_tokens_min": 48, "doc_tokens_max": 64}
+    config["corpus"].update(n_chunks=2000, n_entities=200, terms_per_doc=8, vocab=2048,
+                            embedding_dim=64, embedding_dim_full=128, maxsim_dim=16,
+                            maxsim_doc_tokens=16)
     # the tiny random model's yes-probabilities sit near 0.5, under the 0.6 gate: a gate
     # at 0.3 keeps answers to compare
     config["rag_config"].update(embedding_dim=64, embedding_dim_full=128, maxsim_dim=16,
@@ -185,7 +198,7 @@ def test_retriever_from_state_returns_the_reference_pipelines_answers(placed, mo
 
     cell, config, corpus, texts, system, seed = placed
     ret = system.retriever()
-    assert isinstance(ret.xenc, X.CrossEncoderReranker)
+    assert isinstance(ret.reranker, X.CrossEncoderReranker)
     got = [judge.served(ret.retrieve(t)) for t in texts]
     ref_model = cell.models["reranker"].reference
     monkeypatch.setattr(ref_model, "PUBLISHED", TINY)
@@ -199,6 +212,31 @@ def test_retriever_from_state_returns_the_reference_pipelines_answers(placed, mo
         numbers = judge.compare(g, a)
         assert numbers["channel_gap"] <= 1e-5 and numbers["score_gap"] <= 1e-5, numbers
     assert any(g.rows for g in got)
+
+
+def test_prompt_ids_cross_before_the_score(placed):
+    """The prompt ids are made, and copied to the device, in the retriever's rerank
+    range before the score is called: a caller that wraps the score in a range of its
+    own (as the benchmark's ``bench.staged.rerank`` span does) still sees that copy
+    open ``engine.staged.rerank`` on the device, ahead of the model's ranges."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    texts, system = placed[3], placed[4]
+    ret = system.retriever()
+    score = ret.reranker.score
+
+    def wrapped(*a, **k):
+        with record_function("bench.staged.rerank"):
+            return score(*a, **k)
+
+    ret.reranker.score = wrapped
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ret.retrieve(texts[0])
+    spans = sorted((e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                   if e.is_user_annotation())
+    rerank, pack, wrap = (next(x for x in spans if x[2] == name) for name in (
+        "engine.staged.rerank", "engine.staged.rerank.pack", "bench.staged.rerank"))
+    assert rerank[0] <= pack[0] and pack[1] <= wrap[0] <= wrap[1] <= rerank[1]
 
 
 def _f32_weights(init):
@@ -219,19 +257,48 @@ def test_ingested_corpus_builds_the_store_and_batched_engine_refuses():
     rag.ingest_text("# Pumps\n\nThe centrifugal pump moves water through the cooling loop.\n\n"
                     "# Valves\n\nA gate valve isolates the pump for maintenance.", name="plant.md")
     ret = rag.retriever
-    docs = ret.state.xenc_docs
+    ids, lengths = ret.state.xenc_doc_ids, ret.state.xenc_doc_len
     n = ret.corpus.n_parents
-    assert ret.xenc is not None and docs.ids.shape[0] == n
+    assert isinstance(ret.reranker, X.CrossEncoderReranker) and ids.shape[0] == n
     for row in range(n):
         want = X.token_ids(ret.corpus.parent_by_row(row).text, CFG.vocab_size)
-        assert docs.ids[row, : docs.lengths_host[row]].tolist() == want
+        assert ids[row, : lengths[row]].tolist() == want
     res = rag.query("which valve isolates the pump")
     assert all(0.0 <= r.rerank_score <= 1.0 for r in res.results)
-    assert ret.state.nbytes()["cross_encoder"] == docs.nbytes() + model.nbytes()
+    assert ret.state.nbytes()["cross_encoder"] == 4 * (ids.numel() + lengths.numel()) + model.nbytes()
     with pytest.raises(NotImplementedError, match="staged path"):
         Engine(ret.state, config=cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         rag.query_batch(["pump"])
+
+
+PORT = Path(X.__file__).resolve().parents[1]
+RERANKERS = {f"triple_hybrid_rag_tpu_torch.models.{m}"
+             for m in ("cross_encoder", "reranker", "maxsim_reranker")}
+
+
+def _imported(path: Path):
+    """Every module a source imports, at any depth of its code, by absolute name (a
+    ``from package import name`` also names ``package.name``)."""
+    package = ".".join(("triple_hybrid_rag_tpu_torch",) + path.relative_to(PORT).parent.parts)
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parent = package.rsplit(".", node.level - 1)[0] if node.level > 1 else package
+                base = f"{parent}.{base}" if base else parent
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("module", sorted(
+    str(p.relative_to(PORT)) for sub in ("index", "ops") for p in (PORT / sub).glob("*.py")))
+def test_index_and_ops_import_no_reranker(module):
+    """The placed state and the kernels' wrappers know no reranker: a rung's module
+    reads what the state holds, never the other way round."""
+    assert RERANKERS.isdisjoint(_imported(PORT / module)), module
 
 
 def test_checkpoint_records_the_weight_type_only_away_from_its_default(tmp_path):

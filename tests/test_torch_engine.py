@@ -254,7 +254,7 @@ def test_tiered_lexical_entries_count(cfg):
     the slots ``encode_query_tiered`` keeps: the small tier's window is
     ``bm25_small_window``, the large tier's ``l_max``, and terms past
     ``bm25_large_slots`` read nothing."""
-    from triple_hybrid_rag_tpu_torch.ops.bm25 import score_postings_topk_tiered
+    from triple_hybrid_rag_tpu_torch.observability import rag_metrics
 
     c = cfg.replace(bm25_small_window=3, bm25_large_slots=1)
     st = state_from_retriever(_retriever(c, False))
@@ -270,6 +270,7 @@ def test_tiered_lexical_entries_count(cfg):
         dropped += int((st.encode_query(kws) >= 0).sum() - (small >= 0).sum()
                        - (large >= 0).sum())
     assert small_read and large_read and dropped  # both tiers read, a large term left out
-    before = score_postings_topk_tiered.entries
+    entries = rag_metrics.counter("bm25_tiered_entries_total")
+    before = entries.value()
     eng.retrieve_batch(QUERIES)
-    assert score_postings_topk_tiered.entries - before == small_read + large_read
+    assert entries.value() - before == small_read + large_read

@@ -12,7 +12,7 @@ from triple_hybrid_rag_tpu.ops.maxsim import calibrate_maxsim as ref_cal
 from triple_hybrid_rag_tpu.ops.maxsim import dequantize_tokens as ref_deq
 from triple_hybrid_rag_tpu.ops.maxsim import maxsim_scores as ref_maxsim
 from triple_hybrid_rag_tpu.ops.pallas import maxsim_scores_pallas
-from triple_hybrid_rag_tpu_torch.kernels.build import CSRC, SIGNATURES
+from triple_hybrid_rag_tpu_torch.kernels.build import CSRC, SIGNATURES, launch_counts
 from triple_hybrid_rag_tpu_torch.ops import maxsim as port
 
 
@@ -238,13 +238,12 @@ def test_kernel_exports_match_their_ctypes_signatures(lib, fn):
 
 def test_maxsim_plan_names_and_counters(rng):
     """The plan names are the launcher's PlanKind order; a CPU store takes the plain
-    version and counts no launch."""
+    version and counts no launch, by kernel or by plan."""
     assert port.PLANS == ("staged", "wgmma", "general")
-    assert set(port.maxsim_scores.launches_by_plan) == set(port.PLANS)
     tokens, mask, parent, q, w = (torch.from_numpy(x) for x in _data(rng, tq=200, d=64))
-    before = dict(port.maxsim_scores.launches_by_plan)
+    before = launch_counts(), launch_counts(by="plan")
     assert port.maxsim_plan(tokens.to(torch.bfloat16), parent, q) == "plain"
     port.maxsim_scores(tokens.to(torch.bfloat16), mask, parent, q, w)
-    assert port.maxsim_scores.launches_by_plan == before
+    assert (launch_counts(), launch_counts(by="plan")) == before
     text = (CSRC / "maxsim.cu").read_text()
     assert "enum PlanKind { kPlanStaged = 0, kPlanWgmma = 1, kPlanGeneral = 2 };" in text

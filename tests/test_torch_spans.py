@@ -12,6 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from triple_hybrid_rag_tpu_torch.config import RAGConfig
 from triple_hybrid_rag_tpu_torch.engine import Engine
+from triple_hybrid_rag_tpu_torch.models.maxsim_reranker import MaxSimReranker
 from triple_hybrid_rag_tpu_torch.observability import profiling
 from triple_hybrid_rag_tpu_torch.retrieval import Retriever
 from triple_hybrid_rag_tpu_torch.synthetic import build_synthetic, make_query_texts
@@ -93,7 +94,7 @@ def _check_tree(spans, tree, root):
 def test_staged_query_opens_every_range(corpus):
     syn, texts = corpus
     ret = Retriever.from_state(syn.state, embedder=syn.embedder)
-    assert ret.maxsim_view is not None
+    assert isinstance(ret.reranker, MaxSimReranker)
     spans, res = _ranges(lambda: [ret.retrieve(t) for t in texts])
     _check_tree(spans, STAGED, "engine.staged.query")
     assert sum(n == "engine.staged.query" for n, _, _ in spans) == len(texts)

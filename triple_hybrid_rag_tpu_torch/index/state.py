@@ -26,7 +26,6 @@ import torch
 
 from ..analyzer import Vocabulary
 from ..config import RAGConfig
-from ..models.cross_encoder import DocumentStore
 from ..models.entity_extractor import EntityStore
 from ..ops.bm25 import DOC_PAD
 from ..types import Entity
@@ -204,8 +203,10 @@ class IndexState:
     ivf_perm: Optional[torch.Tensor] = None
     ivf_centroids: Optional[torch.Tensor] = None
     # the cross-encoder rerank (rerank_backend="cross_encoder"): each parent's
-    # document as token ids (models/cross_encoder.DocumentStore) and the model
-    xenc_docs: Any = None
+    # document as token ids, i32[P, W] (0 past its end) and i32[P], and the model,
+    # which only the reranker reads (models/cross_encoder.document_arrays)
+    xenc_doc_ids: Optional[torch.Tensor] = None
+    xenc_doc_len: Optional[torch.Tensor] = None
     xenc_model: Any = None
 
     @property
@@ -423,10 +424,8 @@ class IndexState:
             maxsim_tokens=tokens, maxsim_mask=mask,
             corpus=host.get("corpus"),
             parent_emb=tt["parent_emb"].float().contiguous() if "parent_emb" in tt else None,
-            xenc_docs=(
-                DocumentStore(tt["xenc_doc_ids"], tt["xenc_doc_len"])
-                if "xenc_doc_ids" in tt else None
-            ),
+            xenc_doc_ids=tt["xenc_doc_ids"].int().contiguous() if "xenc_doc_ids" in tt else None,
+            xenc_doc_len=tt["xenc_doc_len"].int() if "xenc_doc_ids" in tt else None,
             xenc_model=xenc_model,
         )
         return ivf_layout(state, cfg) if ivf else state
@@ -463,13 +462,14 @@ class IndexState:
             "tables": [self.parent_of, self.collection_of],
             "parent_emb": [self.parent_emb],
             "ivf": [self.ivf_perm, self.ivf_centroids],
+            "cross_encoder": [self.xenc_doc_ids, self.xenc_doc_len],
         }
         out = {
             k: sum(t.numel() * t.element_size() for t in v if t is not None)
             for k, v in parts.items()
         }
-        out["cross_encoder"] = (self.xenc_docs.nbytes() if self.xenc_docs is not None else 0) + (
-            self.xenc_model.nbytes() if self.xenc_model is not None else 0)
+        if self.xenc_model is not None:
+            out["cross_encoder"] += self.xenc_model.nbytes()
         return out
 
 

@@ -6,6 +6,9 @@ with ``ctypes``. The library's file name carries a hash of its source and of the
 shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale build
 is never loaded. A failed build raises with
 the compiler's output. Nothing here runs at import time.
+
+:func:`launch` makes every call into the libraries and counts each launch in
+``rag_metrics``; :func:`launch_counts` reads the counts, and a reader diffs two.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+from ..observability import rag_metrics
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -152,3 +157,33 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+LAUNCHES = "kernel_launches_total"
+
+
+def launch(lib: str, fn: str, device, *args, stream: bool = True, **labels: str) -> None:
+    """Call the C entry point ``fn`` of ``csrc/<lib>.cu`` with ``device`` current (the
+    launch code keeps its state per device), raising on a returned CUDA error. A
+    launch gets the current stream last and counts one in ``kernel_launches_total``
+    (labels ``kernel=fn`` and ``labels``); ``stream=False`` (a query) counts none."""
+    import torch
+
+    with torch.cuda.device(device):
+        if stream:
+            args += (torch.cuda.current_stream(device).cuda_stream,)
+        err = getattr(load(lib), fn)(*args)
+    check(err, fn)
+    if stream:
+        rag_metrics.counter(LAUNCHES).inc(labels={"kernel": fn, **labels})
+
+
+def launch_counts(by: str = "kernel") -> Dict[str, int]:
+    """The launches counted so far, by the label ``by`` ("kernel" or MaxSim's "plan");
+    launches without that label are left out."""
+    out: Dict[str, int] = {}
+    for labels, n in rag_metrics.counter(LAUNCHES).series().items():
+        key = dict(labels).get(by)
+        if key is not None:
+            out[key] = out.get(key, 0) + int(n)
+    return out

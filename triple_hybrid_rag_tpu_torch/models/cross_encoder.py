@@ -58,7 +58,7 @@ every other token is ``3 + blake2s(token) mod (vocab_size - 3)``.
 
 While a profiler records, a score opens, inside the caller's
 ``engine.staged.rerank``: ``engine.staged.rerank.pack`` (the prompts on the host
-and their copy to the device), and per layer ``.attention``, ``.router``,
+and their layout on the device), and per layer ``.attention``, ``.router``,
 ``.experts`` (permute, routed grouped GEMMs, combine) and ``.shared`` (the shared
 experts, and layer 0's dense MLP), then ``.head``. Counters (host values only):
 ``rerank_xenc_prompts_total``, ``rerank_xenc_tokens_total``,
@@ -540,9 +540,6 @@ class DocumentStore:
         dev = torch.device(device)
         return cls(torch.from_numpy(ids).to(dev), torch.from_numpy(lengths))
 
-    def nbytes(self) -> int:
-        return self.ids.numel() * 4 + self.lengths.numel() * 4
-
     def prompts(self, head: torch.Tensor, n_head: int, tail: torch.Tensor,
                 parents: np.ndarray) -> Tuple[Packed, np.ndarray]:
         """The packed prompts ``head + document + tail`` of ``parents`` (host rows),
@@ -563,21 +560,30 @@ class DocumentStore:
         return Packed(grid.view(-1)[pad_index], pos, pad_index, source, last, b, width), lengths
 
 
+def document_arrays(model: CrossEncoder, texts: Sequence[str], device) -> Dict[str, object]:
+    """What ``rerank_backend="cross_encoder"`` places for a corpus, under the keys of
+    :meth:`IndexState.from_numpy <triple_hybrid_rag_tpu_torch.index.state.IndexState.from_numpy>`:
+    each parent text tokenized once (``xenc_doc_ids``, ``xenc_doc_len``; at most the
+    model's document budget) and the model (``xenc_model``)."""
+    store = DocumentStore.from_texts(texts, model.cfg.vocab_size, document_budget(model.cfg), device)
+    return {"xenc_doc_ids": store.ids, "xenc_doc_len": store.lengths, "xenc_model": model}
+
+
 class CrossEncoderReranker:
     """The ``Reranker`` protocol over the cross-encoder: the valid candidates in fused
     order, at most ``rerank_max_candidates``, each distinct parent judged once; f32[K]
     yes-probabilities, invalid and capped-off slots 0. The query context may hold
     ``xenc_head`` / ``xenc_tail`` (the prompt's ids around the document, on the
-    device, as the staged retriever makes them); else they are made here from
-    ``query_text``."""
+    device, as :meth:`query_context` makes them); else they are made here from
+    ``query_text``. ``doc_ids``, ``doc_len``: the placed :func:`document_arrays`."""
 
-    def __init__(self, model: CrossEncoder, store: DocumentStore,
+    def __init__(self, model: CrossEncoder, doc_ids: torch.Tensor, doc_len: torch.Tensor,
                  config: Optional[RAGConfig] = None) -> None:
         self.model = model
-        self.store = store
+        self.store = DocumentStore(doc_ids, doc_len)
         self.config = config or get_settings()
 
-    def prompt_ctx(self, query: str) -> Dict[str, torch.Tensor]:
+    def query_context(self, query: str) -> Dict[str, torch.Tensor]:
         """The query's prompt ids around the document, made on the host (in the range
         ``engine.staged.rerank.pack``) and copied to the model's device (in the
         caller's range)."""
@@ -595,7 +601,7 @@ class CrossEncoderReranker:
             return out
         with annotate("engine.staged.rerank.pack"):
             parents, inverse = np.unique(ids_np[valid], return_inverse=True)
-            ctx = query_ctx if "xenc_head" in query_ctx else self.prompt_ctx(
+            ctx = query_ctx if "xenc_head" in query_ctx else self.query_context(
                 str(query_ctx.get("query_text", "")))
             head, tail = ctx["xenc_head"], ctx["xenc_tail"]
             batch, lengths = self.store.prompts(head, head.shape[0], tail, parents)

@@ -6,7 +6,8 @@ candidate parents with :meth:`MaxSimIndex.score_candidates
 MaxSim kernel on a CUDA store, whatever the reference's ``use_pallas`` says) and
 rescales the scores by the embedder's calibration. It expects ``q_tokens`` f32[Tq, D]
 and ``q_mask`` f32[Tq] (the query-token weights) in the query context, made by the
-retriever's query stage with the embedder that built the store.
+retriever's query stage with the embedder that built the store. While a profiler
+records, a score is the range ``engine.staged.maxsim``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..config import RAGConfig, get_settings
 from ..index.maxsim_index import MaxSimIndex
+from ..observability.profiling import annotate
 from ..ops.fusion import minmax_normalize
 from ..ops.maxsim import calibrate_maxsim
 
@@ -35,11 +37,12 @@ class MaxSimReranker:
         self.calibration = calibration
 
     def score(self, query_ctx: dict, ids: torch.Tensor, fused_scores: torch.Tensor) -> torch.Tensor:
-        q_tokens = query_ctx.get("q_tokens")
-        q_mask = query_ctx.get("q_mask")
-        if q_tokens is None or q_mask is None:
-            # no token-level query context: the normalised fused order
-            return minmax_normalize(ids, fused_scores)
-        return calibrate_maxsim(
-            self.index.score_candidates(ids, q_tokens, q_mask), self.calibration
-        )
+        with annotate("engine.staged.maxsim"):
+            q_tokens = query_ctx.get("q_tokens")
+            q_mask = query_ctx.get("q_mask")
+            if q_tokens is None or q_mask is None:
+                # no token-level query context: the normalised fused order
+                return minmax_normalize(ids, fused_scores)
+            return calibrate_maxsim(
+                self.index.score_candidates(ids, q_tokens, q_mask), self.calibration
+            )

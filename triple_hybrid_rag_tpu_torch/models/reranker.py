@@ -11,14 +11,16 @@ The port of the JAX package's ``models/reranker.py``. Every reranker has
 - :class:`NoopReranker`: the fused scores min-max normalised to [0, 1], order kept
   (the "rerank unavailable" rung, which keeps the 0.6 safety gate meaningful);
 - :class:`~triple_hybrid_rag_tpu_torch.models.cross_encoder.CrossEncoderReranker`:
-  an LLM cross-encoder on the device (``rerank_backend`` "cross_encoder"), over a
-  placed document-token store and model;
+  an LLM cross-encoder on the device (``rerank_backend`` "cross_encoder"), over the
+  document tokens and the model an index state holds;
 - :class:`CallableReranker`: a host callable ``fn(query, texts) -> [0, 1] scores``
   (an LLM cross-encoder, say) over at most ``rerank_max_candidates`` candidates,
   falling back to its inner reranker on any failure.
 
 :func:`get_reranker` is the reference's ladder: the callable over MaxSim, else the
-dot rerank, else no rerank, by what is available.
+dot rerank, else no rerank, by what is available; over a placed index state it is
+the one place that maps ``rerank_backend`` and what the state holds to a rung.
+:func:`query_context` is what a rung needs from a query before it scores.
 """
 
 from __future__ import annotations
@@ -102,6 +104,14 @@ class CallableReranker:
             return self.fallback.score(query_ctx, ids, fused_scores)
 
 
+def query_context(reranker: Reranker, query: str) -> dict:
+    """What the rung (a callable's through its fallback) needs from a query, made in
+    the caller's range before any call to ``score``, which a caller may wrap in a
+    range of its own: the rung's ``query_context(query)`` where it has one, else {}."""
+    make = getattr(getattr(reranker, "fallback", reranker), "query_context", None)
+    return make(query) if make is not None else {}
+
+
 def get_reranker(
     config: Optional[RAGConfig] = None,
     parent_embeddings: Optional[torch.Tensor] = None,
@@ -109,18 +119,31 @@ def get_reranker(
     llm_fn=None,
     texts_of=None,
     maxsim_calibration: float = 1.0,
-    cross_encoder=None,
-    documents=None,
+    state=None,
 ) -> Reranker:
     """The fallback ladder: llm -> maxsim (or the cross-encoder) -> dot -> noop, each
-    rung taken when its inputs exist (``rerank_enabled=False`` means no rerank)."""
+    rung taken when its inputs exist (``rerank_enabled=False`` means no rerank).
+    ``state`` (a placed :class:`~triple_hybrid_rag_tpu_torch.index.state.IndexState`)
+    gives the inputs not passed: its MaxSim store, its parent embeddings, and the
+    cross-encoder's document tokens and model."""
     config = config or get_settings()
     backend = config.rerank_backend if config.rerank_enabled else "none"
+    if state is not None:
+        if parent_embeddings is None:
+            parent_embeddings = state.parent_emb
+        if maxsim_index is None and backend == "maxsim" and state.maxsim_tokens is not None:
+            from ..index.maxsim_index import MaxSimIndex
+
+            maxsim_index = MaxSimIndex(
+                tokens=state.maxsim_tokens, mask=state.maxsim_mask, config=config,
+                n_parents=getattr(state.corpus, "n_parents", state.maxsim_tokens.shape[0]),
+            )
     inner: Reranker
-    if backend == "cross_encoder" and cross_encoder is not None and documents is not None:
+    if (backend == "cross_encoder" and state is not None and state.xenc_model is not None
+            and state.xenc_doc_ids is not None):
         from .cross_encoder import CrossEncoderReranker
 
-        inner = CrossEncoderReranker(cross_encoder, documents, config)
+        inner = CrossEncoderReranker(state.xenc_model, state.xenc_doc_ids, state.xenc_doc_len, config)
     elif backend == "maxsim" and maxsim_index is not None:
         from .maxsim_reranker import MaxSimReranker
 

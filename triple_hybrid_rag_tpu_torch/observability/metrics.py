@@ -50,6 +50,11 @@ class Counter:
     def value(self, labels: Optional[Dict[str, str]] = None) -> float:
         return self._values.get(_labels_kv(labels), 0.0)
 
+    def series(self) -> Dict[LabelKV, float]:
+        """A snapshot of every series: its sorted labels -> its value."""
+        with self._lock:
+            return dict(self._values)
+
     def expose(self) -> List[str]:
         lines = [f"# TYPE {self.name} counter"]
         with self._lock:  # scrapes race concurrent first-seen label inserts

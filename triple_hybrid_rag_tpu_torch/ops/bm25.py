@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..observability import rag_metrics
 from .topk import NEG_INF, _float_order_key, lax_top_k
 
 __all__ = ["score_postings", "score_termtable", "QUERY_PAD", "DOC_PAD"]
@@ -85,7 +86,7 @@ def score_termtable_batch_plain(
 
 
 def _launch_termtable(term_ids, term_weights, query_terms):
-    from ..kernels.build import check, load
+    from ..kernels.build import launch
 
     n, width = term_ids.shape
     b, q = query_terms.shape
@@ -108,13 +109,8 @@ def _launch_termtable(term_ids, term_weights, query_terms):
     if b * n * q == 0:
         return out.zero_()
     fn = "termtable_scores_bf16" if w.dtype == torch.bfloat16 else "termtable_scores_f32"
-    with torch.cuda.device(dev):  # the launch code's state is the current device's
-        err = getattr(load("termtable"), fn)(
-            ids.data_ptr(), w.data_ptr(), qt.data_ptr(), out.data_ptr(), n, width, b, q,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(err, fn)
-    score_termtable_batch.launches += 1
+    launch("termtable", fn, dev, ids.data_ptr(), w.data_ptr(), qt.data_ptr(), out.data_ptr(),
+           n, width, b, q)
     return out
 
 
@@ -131,9 +127,6 @@ def score_termtable_batch(
     if term_ids.device.type == "cuda":
         return _launch_termtable(term_ids, term_weights, query_terms_batch)
     return score_termtable_batch_plain(term_ids, term_weights, query_terms_batch)
-
-
-score_termtable_batch.launches = 0  # kernel launches (CUDA tensors only)
 
 
 def score_termtable(
@@ -414,7 +407,8 @@ def score_postings_topk_tiered(
     reference's doubling tree sums each (query, doc) run, and each query's run
     starts are ranked by score, then doc, as ``lax_top_k`` ranks them. A run's
     total depends only on run-relative offsets, so the ids and every score bit are
-    the reference's. ``.entries`` counts the flat entries sorted so far."""
+    the reference's. ``rag_metrics``' ``bm25_tiered_entries_total`` counts the flat
+    entries sorted."""
     single, small_terms, row_mask = _as_batch(small_terms, row_mask)
     if single:
         small_slots, large_terms, large_slots = (
@@ -433,7 +427,7 @@ def score_postings_topk_tiered(
     start = torch.minimum(offsets[t].long().clamp(min=0), postings_doc.shape[0] - window)
     count = torch.where(valid, torch.minimum(lengths[t].long(), window).clamp(min=0), 0)
     total = int(count.sum())  # the one host read: the flat array's size
-    score_postings_topk_tiered.entries += total
+    rag_metrics.counter("bm25_tiered_entries_total").inc(total)
     if total == 0:
         ids = torch.full((b, top_k), -1, dtype=torch.long, device=dev)
         vals = torch.full((b, top_k), NEG_INF, dtype=torch.float32, device=dev)
@@ -480,6 +474,3 @@ def score_postings_topk_tiered(
     ids = torch.where(found, doc[pos], -1)
     vals = torch.where(found, score[pos], NEG_INF)
     return (ids[0], vals[0]) if single else (ids, vals)
-
-
-score_postings_topk_tiered.entries = 0  # flat entries sorted (host count, every call)

@@ -253,7 +253,7 @@ def bowhash_encode_plain(seeds, n_tok: int, dim_tok: int, dim_m: int, tok_idx, m
 
 
 def _launch_bowhash_encode(seeds, n_tok, dim_tok, dim_m, tok_idx, mtok_idx, out_dim, draws):
-    from ..kernels.build import check, load
+    from ..kernels.build import launch
 
     dev = seeds.device
     b, l = tok_idx.shape
@@ -267,15 +267,9 @@ def _launch_bowhash_encode(seeds, n_tok, dim_tok, dim_m, tok_idx, mtok_idx, out_
     norms = torch.empty((n_tok + n_m,), dtype=torch.float32, device=dev)
     q_vec = torch.empty((b, out_dim), dtype=torch.float16, device=dev)
     q_tok = torch.empty((b, t, dim_m), dtype=torch.float16, device=dev)
-    with torch.cuda.device(dev):
-        err = load("bowhash").bowhash_encode(
-            seeds.data_ptr(), n_tok, dim_tok, n_m, dim_m, tok_idx.data_ptr(), b, l,
-            mtok_idx.data_ptr(), t, out_dim, raw_tok.data_ptr(), raw_m.data_ptr(),
-            norms.data_ptr(), q_vec.data_ptr(), q_tok.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(err, "bowhash_encode")
-    bowhash_encode.launches += 1
+    launch("bowhash", "bowhash_encode", dev, seeds.data_ptr(), n_tok, dim_tok, n_m, dim_m,
+           tok_idx.data_ptr(), b, l, mtok_idx.data_ptr(), t, out_dim, raw_tok.data_ptr(),
+           raw_m.data_ptr(), norms.data_ptr(), q_vec.data_ptr(), q_tok.data_ptr())
     return q_vec, q_tok
 
 
@@ -321,7 +315,4 @@ def bowhash_encode(
         return _launch_bowhash_encode(seeds, n_tok, dim_tok, dim_m, tok_idx, mtok_idx, out_dim,
                                       draws)
     return bowhash_encode_plain(seeds, n_tok, dim_tok, dim_m, tok_idx, mtok_idx, out_dim, draws)
-
-
-bowhash_encode.launches = 0  # kernel calls (CUDA tensors only)
 

@@ -24,7 +24,7 @@ def dense_scores_plain(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> to
 
 
 def _launch_dense_scores(embeddings, query_vecs):
-    from ..kernels.build import check, f32_query_tile, load
+    from ..kernels.build import f32_query_tile, launch
 
     n, d = embeddings.shape
     b = query_vecs.shape[0]
@@ -48,13 +48,7 @@ def _launch_dense_scores(embeddings, query_vecs):
     else:
         fn = "dense_scores_f32"
         args.append(f32_query_tile(b))
-    with torch.cuda.device(emb.device):  # the launch code's state is the current device's
-        err = getattr(load("dense_scores"), fn)(
-            *args, torch.cuda.current_stream(emb.device).cuda_stream
-        )
-    check(err, fn)
-    dense_scores.launches += 1
-    dense_scores.launches_by_rows["bf16" if emb.dtype == torch.bfloat16 else "f32"] += 1
+    launch("dense_scores", fn, emb.device, *args)
     return out
 
 
@@ -69,7 +63,3 @@ def dense_scores(
     if embeddings.device.type == "cuda":
         return _launch_dense_scores(embeddings, query_vecs)
     return dense_scores_plain(embeddings, query_vecs)
-
-
-dense_scores.launches = 0  # kernel launches (CUDA tensors only)
-dense_scores.launches_by_rows = {"bf16": 0, "f32": 0}  # the same, by row dtype

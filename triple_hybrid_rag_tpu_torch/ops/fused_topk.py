@@ -36,12 +36,12 @@ from .topk import NEG_INF, lax_top_k, sort_topk_desc
 BUCKET = 16  # rows per bucket, fixed by the CUDA kernel's 16-row MMA tiles
 INVALID_SCORE_FLOOR = -2.0  # below any unit-vector score: marks masked members
 _MAX_INT_DIM = 65536  # keeps the kernels' int32 sums (int4: of 16 * code) far from overflow
-# row dtype -> (name in the launch counts, exported kernel function)
+# row dtype -> exported kernel function
 _KERNELS = {
-    torch.bfloat16: ("bf16", "fused_bucket_maxima_bf16"),
-    torch.float32: ("f32", "fused_bucket_maxima_f32"),
-    torch.int8: ("int8", "fused_bucket_maxima_int8"),
-    torch.uint8: ("int4", "fused_bucket_maxima_int4"),
+    torch.bfloat16: "fused_bucket_maxima_bf16",
+    torch.float32: "fused_bucket_maxima_f32",
+    torch.int8: "fused_bucket_maxima_int8",
+    torch.uint8: "fused_bucket_maxima_int4",
 }
 
 
@@ -113,7 +113,7 @@ def _check_launch(embeddings: torch.Tensor, query_vecs: torch.Tensor) -> None:
 
 def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid, scales, q_scale):
     _check_launch(embeddings, query_vecs)
-    from ..kernels.build import check, f32_query_tile, load
+    from ..kernels.build import f32_query_tile, launch
 
     n = embeddings.shape[0]
     b, d = query_vecs.shape
@@ -132,20 +132,13 @@ def _launch_bucket_maxima(embeddings, query_vecs, valid, collection_of, coll_cid
     if emb.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("rows and queries must be 16-byte aligned")  # contiguous() keeps a view's offset
     out = torch.empty((b, -(-n // BUCKET)), dtype=torch.float32, device=emb.device)
-    kind, fn = _KERNELS[emb.dtype]
     ptr = [emb.data_ptr()] + ([sc.data_ptr()] if is_int else []) + [q.data_ptr()]
     ptr += ([qs.data_ptr()] if is_int else []) + [
         val.data_ptr(), coll.data_ptr() if scoped else None, cid.data_ptr() if scoped else None,
         out.data_ptr(),
     ]
     shape = [n, d, b] + ([f32_query_tile(b)] if emb.dtype == torch.float32 else [])
-    with torch.cuda.device(emb.device):  # the launch code's state is the current device's
-        err = getattr(load("fused_topk"), fn)(
-            *ptr, *shape, torch.cuda.current_stream(emb.device).cuda_stream
-        )
-    check(err, fn)
-    bucket_maxima.launches += 1
-    bucket_maxima.launches_by_rows[kind] += 1
+    launch("fused_topk", _KERNELS[emb.dtype], emb.device, *ptr, *shape)
     return out
 
 
@@ -167,11 +160,6 @@ def bucket_maxima(
     if embeddings.device.type != "cuda":
         return bucket_maxima_plain(*args)
     return _launch_bucket_maxima(*args)
-
-
-bucket_maxima.launches = 0  # kernel launches (CUDA tensors only)
-# the same count, per row type ("bf16", "f32", "int8", "int4")
-bucket_maxima.launches_by_rows = {kind: 0 for kind, _ in _KERNELS.values()}
 
 
 def fused_dense_topk(

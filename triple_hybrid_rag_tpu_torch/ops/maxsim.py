@@ -87,15 +87,11 @@ def _tma_rows(tok: torch.Tensor) -> int:
 def _plan(body: str, tok: torch.Tensor, b: int, k: int, tq: int):
     """(plan name, scratch bytes) the kernel's launcher takes for this shape on the
     store's device."""
-    from ..kernels.build import check, load
+    from ..kernels.build import launch
 
     plan, scratch = ctypes.c_int(-1), ctypes.c_int64(0)
-    fn = f"maxsim_plan_{body}"
-    with torch.cuda.device(tok.device):
-        err = getattr(load("maxsim"), fn)(
-            tok.shape[-1], tq, b, k, _tma_rows(tok), ctypes.addressof(plan), ctypes.addressof(scratch)
-        )
-    check(err, fn)
+    launch("maxsim", f"maxsim_plan_{body}", tok.device, tok.shape[-1], tq, b, k, _tma_rows(tok),
+           ctypes.addressof(plan), ctypes.addressof(scratch), stream=False)
     return PLANS[plan.value], scratch.value
 
 
@@ -112,7 +108,7 @@ def maxsim_plan(tokens: torch.Tensor, parent_ids: torch.Tensor, q_tokens: torch.
 
 
 def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
-    from ..kernels.build import check, load
+    from ..kernels.build import launch
 
     body = _BODIES.get(tokens.dtype)
     if body is None:
@@ -140,16 +136,12 @@ def _launch_maxsim(tokens, tok_mask, parent_ids, q_tokens, q_weights):
     plan, scratch_bytes = _plan(body, tok, b, k, tq)
     # the wgmma plan's query, rounded to bf16 by the launch
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev) if scratch_bytes else None
-    fn = f"maxsim_scores_{body}"
-    with torch.cuda.device(dev):  # the launch code's state is the current device's
-        err = getattr(load("maxsim"), fn)(
-            tok.data_ptr(), msk.data_ptr(), pid.data_ptr(), q.data_ptr(), w.data_ptr(),
-            out.data_ptr(), None if scratch is None else scratch.data_ptr(), p_rows, td, d, tq,
-            b, k, _tma_rows(tok), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    check(err, fn)
-    maxsim_scores.launches_by_tokens[body] += 1
-    maxsim_scores.launches_by_plan[plan] += 1
+    launch(
+        "maxsim", f"maxsim_scores_{body}", dev, tok.data_ptr(), msk.data_ptr(), pid.data_ptr(),
+        q.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), p_rows, td, d, tq, b, k, _tma_rows(tok),
+        plan=plan,
+    )
     return out
 
 
@@ -192,8 +184,3 @@ def maxsim_scores_batch(
     rows = torch.arange(b * k, device=doc_tokens.device).view(b, k)
     parent_ids = torch.where(valid.bool(), rows, -1)
     return maxsim_scores(store, mask, parent_ids, q_tokens, q_mask.float())
-
-
-# kernel launches by token dtype and by plan (CUDA tensors only)
-maxsim_scores.launches_by_tokens = dict.fromkeys(_BODIES.values(), 0)
-maxsim_scores.launches_by_plan = dict.fromkeys(PLANS, 0)

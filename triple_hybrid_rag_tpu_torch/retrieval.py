@@ -52,10 +52,10 @@ from .index.graph_index import graph_search_plan
 from .index.ivf import dequant_f32
 from .index.maxsim_index import MaxSimIndex, build_maxsim_index
 from .index.state import IndexState
-from .models.cross_encoder import CrossEncoderReranker, DocumentStore, document_budget
+from .models.cross_encoder import document_arrays
 from .models.embedder import get_default_embedder
 from .models.planner import get_planner
-from .models.reranker import Reranker, get_reranker
+from .models.reranker import Reranker, get_reranker, query_context
 from .observability import rag_metrics
 from .observability.profiling import StageTimer, annotate
 from .observability.trace import tracer
@@ -229,7 +229,7 @@ class Retriever:
     ) -> None:
         """``cross_encoder`` (a :class:`~triple_hybrid_rag_tpu_torch.models.cross_encoder.CrossEncoder`
         on ``device``) is the model of ``rerank_backend="cross_encoder"``: each parent's
-        text is then tokenized once into its document store."""
+        text is then tokenized once and placed with it."""
         self.device = resolve_device(device)
         cfg = self.config = config or get_settings()
         self.corpus = corpus
@@ -260,19 +260,15 @@ class Retriever:
                 self.maxsim_index = build_maxsim_index(
                     corpus.parent_texts(), self.embedder, cfg, device=self.device
                 )
-        self.xenc_model = self.xenc_docs = None
+        rung_arrays: Dict[str, Any] = {}
         if (cfg.rerank_enabled and cfg.rerank_backend == "cross_encoder"
                 and cross_encoder is not None and corpus.n_parents > 0):
-            self.xenc_model = cross_encoder
-            self.xenc_docs = DocumentStore.from_texts(
-                corpus.parent_texts(), cross_encoder.cfg.vocab_size,
-                document_budget(cross_encoder.cfg), self.device,
-            )
+            rung_arrays = document_arrays(cross_encoder, corpus.parent_texts(), self.device)
         self.parent_emb = None
         if cfg.rerank_enabled and self.dense_index is not None and self.maxsim_index is None:
             self.parent_emb = self._build_parent_embeddings()
         self.corpus.mark_clean()
-        self.state = self._place()
+        self.state = self._place(rung_arrays)
         self._init_reranker(reranker, rerank_llm_fn)
 
     @classmethod
@@ -303,7 +299,6 @@ class Retriever:
         self.dense_index = dense_index
         self.graph_index = graph_index
         self.maxsim_index = maxsim_index
-        self.xenc_model = self.xenc_docs = None
         self.parent_of = (
             np.asarray(parent_of, np.int32) if parent_of is not None
             else _parent_of_table(corpus, config)
@@ -340,31 +335,16 @@ class Retriever:
         return self
 
     def _init_reranker(self, reranker: Optional[Reranker], rerank_llm_fn) -> None:
-        """The staged rerank over the placed state's MaxSim store, cross-encoder or
-        parent embeddings (the reference's ``get_reranker`` ladder, with the port's
-        cross-encoder rung). ``self.maxsim_view`` is the store as placed, the one the
-        engine reads; ``self.xenc`` the cross-encoder rung, when it was picked."""
-        cfg, st = self.config, self.state
-        self.maxsim_view = None
-        if (
-            st.maxsim_tokens is not None and cfg.rerank_enabled and cfg.rerank_backend == "maxsim"
-        ):
-            n_parents = getattr(self.corpus, "n_parents", st.maxsim_tokens.shape[0])
-            self.maxsim_view = MaxSimIndex(
-                tokens=st.maxsim_tokens, mask=st.maxsim_mask, n_parents=n_parents, config=cfg
-            )
+        """The staged rerank: a given ``reranker``, else the reference's
+        ``get_reranker`` ladder over the placed state (its MaxSim store as placed, the
+        one the engine reads; its parent embeddings; the port's cross-encoder)."""
         self.reranker = reranker or get_reranker(
-            cfg,
-            parent_embeddings=st.parent_emb,
-            maxsim_index=self.maxsim_view,
+            self.config,
             llm_fn=rerank_llm_fn,
             texts_of=self._parent_text_by_row if rerank_llm_fn is not None else None,
             maxsim_calibration=getattr(self.embedder, "maxsim_calibration", 1.0),
-            cross_encoder=st.xenc_model,
-            documents=st.xenc_docs,
+            state=self.state,
         )
-        inner = getattr(self.reranker, "fallback", self.reranker)
-        self.xenc = inner if isinstance(inner, CrossEncoderReranker) else None
 
     def _parent_text_by_row(self, row: int) -> str:
         """Parent row -> text (the host lookup of a callable reranker)."""
@@ -386,10 +366,11 @@ class Retriever:
         p_pad = self.config.round_capacity(max(self.corpus.n_parents, 1))
         return build_parent_embeddings(dx.embeddings, dx.scales, self.corpus.parent_rows(), p_pad)
 
-    def _place(self) -> IndexState:
-        """The indexes as one :class:`IndexState` on the retriever's device. The dot
-        rerank's parent embeddings go in only where the reference's reranker ladder
-        picks that rung (``rerank_backend`` "maxsim" or "dot")."""
+    def _place(self, rung_arrays: Optional[Dict[str, Any]] = None) -> IndexState:
+        """The indexes as one :class:`IndexState` on the retriever's device, with
+        ``rung_arrays`` (what a reranker rung places). The dot rerank's parent
+        embeddings go in only where the reference's reranker ladder picks that rung
+        (``rerank_backend`` "maxsim" or "dot")."""
         cfg = self.config
         arrays: Dict[str, Any] = {"parent_of": self.parent_of, "collection_of": self.collection_of}
         host: Dict[str, Any] = {"collection_ids": self.collection_ids, "corpus": self.corpus}
@@ -409,9 +390,7 @@ class Retriever:
             arrays.update(maxsim_tokens=self.maxsim_index.tokens, maxsim_mask=self.maxsim_index.mask)
         if self.parent_emb is not None and cfg.rerank_backend in ("maxsim", "dot"):
             arrays["parent_emb"] = self.parent_emb
-        if self.xenc_docs is not None:
-            arrays.update(xenc_doc_ids=self.xenc_docs.ids, xenc_doc_len=self.xenc_docs.lengths,
-                          xenc_model=self.xenc_model)
+        arrays.update(rung_arrays or {})
         state = IndexState.from_numpy(arrays, host, cfg, self.device)
         if gx is not None:
             gx.placed = state  # its device lookups read the placed tables
@@ -431,10 +410,10 @@ class Retriever:
         While a profiler records, the call is the range ``engine.staged.query`` and
         each stage a range inside it: ``engine.staged.plan``, ``.channels``
         (holding ``.lexical``, ``.semantic`` with ``.embed``, ``.graph`` and
-        ``.counts``), ``.fusion``, ``.expand``, ``.rerank`` (holding ``.tokens`` and
-        ``.maxsim``; under the cross-encoder ``engine.staged.rerank.pack``,
-        ``.attention``, ``.router``, ``.experts``, ``.shared`` and ``.head``),
-        ``.gate`` and ``.decode``."""
+        ``.counts``), ``.fusion``, ``.expand``, ``.rerank`` (holding ``.tokens``, and
+        the ranges the reranker opens: ``.maxsim`` under MaxSim; under the
+        cross-encoder ``engine.staged.rerank.pack``, ``.attention``, ``.router``,
+        ``.experts``, ``.shared`` and ``.head``), ``.gate`` and ``.decode``."""
         with annotate("engine.staged.query"):
             return self._staged(query, top_k, collection)
 
@@ -496,16 +475,10 @@ class Retriever:
                     qctx: Dict[str, object] = {"query_text": query}
                     if query_vec is not None:
                         qctx["query_vec"] = query_vec
-                    if self.maxsim_view is not None:
+                    if st.maxsim_tokens is not None and cfg.rerank_backend == "maxsim":
                         qctx.update(self._query_token_ctx(plan))
-                    if self.xenc is not None:
-                        # the prompt's ids cross in this range, which so opens on the
-                        # device before the model's ranges
-                        qctx.update(self.xenc.prompt_ctx(query))
-                        rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
-                    else:
-                        with annotate("engine.staged.maxsim"):
-                            rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
+                    qctx.update(query_context(self.reranker, query))
+                    rerank_scores = self.reranker.score(qctx, parent_ids, fused.rrf)
                 else:
                     rerank_scores = fused.rrf
                 # the ordering score may fold the fused evidence back in; the gate
