@@ -1,6 +1,8 @@
 """The port's sorted-postings BM25 top-k against the JAX ops on a random CSR:
 ids and scores bit-equal (the doubling reduction keeps the reference's order)."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -8,6 +10,7 @@ import pytest
 import torch
 
 from triple_hybrid_rag_tpu.ops import bm25 as ref
+from triple_hybrid_rag_tpu_torch.index.bm25_index import lexical_search_sorted
 from triple_hybrid_rag_tpu_torch.observability import rag_metrics
 from triple_hybrid_rag_tpu_torch.ops import bm25 as port
 
@@ -189,6 +192,62 @@ def test_tiered_bit_equal(rng, case, scoped):
     assert entries.value() - before == read
     if case == "empty_batch":
         assert read == 0 and (got[0] == -1).all()
+
+
+STAGED_CASES = ("random", "df_l_max", "all_slots", "repeated_term", "oov_only",
+                "few_matches", "equal_weights", "row_mask")
+
+
+def _staged_case(rng, case):
+    """(csr, one query i32[16], row mask bool[n_pad] or None, l_max, n_pad, top_k) of
+    one case of the staged channel; term 0 holds ``l_max`` postings, term 2 two."""
+    l_max, n_pad, top_k = 240, 320, 30
+    csr = _skewed_csr(rng, l_max=l_max)
+    query = np.full(16, -1, np.int32)
+    query[:6] = rng.choice(60, size=6, replace=False)
+    mask = None
+    if case in ("df_l_max", "row_mask"):
+        query[:3] = (0, 1, 2)
+        if case == "row_mask":
+            mask = rng.random(n_pad) > 0.4
+    elif case == "all_slots":
+        query[:] = rng.choice(60, size=16, replace=False)
+    elif case == "repeated_term":  # one term in two slots: each of its docs twice
+        query[:4] = (0, 7, 0, 9)
+    elif case == "oov_only":
+        query[:] = -1
+    elif case == "few_matches":  # two matched docs against a top_k of 30
+        query[:] = -1
+        query[0] = 2
+    elif case == "equal_weights":  # ties fall to doc order
+        csr = csr[:3] + (np.where(csr[2] >= 0, 1.0, 0.0).astype(np.float32),)
+        query[:3] = (0, 1, 5)
+    return csr, query, mask, l_max, n_pad, top_k
+
+
+@pytest.mark.parametrize("case", STAGED_CASES)
+def test_staged_flat_bit_equal(rng, case):
+    """The staged channel's sorted search of one query (every slot in the flat
+    gather's large tier) against the reference's windowed op at one query: ids and
+    score bits. Its entries count in the ``path="staged"`` series, one for each
+    stored posting of the query's terms; the batched program's series stays."""
+    csr, query, mask, l_max, n_pad, top_k = _staged_case(rng, case)
+    want = ref.score_postings_topk_pre(
+        *map(jnp.asarray, csr), jnp.asarray(query), None if mask is None else jnp.asarray(mask),
+        l_max=l_max, n_pad=n_pad, top_k=top_k)
+    offsets, lengths, docs, weights = map(_t, csr)
+    state = SimpleNamespace(lex_offsets=offsets, lex_lengths=lengths, lex_pd=docs,
+                            lex_pt=weights, lex_l_max=l_max, n_pad=n_pad)
+    entries = rag_metrics.counter("bm25_tiered_entries_total")
+    before = (entries.value(), entries.value({"path": "staged"}))
+    got = lexical_search_sorted(state, _t(query), top_k, None if mask is None else _t(mask))
+    _bit_equal(want, got)
+    assert got[0].shape == (top_k,) and got[0].dtype == torch.int64
+    stored = sum(int(csr[1][t]) for t in query if t >= 0)
+    assert entries.value({"path": "staged"}) - before[1] == stored
+    assert entries.value() == before[0]
+    if case in ("oov_only", "few_matches"):
+        assert int((got[0] >= 0).sum()) == stored
 
 
 def test_sparse_windows_max_combine(rng):

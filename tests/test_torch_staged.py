@@ -209,6 +209,60 @@ def test_lexical_channel_bit_equal(cfg, backend):
                                       np.asarray(want_vals).view(np.int32))
 
 
+SEARCH_SORTED_CASES = ("df_l_max", "all_slots", "repeated_keyword", "oov_only",
+                       "few_matches", "equal_weights", "row_mask")
+
+
+@pytest.mark.parametrize("case", SEARCH_SORTED_CASES)
+def test_search_sorted_bit_equal(cfg, case):
+    """``BM25Index.search_sorted`` of one padded query (the staged channel's flat
+    gather of each term's stored postings) against the reference's over the same
+    texts: ids and score bits, and the postings it sorts in the ``path="staged"``
+    entries series."""
+    rng = np.random.default_rng(1)
+    words = [f"w{i}" for i in range(200)]
+    draw = (np.arange(200) + 1.0) ** -1.2  # a few words in most texts
+    texts = [" ".join(rng.choice(words, size=rng.integers(3, 50), p=draw / draw.sum()))
+             for _ in range(300)]
+    if case == "equal_weights":  # one word a text, all texts one length: equal contributions
+        texts = [f"w{i % 7} pad" for i in range(280)]
+    c = cfg.replace(lexical_backend="sorted", max_query_terms=16, capacity_round=64)
+    ref = ref_build_bm25(texts, c)
+    port = port_bm25.build_bm25_index(texts, torch_config(c))
+    df = np.asarray(ref.lengths)
+    common = int(np.argmax(df))  # its stored df is l_max
+    assert df[common] == ref.l_max
+    qt = np.full(16, -1, np.int32)
+    mask, top_k = None, 10
+    if case in ("df_l_max", "row_mask"):
+        qt[:3] = (common, *rng.choice(np.flatnonzero(df < ref.l_max), 2, replace=False))
+        mask = np.arange(ref.n_pad) % 3 != 0 if case == "row_mask" else None
+    elif case == "all_slots":
+        qt[:] = rng.choice(len(df), 16, replace=False)
+    elif case == "repeated_keyword":
+        qt[:4] = (common, 5, common, 9)
+    elif case == "few_matches":
+        qt[0] = int(np.argmin(df))
+        top_k = int(df[qt[0]]) + 20
+    elif case == "equal_weights":
+        qt[:2] = (ref.vocab.get("w3"), ref.vocab.get("w4"))
+        top_k = 60
+    entries = rag_metrics.counter("bm25_tiered_entries_total")
+    before = entries.value({"path": "staged"})
+    want_ids, want_vals = ref.search_sorted(
+        jnp.asarray(qt), top_k, None if mask is None else jnp.asarray(mask))
+    got_ids, got_vals = port.search_sorted(qt, top_k, mask, device="cpu")
+    np.testing.assert_array_equal(got_ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_array_equal(got_vals.numpy().view(np.int32),
+                                  np.asarray(want_vals).view(np.int32))
+    assert entries.value({"path": "staged"}) - before == sum(int(df[t]) for t in qt if t >= 0)
+    if case in ("oov_only", "few_matches"):
+        assert int((got_ids >= 0).sum()) == sum(int(df[t]) for t in qt if t >= 0)
+    if case == "equal_weights":  # 40 ties a term, ranked by doc
+        assert len(set(got_vals[:40].tolist())) == 1
+        assert (np.diff(got_ids[:40].numpy()) > 0).all()
+
+
 def test_khop_chunk_scores_equal():
     rng = np.random.default_rng(1)
     e, deg, n, m = 64, 4, 300, 3

@@ -35,7 +35,7 @@ from ..ops.bm25 import (
     DOC_PAD,
     QUERY_PAD,
     score_postings_pre,
-    score_postings_topk_pre,
+    score_postings_topk_tiered,
     score_termtable,
 )
 from ..ops.topk import masked_top_k
@@ -146,7 +146,7 @@ class BM25Index:
         self, query_terms, top_k: int, row_mask=None, device=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Sort-based sparse top-k of one padded query-term vector, O(matched
-        postings)."""
+        postings): :func:`lexical_search_sorted` over the placed arrays."""
         view = self.placed(query_terms.device if torch.is_tensor(query_terms) else device)
         return lexical_search_sorted(
             view, _on(query_terms, view.device), top_k, _mask_on(row_mask, view.device)
@@ -555,11 +555,18 @@ def lexical_search(
 def lexical_search_sorted(
     state, query_terms: torch.Tensor, top_k: int, row_mask: Optional[torch.Tensor] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort-based sparse top-k of one query, O(matched postings) (the reference's
-    ``BM25Index.search_sorted``): the batched op at one query."""
-    ids, vals = score_postings_topk_pre(
-        state.lex_offsets, state.lex_lengths, state.lex_pd, state.lex_pt, query_terms[None, :],
-        None if row_mask is None else row_mask[None, :],
-        l_max=state.lex_l_max, n_pad=state.n_pad, top_k=top_k,
+    """Sort-based sparse top-k of one padded query-term vector (the reference's
+    ``BM25Index.search_sorted``): (ids i64[top_k], scores f32[top_k]), O(matched
+    postings). Every slot, in slot order, goes to the large tier of
+    :func:`~triple_hybrid_rag_tpu_torch.ops.bm25.score_postings_topk_tiered` at
+    window ``l_max``, so each term's stored postings are gathered exactly into one
+    flat array, where the reference's windowed op reads ``l_max`` a slot; the ids and
+    score bits are the reference's. The entries count in ``rag_metrics``'
+    ``bm25_tiered_entries_total{path="staged"}``."""
+    slots = torch.arange(query_terms.shape[0], device=query_terms.device)
+    return score_postings_topk_tiered(
+        state.lex_offsets, state.lex_lengths, state.lex_pd, state.lex_pt,
+        query_terms[:0], slots[:0], query_terms, slots, row_mask,
+        l_small=0, l_max=state.lex_l_max, n_pad=state.n_pad, top_k=top_k,
+        entries_path="staged",
     )
-    return ids[0], vals[0]

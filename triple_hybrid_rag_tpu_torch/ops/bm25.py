@@ -27,8 +27,12 @@ corpus size:
 4. top-k over the run totals.
 
 Only :func:`score_postings_topk_tiered` does work O(matched postings): it gathers
-each slot's valid postings exactly, into one flat array. The others gather a fixed
-window per query slot (``l_max`` wide), whatever the term's df.
+each slot's valid postings exactly, into one flat array. It is the batched program's
+lexical stage, and the staged channel's (``index/bm25_index.lexical_search_sorted``,
+behind ``Retriever.retrieve`` and ``BM25Index.search_sorted``: every slot of the one
+query in its large tier). :func:`score_postings_topk_pre` and
+:func:`score_postings_topk` gather a fixed window per query slot (``l_max`` wide),
+whatever the term's df: the engine's ``lexical_tiering=False`` form and the reference's.
 
 The doubling tree is kept in the reference's order on purpose: a run's total depends
 only on run-relative offsets, so every score is bit-identical to the JAX op (the
@@ -394,6 +398,7 @@ def score_postings_topk_tiered(
     l_max: int,
     n_pad: int,
     top_k: int,
+    entries_path: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """df-tiered sparse BM25 top-k: (ids i64[B, top_k], scores f32[B, top_k]); one
     query (1-D term and slot arrays, as the reference's op takes) gives [top_k].
@@ -407,14 +412,24 @@ def score_postings_topk_tiered(
     reference's doubling tree sums each (query, doc) run, and each query's run
     starts are ranked by score, then doc, as ``lax_top_k`` ranks them. A run's
     total depends only on run-relative offsets, so the ids and every score bit are
-    the reference's. ``rag_metrics``' ``bm25_tiered_entries_total`` counts the flat
-    entries sorted."""
+    the reference's. One query (B = 1) takes :func:`_tiered_one_query`, which gives
+    the same bits with fewer operations. ``rag_metrics``' ``bm25_tiered_entries_total``
+    counts the flat entries sorted: in its unlabelled series, or in the one labelled
+    ``path=entries_path``."""
     single, small_terms, row_mask = _as_batch(small_terms, row_mask)
     if single:
         small_slots, large_terms, large_slots = (
             x[None, :] for x in (small_slots, large_terms, large_slots))
     dev = small_terms.device
     b, qs = small_terms.shape
+    if b == 1:
+        windows = [min(l_small, l_max)] * qs + [l_max] * large_terms.shape[1]
+        ids, vals = _tiered_one_query(
+            offsets, lengths, postings_doc, postings_weight,
+            torch.cat([small_terms[0], large_terms[0]]),
+            torch.cat([small_slots[0], large_slots[0]]), windows,
+            None if row_mask is None else row_mask[0], top_k, entries_path)
+        return (ids, vals) if single else (ids[None], vals[None])
     # columns in the reference's order: the small slots, then the large ones
     terms = torch.cat([small_terms, large_terms], 1).long()
     slots = torch.cat([small_slots, large_slots], 1).long()
@@ -427,7 +442,7 @@ def score_postings_topk_tiered(
     start = torch.minimum(offsets[t].long().clamp(min=0), postings_doc.shape[0] - window)
     count = torch.where(valid, torch.minimum(lengths[t].long(), window).clamp(min=0), 0)
     total = int(count.sum())  # the one host read: the flat array's size
-    rag_metrics.counter("bm25_tiered_entries_total").inc(total)
+    _count_entries(total, entries_path)
     if total == 0:
         ids = torch.full((b, top_k), -1, dtype=torch.long, device=dev)
         vals = torch.full((b, top_k), NEG_INF, dtype=torch.float32, device=dev)
@@ -474,3 +489,56 @@ def score_postings_topk_tiered(
     ids = torch.where(found, doc[pos], -1)
     vals = torch.where(found, score[pos], NEG_INF)
     return (ids[0], vals[0]) if single else (ids, vals)
+
+
+def _count_entries(total: int, path: Optional[str]) -> None:
+    rag_metrics.counter("bm25_tiered_entries_total").inc(
+        total, None if path is None else {"path": path})
+
+
+def _tiered_one_query(
+    offsets, lengths, postings_doc, postings_weight,
+    terms: torch.Tensor,  # i[C] the query's columns: its small slots, then its large
+    slots: torch.Tensor,  # i[C] each column's original query slot
+    windows,  # each column's window
+    row_mask: Optional[torch.Tensor],  # bool[n_pad]
+    top_k: int,
+    entries_path: Optional[str],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`score_postings_topk_tiered` of one query: (ids i64[top_k], scores
+    f32[top_k]). One host read brings each column's term, slot, postings start and
+    stored df. The columns' valid postings are concatenated in (original slot,
+    column) order, so a stable sort by doc alone leaves each doc's entries in the
+    order the batched key (query, doc, slot rank) leaves them, and the run starts in
+    doc order: ``lax_top_k``'s (score, then position) is the batched (score, then
+    doc). The doubling tree is the batched one, so the bits are too."""
+    safe = terms.long().clamp(min=0)
+    term, slot, start, df = torch.stack(
+        [terms.long(), slots.long(), offsets[safe].long(), lengths[safe].long()]).tolist()
+    spans = []
+    for j in sorted(range(len(windows)), key=lambda j: (slot[j], j)):
+        n = min(max(df[j], 0), windows[j])
+        if term[j] >= 0 and n:  # gather_windows' clamp keeps the window in the postings
+            s = min(max(start[j], 0), postings_doc.shape[0] - windows[j])
+            spans.append(slice(s, s + n))
+    total = sum(x.stop - x.start for x in spans)
+    _count_entries(total, entries_path)
+    dev = terms.device
+    if total == 0:
+        return (torch.full((top_k,), -1, dtype=torch.long, device=dev),
+                torch.full((top_k,), NEG_INF, dtype=torch.float32, device=dev))
+    docs, perm = torch.sort(torch.cat([postings_doc[x] for x in spans]), stable=True)
+    contrib = torch.cat([postings_weight[x] for x in spans]).float()[perm]
+    acc = _flat_run_totals(docs, contrib, len(windows))
+    ok = torch.ones_like(docs, dtype=torch.bool)
+    ok[1:] = docs[1:] != docs[:-1]  # run starts
+    if row_mask is not None:
+        ok &= row_mask[docs]
+    kk = min(top_k, total)
+    vals, pos = lax_top_k(acc.masked_fill(~ok, NEG_INF), kk)
+    found = vals > NEG_INF
+    ids = torch.where(found, docs[pos].long(), -1)
+    if kk < top_k:
+        ids = torch.cat([ids, ids.new_full((top_k - kk,), -1)])
+        vals = torch.cat([vals, vals.new_full((top_k - kk,), NEG_INF)])
+    return ids, vals
