@@ -15,7 +15,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    RAGConfig's (64 x 128, 32); term-table BM25: a 1,000,448 x 128 table, 128
    queries of 16 slots; the BowHash query encode, a batch of 128 traffic-like texts
    at phase 3's widths and the default RAGConfig's, its draws bit for bit and its
-   f16 outputs within one step) and times kernel, plain version and, where one
+   f16 outputs within one step; the KDA layer kernel, from the projections through the
+   chunked delta rule to the gated norm, 50 prompts of 845-1,060 tokens and 32 heads
+   of 128 as Kimi-Linear's reranker packs a question, f32 and bf16 inputs, within the
+   output's rounding) and times kernel, plain version and, where one
    exists, the library call, the bf16 bucket maxima also at B = 1; every kernel body is also
    held against its plain version over a list of small and ragged shapes (MaxSim
    up to 1,024 query tokens and D = 4,096, past the staged plan, each case's plan
@@ -334,7 +337,8 @@ MAXSIM_PLAN_LAUNCHES = {"bf16": {}, "int8": {}}
 # the kernels' launch tallies, each reset on its own: name -> its entry points' prefix
 # in the registry's kernel_launches_total (kernels/build.launch_counts)
 TALLIES = {"bucket_maxima": "fused_bucket_maxima_", "dense_scores": "dense_scores_",
-           "maxsim": "maxsim_scores_", "termtable": "termtable_scores_", "bowhash": "bowhash_encode"}
+           "maxsim": "maxsim_scores_", "termtable": "termtable_scores_", "bowhash": "bowhash_encode",
+           "kda": "kda_layer_"}
 _MARKS: dict = {}  # tally -> the launch counts (by kernel, by plan) at its last reset
 STAGE_MS: dict = {}  # engine stage -> device ms per batch of the last stage_profile
 
@@ -922,6 +926,73 @@ def check_bowhash(dev):
     return entry
 
 
+# the KDA check: a question's prompts through Kimi-Linear's reranker (50 prompts of
+# 845-1,060 tokens), 32 heads of 128
+KDA_PROMPTS, KDA_LENGTHS, KDA_HEADS = 50, (845, 1060), 32
+
+
+def kda_inputs(dev, rng, dtype):
+    """A KDA layer's inputs as the model makes them, packed: the projections of q, k,
+    v, the decay's f, b and the gate N(0, 1) (f N(0, 1/16)) in ``dtype``, the
+    convolutions U(-1/2, 1/2), A_log = log U(1, 16) and dt_bias the inverse softplus
+    of a dt log-uniform in [1e-3, 1e-1] (f32), the norm's weight 1; and the prompts'
+    bounds."""
+    lengths = rng.integers(KDA_LENGTHS[0], KDA_LENGTHS[1] + 1, size=KDA_PROMPTS)
+    t, h, width = int(lengths.sum()), KDA_HEADS, KDA_HEADS * 128
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 62)))
+    rand = functools.partial(torch.randn, generator=gen, device=dev)
+    uni = functools.partial(torch.rand, generator=gen, device=dev)
+    qp, kp, vp, gate = (rand(t, width).to(dtype) for _ in range(4))
+    fp = (0.25 * rand(t, width)).to(dtype)
+    bp = rand(t, h).to(dtype)
+    conv = [((uni(width, 4) * 2 - 1) * 0.5).to(dtype) for _ in range(3)]
+    a_log = torch.log(uni(h) * 15 + 1)
+    dt = torch.exp(uni(width) * (np.log(0.1) - np.log(1e-3)) + np.log(1e-3))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    norm_w = torch.ones(128, dtype=dtype, device=dev)
+    cu = torch.from_numpy(np.concatenate([[0], np.cumsum(lengths)])).to(dev)
+    return (qp, kp, vp, conv, fp, a_log, dt_bias, bp, gate, norm_w, cu, h, 1e-5), lengths
+
+
+def check_kda(dev):
+    """The KDA layer kernel (``csrc/kda.cu``: convolutions, gates, the chunked delta rule,
+    the gated norm) against its plain version in f32 at a reranker question's shape,
+    for bf16 and f32 inputs: within the output's rounding (bf16: 2^-8 of the largest
+    output; f32: 2e-5 of it); the bf16 entry timed (CUDA events) against the
+    recurrence's bound, the larger of q, k, v, g and o at 2 bytes and beta at 2 a head
+    once at the HBM rate and 8 d^2 flops a token and head at the bf16 peak (the
+    benchmark's ``xenc_kda_roofline``). Returns its kernels-line entry."""
+    from triple_hybrid_rag_tpu_torch.ops.kda import kda_layer, kda_layer_plain
+
+    rng = np.random.default_rng(2147483731)
+    entry = {"name": "kda_layer", "route": "cuda", "source": "triple_hybrid_rag_tpu_torch/csrc/kda.cu",
+             "replaces": None, "library_ms": None}
+    for dtype, rel in ((torch.float32, 2e-5), (torch.bfloat16, 2.0 ** -8)):
+        args, lengths = kda_inputs(dev, rng, dtype)
+        got = kda_layer(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kda_layer_plain(*args[:10], args[10].tolist(), *args[11:])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max_err(got.float(), want)
+        top = float(want.abs().max())
+        name = str(dtype).split(".")[-1]
+        log(f"kda_layer {name}: {len(lengths)} prompts, {int(lengths.sum())} tokens, {KDA_HEADS} heads "
+            f"of 128: max |kernel - plain| {err:.3g} (largest output {top:.3g}, bound {rel * top:.3g})")
+        if not err <= rel * top:
+            fail(f"kda_layer ({name}) disagrees with its plain version: {err:.3g} > {rel * top:.3g}")
+        entry[f"max_abs_err_{name}"] = err
+        if dtype != torch.bfloat16:
+            continue
+        ms = time_ms(lambda: kda_layer(*args))
+        tokens = int(lengths.sum())
+        b_ms, b_by = bound((5 * 2 * 128 + 2) * KDA_HEADS * tokens, 8.0 * 128 * 128 * KDA_HEADS * tokens)
+        log(f"kda_layer bf16: kernel {ms:.4f} ms, plain (PyTorch on the card) {plain_ms:.1f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), bound / kernel {100 * b_ms / ms:.2f} %")
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, tokens=tokens)
+    return entry
+
 def maxsim_inputs(dev, gen, b, k, p_rows, td, d, tq):
     """Unit bf16 tokens with random mask holes, parents with no token, f16-wire
     queries with zero and fractional weights; candidate parents at random, with
@@ -1187,6 +1258,7 @@ def main_path(dev, card):
     tally_reset("bucket_maxima")
     tally_reset("maxsim")
     tally_reset("bowhash")
+    tally_reset("kda")
     hits = n_plain = n_graph = 0
     for lo in range(0, 2 * BATCH, BATCH):
         plans, out = eng.search_arrays(texts[lo:lo + BATCH])
@@ -1203,6 +1275,7 @@ def main_path(dev, card):
     launches = {"fused_bucket_maxima": bucket_rows()["bf16"],
                 "maxsim_scores": maxsim_body_launches("bf16", "bf16 rows", st),
                 "bowhash_encode": bowhash_launches()}
+    kda_launches = sum(tally("kda").values())  # no cross-encoder on the main path: read, not assumed
     frac = hits / max(n_plain, 1)
     log(f"self-retrieval: {hits}/{n_plain} plain queries have their row in the final "
         f"top-{cfg.final_top_k} ({frac:.4f}); {n_graph} of {2 * BATCH} queries used the graph")
@@ -1211,6 +1284,8 @@ def main_path(dev, card):
         fail(f"self-retrieval {frac} < 0.95")
     if min(launches.values()) < 1:
         fail(f"a kernel of the main path was not launched: {launches}")
+    launches["kda_layer"] = kda_launches
+    log(f"kda_layer launches on the main path: {kda_launches}")
     decoded = sum(len(r.results) for r in res)
     if decoded == 0 or any(not np.isfinite(x.final_score) for r in res for x in r.results):
         fail("retrieve_batch decoded no results or non-finite scores")
@@ -4941,7 +5016,8 @@ def main() -> int:
     f32_bodies = check_f32(data, dev, gen)
     del data
     torch.cuda.empty_cache()
-    kernels += [*check_maxsim(dev, gen), check_termtable(dev, gen), dense, check_bowhash(dev)]
+    kernels += [*check_maxsim(dev, gen), check_termtable(dev, gen), dense, check_bowhash(dev),
+                check_kda(dev)]
     for k in kernels:
         k.update(f32_bodies.get(k["name"], {}))
     log(f"phase 2 wall time {time.time() - t_phase:.1f} s")

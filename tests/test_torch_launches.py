@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from triple_hybrid_rag_tpu_torch.kernels import build
-from triple_hybrid_rag_tpu_torch.ops import bm25, bowhash, dense_kernel, fused_topk, maxsim
+from triple_hybrid_rag_tpu_torch.ops import bm25, bowhash, dense_kernel, fused_topk, kda, maxsim
 
 STREAM = 7  # the stand-in stream handle
 
@@ -47,13 +47,20 @@ def _inputs():
             lambda *a: bowhash.bowhash_encode(*a), lambda *a: bowhash._launch_bowhash_encode(*a, None),
             (seeds, 3, 64, 16, torch.tensor([[0, 1, 2], [2, -1, -1]], dtype=torch.int32),
              torch.tensor([[0, 1], [1, -1]], dtype=torch.int32), 32)),
+        "kda_layer": (kda.kda_layer, lambda *a: kda._launch(*a, 128 ** -0.5),
+                      (*(torch.randn(10, 256, generator=g).to(torch.bfloat16) for _ in range(3)),
+                       [torch.rand(256, 4, generator=g).to(torch.bfloat16) for _ in range(3)],
+                       torch.randn(10, 256, generator=g).to(torch.bfloat16), torch.zeros(2), torch.zeros(256),
+                       torch.randn(10, 2, generator=g).to(torch.bfloat16),
+                       torch.randn(10, 256, generator=g).to(torch.bfloat16), torch.ones(128).to(torch.bfloat16),
+                       torch.tensor([0, 4, 10]), 2, 1e-5)),
     }
 
 
 # the wrapper -> the C entry point a bf16 (or f32 for the term table) call launches
 ENTRY = {"bucket_maxima": "fused_bucket_maxima_bf16", "dense_scores": "dense_scores_bf16",
          "maxsim_scores": "maxsim_scores_bf16", "termtable_scores": "termtable_scores_f32",
-         "bowhash_encode": "bowhash_encode"}
+         "bowhash_encode": "bowhash_encode", "kda_layer": "kda_layer_bf16"}
 
 
 @pytest.mark.parametrize("wrapper", sorted(ENTRY))

@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every exported function: (argtypes), all return cudaError_t as int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "fused_topk": {
@@ -57,6 +58,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "bowhash": {
         "bowhash_encode": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "kda": {
+        "kda_layer_bf16": [_P] * 14 + [_I, _I, _F, _F, _P],
+        "kda_layer_f32": [_P] * 14 + [_I, _I, _F, _F, _P],
     },
 }
 

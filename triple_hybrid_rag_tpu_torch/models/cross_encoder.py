@@ -39,6 +39,15 @@ normed stream, which halves the routes that bf16 rounding flips
 scale, dequantized to bf16 at use; it exists as the configuration's lower-precision
 control).
 
+**Shared with Kimi-Linear** (``models/kimi_linear.py``): the latent attention
+(:func:`mla_attention`, with RoPE or without), the router (:func:`route`), the routed
+experts (:func:`routed_experts`), the draws and the fp8 store (:func:`build_weights`),
+and the layer loop, MLP and head of :class:`Decoder`. A config's ``moe`` names the
+channels of each routed expert's width held here (Kimi-Linear's ``channels_first``,
+``channels_held``): every route is computed, over the held channels only, which is
+this chip's part of the routed sum under tensor parallelism (without its exchange).
+Moonlight holds every channel, so its path and bits are as before.
+
 **Weights.** No published checkpoint is in the repository: :func:`init_cross_encoder`
 draws every tensor from a seed, each from its own generator seeded by ``(seed,
 name)`` (:func:`tensor_seed`), in f32 on the device: matrices N(0, 0.02), norm
@@ -97,7 +106,7 @@ _E4M3_MAX = 448.0
 
 @dataclass(frozen=True)
 class CrossEncoderConfig:
-    """The decoder's shape, under the published ``config.json`` keys."""
+    """The decoder's shape, under the published ``config.json`` keys (every expert held)."""
 
     vocab_size: int = 163840
     hidden_size: int = 2048
@@ -128,15 +137,39 @@ class CrossEncoderConfig:
     def qk_head_dim(self) -> int:
         return self.qk_nope_head_dim + self.qk_rope_head_dim
 
+    @property
+    def moe(self) -> "MoEShape":
+        return MoEShape(self.n_routed_experts, self.num_experts_per_tok, self.norm_topk_prob,
+                        self.routed_scaling_factor, self.first_k_dense_replace,
+                        (0, self.moe_intermediate_size))
+
     @classmethod
     def from_hf(cls, config: Mapping[str, object]) -> "CrossEncoderConfig":
         """The shape of a published ``config.json`` (other keys ignored); raises where
         it asks for a mechanism this module does not implement."""
-        for key, want in cls._FIXED.items():
-            if config.get(key, want) != want:
-                raise ValueError(f"{key}={config[key]!r} is not supported (only {want!r})")
+        refuse_unsupported(config, cls._FIXED)
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in config.items() if k in names})
+
+
+class MoEShape(NamedTuple):
+    """The expert layers' shape under one set of names for both models: the router's
+    width, its experts a token, renormalisation and scale, the leading dense layers,
+    and the channels of each routed expert's width held here (first, count)."""
+
+    experts: int
+    top_k: int
+    renormalize: bool
+    scale: float
+    dense_layers: int
+    channels: Tuple[int, int]
+
+
+def refuse_unsupported(config: Mapping[str, object], fixed: Mapping[str, object]) -> None:
+    """Raise where a published config asks for a mechanism other than ``fixed``'s."""
+    for key, want in fixed.items():
+        if config.get(key, want) != want:
+            raise ValueError(f"{key}={config[key]!r} is not supported (only {want!r})")
 
 
 PRESETS: Dict[str, CrossEncoderConfig] = {"moonlight-16b-a3b": CrossEncoderConfig()}
@@ -179,51 +212,69 @@ def tensor_seed(seed: int, name: str) -> int:
     return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
 
 
+def generator(name: str, seed: int, device) -> torch.Generator:
+    """The generator of the tensor ``name`` under ``seed`` on ``device``."""
+    return torch.Generator(device=torch.device(device)).manual_seed(tensor_seed(seed, name))
+
+
 def draw(name: str, shape: Sequence[int], seed: int, device, std: float) -> torch.Tensor:
     """f32 N(0, std^2) of ``shape`` from the generator of ``(seed, name)`` on ``device``."""
     dev = torch.device(device)
-    gen = torch.Generator(device=dev).manual_seed(tensor_seed(seed, name))
+    gen = generator(name, seed, dev)
     return torch.randn(tuple(shape), generator=gen, device=dev, dtype=torch.float32) * std
+
+
+def mla_shapes(cfg, p: str) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """The latent attention's tensors of the layer with prefix ``p`` (``cfg`` has the
+    DeepSeek-V3 attention keys)."""
+    h, nh = cfg.hidden_size, cfg.num_attention_heads
+    return {
+        p + "self_attn.q_proj.weight": ((nh * cfg.qk_head_dim, h), "matrix"),
+        p + "self_attn.kv_a_proj_with_mqa.weight":
+            ((cfg.kv_lora_rank + cfg.qk_rope_head_dim, h), "matrix"),
+        p + "self_attn.kv_a_layernorm.weight": ((cfg.kv_lora_rank,), "norm"),
+        p + "self_attn.kv_b_proj.weight":
+            ((nh * (cfg.qk_nope_head_dim + cfg.v_head_dim), cfg.kv_lora_rank), "matrix"),
+        p + "self_attn.o_proj.weight": ((h, nh * cfg.v_head_dim), "matrix"),
+    }
+
+
+def ffn_shapes(cfg, i: int, shared_width: int) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """Layer ``i``'s MLP: the dense SwiGLU of ``intermediate_size`` in the leading dense
+    layers, else the router (its bias), the routed experts stacked over the router's
+    whole width, and the shared SwiGLU of ``shared_width``."""
+    h, p, moe = cfg.hidden_size, f"model.layers.{i}.", cfg.moe
+    if i < moe.dense_layers:
+        w = cfg.intermediate_size
+        return {p + "mlp.gate_proj.weight": ((w, h), "matrix"),
+                p + "mlp.up_proj.weight": ((w, h), "matrix"),
+                p + "mlp.down_proj.weight": ((h, w), "matrix")}
+    e, w, sw = moe.experts, cfg.moe_intermediate_size, shared_width
+    return {
+        p + "mlp.gate.weight": ((e, h), "matrix"),
+        p + "mlp.gate.e_score_correction_bias": ((e,), "bias"),
+        p + "mlp.experts.gate_proj.weight": ((e, w, h), "matrix"),
+        p + "mlp.experts.up_proj.weight": ((e, w, h), "matrix"),
+        p + "mlp.experts.down_proj.weight": ((e, h, w), "matrix"),
+        p + "mlp.shared_experts.gate_proj.weight": ((sw, h), "matrix"),
+        p + "mlp.shared_experts.up_proj.weight": ((sw, h), "matrix"),
+        p + "mlp.shared_experts.down_proj.weight": ((h, sw), "matrix"),
+    }
 
 
 def weight_shapes(cfg: CrossEncoderConfig) -> Dict[str, Tuple[Tuple[int, ...], str]]:
     """Every tensor of the model: name -> (shape, kind), kind "matrix", "norm" or "bias".
     Names follow the published checkpoint's, with each layer's routed experts
     stacked (``mlp.experts.gate_proj.weight`` [experts, width, hidden])."""
-    h, nh = cfg.hidden_size, cfg.num_attention_heads
+    h = cfg.hidden_size
     out: Dict[str, Tuple[Tuple[int, ...], str]] = {
         "model.embed_tokens.weight": ((cfg.vocab_size, h), "matrix")}
     for i in range(cfg.num_hidden_layers):
         p = f"model.layers.{i}."
-        out.update({
-            p + "input_layernorm.weight": ((h,), "norm"),
-            p + "self_attn.q_proj.weight": ((nh * cfg.qk_head_dim, h), "matrix"),
-            p + "self_attn.kv_a_proj_with_mqa.weight":
-                ((cfg.kv_lora_rank + cfg.qk_rope_head_dim, h), "matrix"),
-            p + "self_attn.kv_a_layernorm.weight": ((cfg.kv_lora_rank,), "norm"),
-            p + "self_attn.kv_b_proj.weight":
-                ((nh * (cfg.qk_nope_head_dim + cfg.v_head_dim), cfg.kv_lora_rank), "matrix"),
-            p + "self_attn.o_proj.weight": ((h, nh * cfg.v_head_dim), "matrix"),
-            p + "post_attention_layernorm.weight": ((h,), "norm"),
-        })
-        if i < cfg.first_k_dense_replace:
-            w = cfg.intermediate_size
-            out.update({p + "mlp.gate_proj.weight": ((w, h), "matrix"),
-                        p + "mlp.up_proj.weight": ((w, h), "matrix"),
-                        p + "mlp.down_proj.weight": ((h, w), "matrix")})
-            continue
-        e, w = cfg.n_routed_experts, cfg.moe_intermediate_size
-        sw = cfg.n_shared_experts * w
-        out.update({
-            p + "mlp.gate.weight": ((e, h), "matrix"),
-            p + "mlp.gate.e_score_correction_bias": ((e,), "bias"),
-            p + "mlp.experts.gate_proj.weight": ((e, w, h), "matrix"),
-            p + "mlp.experts.up_proj.weight": ((e, w, h), "matrix"),
-            p + "mlp.experts.down_proj.weight": ((e, h, w), "matrix"),
-            p + "mlp.shared_experts.gate_proj.weight": ((sw, h), "matrix"),
-            p + "mlp.shared_experts.up_proj.weight": ((sw, h), "matrix"),
-            p + "mlp.shared_experts.down_proj.weight": ((h, sw), "matrix"),
-        })
+        out[p + "input_layernorm.weight"] = ((h,), "norm")
+        out.update(mla_shapes(cfg, p))
+        out[p + "post_attention_layernorm.weight"] = ((h,), "norm")
+        out.update(ffn_shapes(cfg, i, cfg.n_shared_experts * cfg.moe_intermediate_size))
     out["model.norm.weight"] = ((h,), "norm")
     out["lm_head.weight"] = ((cfg.vocab_size, h), "matrix")
     return out
@@ -269,7 +320,57 @@ def _dense(w: Weight, dtype) -> torch.Tensor:
     return w.dequant(dtype) if isinstance(w, Fp8Weight) else w
 
 
-# ---------------------------------------------------------------------- the model
+# the experts' gate and up projections, kept as one stacked matrix a layer
+EXPERT_STACK = ((".mlp.experts.gate_proj.", ".mlp.experts.up_proj."), "mlp.experts.gate_up", 1)
+KEEP_DENSE = ("model.embed_tokens.weight", "lm_head.weight", "mlp.gate.weight")
+
+
+def build_weights(shapes: Mapping[str, Tuple[Sequence[int], str]], seed: int, device,
+                  weight_dtype: str, dtype: torch.dtype, channels: Tuple[int, int],
+                  init=init_tensor, stacks=(EXPERT_STACK,), keep_dense=KEEP_DENSE,
+                  keep_f32=("bias",)) -> Dict[str, Weight]:
+    """Draw every tensor of ``shapes`` with ``init`` and store it: in ``dtype``, f32
+    for names ending in ``keep_f32``; under ``weight_dtype`` "float8_e4m3fn" every
+    matrix not named in ``keep_dense`` as e4m3 with per-row scales. The routed experts
+    are drawn whole and keep the ``channels`` (first, count) of their width: the gate
+    and up projections' rows, the down projection's columns. Each ``stacks`` entry
+    (member markers, name, axis) joins a layer's members into one tensor under
+    ``<layer prefix>.<name>``."""
+    if weight_dtype not in WEIGHT_DTYPES:
+        raise ValueError(f"cross_encoder_weight_dtype must be one of {WEIGHT_DTYPES}")
+    fp8 = weight_dtype == "float8_e4m3fn"
+    first, count = channels
+    weights: Dict[str, Weight] = {}
+
+    def store(name: str, t: torch.Tensor) -> None:
+        if fp8 and t.dim() >= 2 and not name.endswith(keep_dense):
+            weights[name] = quantize_e4m3(t.to(dtype))
+        else:
+            weights[name] = t.to(torch.float32 if name.endswith(keep_f32) else dtype)
+
+    pending: Dict[str, List[torch.Tensor]] = {}
+    for name, (shape, kind) in shapes.items():
+        t = init(name, shape, kind, seed, device)
+        if ".mlp.experts." in name:
+            axis = 2 if "down_proj" in name else 1
+            if count != t.shape[axis]:
+                t = t.narrow(axis, first, count)
+        for members, target, axis in stacks:
+            marker = next((m for m in members if m in name), None)
+            if marker is None:
+                continue
+            key = name.rsplit(marker, 1)[0] + "." + target
+            pending.setdefault(key, []).append(t.to(dtype))
+            if len(pending[key]) == len(members):
+                store(key, torch.cat(pending.pop(key), axis))
+            break
+        else:
+            store(name, t)
+        del t
+    return weights
+
+
+# ---------------------------------------------------------------------- the blocks
 
 
 class Packed(NamedTuple):
@@ -325,18 +426,101 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
     return x * cos + half * sin
 
 
-class CrossEncoder:
-    """The decoder's weights on one device and its forward pass over packed prompts."""
+def linear(x: torch.Tensor, w: Weight, dtype) -> torch.Tensor:
+    return F.linear(x, _dense(w, dtype))
 
-    def __init__(self, cfg: CrossEncoderConfig, weights: Dict[str, Weight],
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+
+def mla_attention(x: torch.Tensor, w: Mapping[str, Weight], p: str, batch: Packed, cfg,
+                  dtype, rope: Optional[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+    """``x`` plus the latent attention of the layer with prefix ``p`` over the packed
+    prompts: the input norm, the projections, RoPE on the 64-wide parts where
+    ``rope`` gives (cos, sin) and none where it is None (the parts stay, unrotated),
+    causal attention at scale ``qk_head_dim``^-1/2, the output projection."""
+    t, nh = x.shape[0], cfg.num_attention_heads
+    h = rms_norm(x, w[p + "input_layernorm.weight"], cfg.rms_norm_eps).to(dtype)
+    q = linear(h, w[p + "self_attn.q_proj.weight"], dtype).view(t, nh, cfg.qk_head_dim)
+    q_nope, q_rope = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+    latent, k_rope = linear(h, w[p + "self_attn.kv_a_proj_with_mqa.weight"], dtype).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    latent = rms_norm(latent, w[p + "self_attn.kv_a_layernorm.weight"], cfg.rms_norm_eps)
+    kv = linear(latent, w[p + "self_attn.kv_b_proj.weight"], dtype).view(
+        t, nh, cfg.qk_nope_head_dim + cfg.v_head_dim)
+    k_nope, v = kv.split([cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
+    k_rope = k_rope[:, None, :]
+    if rope is not None:
+        q_rope, k_rope = _rotate(q_rope, *rope), _rotate(k_rope, *rope)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(t, nh, cfg.qk_rope_head_dim)], dim=-1)
+    b, width = batch.batch, batch.width
+
+    def padded(a: torch.Tensor) -> torch.Tensor:
+        if b == 1:
+            return a[None].transpose(1, 2)
+        return a[batch.source].view(b, width, nh, a.shape[-1]).transpose(1, 2)
+
+    # right-padded prompts under a causal mask: a real token sees only its own
+    # prompt's earlier tokens, so no padding mask is needed, and the slots past
+    # a prompt's end may hold any token's values (they read token 0's)
+    o = F.scaled_dot_product_attention(padded(q), padded(k), padded(v), is_causal=True,
+                                       scale=cfg.qk_head_dim ** -0.5)
+    o = o.transpose(1, 2).reshape(b * width, nh * cfg.v_head_dim)
+    if b > 1:
+        o = o[batch.pad_index]
+    return x + linear(o, w[p + "self_attn.o_proj.weight"], dtype)
+
+
+def swiglu(h: torch.Tensor, w: Mapping[str, Weight], p: str, dtype) -> torch.Tensor:
+    g = linear(h, w[p + "gate_proj.weight"], dtype)
+    u = linear(h, w[p + "up_proj.weight"], dtype)
+    return linear(F.silu(g) * u, w[p + "down_proj.weight"], dtype)
+
+
+def route(h: torch.Tensor, gate: torch.Tensor, bias: torch.Tensor,
+          moe: MoEShape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(experts i64[T, k], weights f32[T, k]) over the router's whole width: chosen on
+    the sigmoid scores (f32) plus the selection bias, weighted by the unbiased
+    scores, normalised over the chosen and scaled."""
+    scores = F.linear(h.float(), gate.float()).sigmoid()
+    idx = torch.topk(scores + bias, moe.top_k, dim=-1, sorted=False).indices
+    wts = scores.gather(1, idx)
+    if moe.renormalize:
+        wts = wts / (wts.sum(dim=-1, keepdim=True) + 1e-20)
+    return idx, wts * moe.scale
+
+
+def routed_experts(h: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, gate_up: torch.Tensor,
+                   down: torch.Tensor, experts: int) -> torch.Tensor:
+    """The routed experts' weighted sum over the channels that ``gate_up`` / ``down``
+    hold of each expert's width: the (token, expert) pairs sorted by expert, two
+    grouped GEMMs (gate and up together, then down), the weights applied and summed in
+    f32 in each token's own order."""
+    t, k = idx.shape
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    ends = torch.cumsum(torch.bincount(flat, minlength=experts), 0).to(torch.int32)
+    xs = h[order // k]
+    g, u = torch._grouped_mm(xs, gate_up.transpose(-2, -1), offs=ends).chunk(2, dim=-1)
+    del xs
+    y = torch._grouped_mm(F.silu(g) * u, down.transpose(-2, -1), offs=ends)
+    del g, u
+    out = y[torch.argsort(order)]  # each token's k rows back in its own order
+    del y
+    return (out.view(t, k, -1).float() * wts[..., None]).sum(dim=1)
+
+
+class Decoder:
+    """What the cross-encoder models share: the weights on one device, the MLP of each
+    layer (the dense SwiGLU, or the router, the routed experts' held channels and the
+    shared SwiGLU), the final norm and the yes/no head. A model gives the token mixer
+    of each layer (:meth:`_mixer`) and what its mixers read of a call
+    (:meth:`_context`)."""
+
+    def __init__(self, cfg, weights: Dict[str, Weight], dtype: torch.dtype = torch.bfloat16) -> None:
         self.cfg = cfg
+        self.moe: MoEShape = cfg.moe
         self.dtype = dtype
         self.w = weights
         self.device = weights["model.embed_tokens.weight"].device
-        half = cfg.qk_rope_head_dim // 2
-        self.inv_freq = 1.0 / (cfg.rope_theta ** (
-            torch.arange(0, half, dtype=torch.float32, device=self.device) * 2.0 / cfg.qk_rope_head_dim))
         self.yes_no = weights["lm_head.weight"][[YES_ID, NO_ID]].float()
 
     def nbytes(self) -> int:
@@ -346,92 +530,26 @@ class CrossEncoder:
                 total += t.numel() * t.element_size()
         return total
 
-    # ---- the blocks ----
-
     def _lin(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        return F.linear(x, _dense(self.w[name], self.dtype))
-
-    def _rope(self, pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        freqs = pos.float()[:, None] * self.inv_freq[None, :]
-        emb = torch.cat([freqs, freqs], dim=-1)[:, None, :]
-        return emb.cos().to(self.dtype), emb.sin().to(self.dtype)
-
-    def _attention(self, x: torch.Tensor, p: str, batch: Packed, cos, sin) -> torch.Tensor:
-        cfg = self.cfg
-        t, nh = x.shape[0], cfg.num_attention_heads
-        h = rms_norm(x, self.w[p + "input_layernorm.weight"], cfg.rms_norm_eps).to(self.dtype)
-        q = self._lin(h, p + "self_attn.q_proj.weight").view(t, nh, cfg.qk_head_dim)
-        q_nope, q_rope = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
-        latent, k_rope = self._lin(h, p + "self_attn.kv_a_proj_with_mqa.weight").split(
-            [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
-        latent = rms_norm(latent, self.w[p + "self_attn.kv_a_layernorm.weight"], cfg.rms_norm_eps)
-        kv = self._lin(latent, p + "self_attn.kv_b_proj.weight").view(
-            t, nh, cfg.qk_nope_head_dim + cfg.v_head_dim)
-        k_nope, v = kv.split([cfg.qk_nope_head_dim, cfg.v_head_dim], dim=-1)
-        q = torch.cat([q_nope, _rotate(q_rope, cos, sin)], dim=-1)
-        k_rope = _rotate(k_rope[:, None, :], cos, sin).expand(t, nh, cfg.qk_rope_head_dim)
-        k = torch.cat([k_nope, k_rope], dim=-1)
-        b, width = batch.batch, batch.width
-
-        def padded(a: torch.Tensor) -> torch.Tensor:
-            if b == 1:
-                return a[None].transpose(1, 2)
-            return a[batch.source].view(b, width, nh, a.shape[-1]).transpose(1, 2)
-
-        # right-padded prompts under a causal mask: a real token sees only its own
-        # prompt's earlier tokens, so no padding mask is needed, and the slots past
-        # a prompt's end may hold any token's values (they read token 0's)
-        o = F.scaled_dot_product_attention(padded(q), padded(k), padded(v), is_causal=True,
-                                           scale=cfg.qk_head_dim ** -0.5)
-        o = o.transpose(1, 2).reshape(b * width, nh * cfg.v_head_dim)
-        if b > 1:
-            o = o[batch.pad_index]
-        return x + self._lin(o, p + "self_attn.o_proj.weight")
-
-    def _mlp(self, h: torch.Tensor, p: str) -> torch.Tensor:
-        g = self._lin(h, p + "gate_proj.weight")
-        u = self._lin(h, p + "up_proj.weight")
-        return self._lin(F.silu(g) * u, p + "down_proj.weight")
+        return linear(x, self.w[name], self.dtype)
 
     def route(self, h: torch.Tensor, p: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(experts i64[T, k], weights f32[T, k]): chosen on the biased sigmoid scores,
-        weighted by the unbiased ones, normalised and scaled."""
-        cfg = self.cfg
-        scores = F.linear(h.float(), self.w[p + "mlp.gate.weight"].float()).sigmoid()
-        choice = scores + self.w[p + "mlp.gate.e_score_correction_bias"]
-        idx = torch.topk(choice, cfg.num_experts_per_tok, dim=-1, sorted=False).indices
-        wts = scores.gather(1, idx)
-        if cfg.norm_topk_prob:
-            wts = wts / (wts.sum(dim=-1, keepdim=True) + 1e-20)
-        return idx, wts * cfg.routed_scaling_factor
+        """(experts i64[T, k], weights f32[T, k]) of layer ``p``'s router."""
+        return route(h, self.w[p + "mlp.gate.weight"], self.w[p + "mlp.gate.e_score_correction_bias"],
+                     self.moe)
 
     def _experts(self, h: torch.Tensor, p: str, idx: torch.Tensor, wts: torch.Tensor) -> torch.Tensor:
-        """The routed experts' weighted sum: the (token, expert) pairs sorted by expert,
-        two grouped GEMMs (gate and up together, then down), the weights applied and
-        summed in f32 in each token's own order."""
-        cfg = self.cfg
-        t, k = idx.shape
-        flat = idx.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        ends = torch.cumsum(torch.bincount(flat, minlength=cfg.n_routed_experts), 0).to(torch.int32)
-        xs = h[order // k]
-        gate_up = _dense(self.w[p + "mlp.experts.gate_up"], self.dtype)
-        g, u = torch._grouped_mm(xs, gate_up.transpose(-2, -1), offs=ends).chunk(2, dim=-1)
-        del xs
-        down = _dense(self.w[p + "mlp.experts.down_proj.weight"], self.dtype)
-        y = torch._grouped_mm(F.silu(g) * u, down.transpose(-2, -1), offs=ends)
-        del g, u
-        out = y[torch.argsort(order)]  # each token's k rows back in its own order
-        del y
-        return (out.view(t, k, -1).float() * wts[..., None]).sum(dim=1)
+        return routed_experts(h, idx, wts, _dense(self.w[p + "mlp.experts.gate_up"], self.dtype),
+                              _dense(self.w[p + "mlp.experts.down_proj.weight"], self.dtype),
+                              self.moe.experts)
 
     def _ffn(self, x: torch.Tensor, i: int) -> torch.Tensor:
         cfg = self.cfg
         p = f"model.layers.{i}."
-        if i < cfg.first_k_dense_replace:
+        if i < self.moe.dense_layers:
             with annotate("engine.staged.rerank.shared"):
                 h = rms_norm(x, self.w[p + "post_attention_layernorm.weight"], cfg.rms_norm_eps)
-                return x + self._mlp(h.to(self.dtype), p + "mlp.")
+                return x + swiglu(h.to(self.dtype), self.w, p + "mlp.", self.dtype)
         with annotate("engine.staged.rerank.router"):
             h = rms_norm(x, self.w[p + "post_attention_layernorm.weight"], cfg.rms_norm_eps)
             idx, wts = self.route(h, p)
@@ -439,16 +557,21 @@ class CrossEncoder:
         with annotate("engine.staged.rerank.experts"):
             routed = self._experts(h, p, idx, wts)
         with annotate("engine.staged.rerank.shared"):
-            return x + (routed + self._mlp(h, p + "mlp.shared_experts."))
+            return x + (routed + swiglu(h, self.w, p + "mlp.shared_experts.", self.dtype))
+
+    def _context(self, batch: Packed):
+        return None
+
+    def _mixer(self, x: torch.Tensor, i: int, batch: Packed, ctx) -> torch.Tensor:
+        raise NotImplementedError
 
     def hidden(self, batch: Packed) -> torch.Tensor:
         """The last layer's output of every packed token, before the final norm."""
         # the residual stream between the blocks stays f32
         x = _dense(self.w["model.embed_tokens.weight"], self.dtype)[batch.tokens].float()
-        cos, sin = self._rope(batch.pos)
+        ctx = self._context(batch)
         for i in range(self.cfg.num_hidden_layers):
-            with annotate("engine.staged.rerank.attention"):
-                x = self._attention(x, f"model.layers.{i}.", batch, cos, sin)
+            x = self._mixer(x, i, batch, ctx)
             x = self._ffn(x, i)
         return x
 
@@ -468,6 +591,26 @@ class CrossEncoder:
             return torch.softmax(h.float() @ self.yes_no.T, dim=-1)[:, 0]
 
 
+class CrossEncoder(Decoder):
+    """Moonlight's decoder: latent attention with RoPE in every layer."""
+
+    def __init__(self, cfg: CrossEncoderConfig, weights: Dict[str, Weight],
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__(cfg, weights, dtype)
+        half = cfg.qk_rope_head_dim // 2
+        self.inv_freq = 1.0 / (cfg.rope_theta ** (
+            torch.arange(0, half, dtype=torch.float32, device=self.device) * 2.0 / cfg.qk_rope_head_dim))
+
+    def _context(self, batch: Packed) -> Tuple[torch.Tensor, torch.Tensor]:
+        freqs = batch.pos.float()[:, None] * self.inv_freq[None, :]
+        emb = torch.cat([freqs, freqs], dim=-1)[:, None, :]
+        return emb.cos().to(self.dtype), emb.sin().to(self.dtype)
+
+    def _mixer(self, x: torch.Tensor, i: int, batch: Packed, ctx) -> torch.Tensor:
+        with annotate("engine.staged.rerank.attention"):
+            return mla_attention(x, self.w, f"model.layers.{i}.", batch, self.cfg, self.dtype, ctx)
+
+
 def init_cross_encoder(preset: Union[str, CrossEncoderConfig], seed: int, device,
                        weight_dtype: str = "bfloat16",
                        dtype: torch.dtype = torch.bfloat16) -> CrossEncoder:
@@ -476,31 +619,8 @@ def init_cross_encoder(preset: Union[str, CrossEncoderConfig], seed: int, device
     (attention, MLPs, experts) is stored as e4m3 with per-row scales. Each layer's
     routed gate and up projections are kept as one stacked matrix
     (``mlp.experts.gate_up``, [experts, 2 * width, hidden])."""
-    if weight_dtype not in WEIGHT_DTYPES:
-        raise ValueError(f"cross_encoder_weight_dtype must be one of {WEIGHT_DTYPES}")
     cfg = _config(preset)
-    fp8 = weight_dtype == "float8_e4m3fn"
-    keep_dense = ("model.embed_tokens.weight", "lm_head.weight", "mlp.gate.weight")
-    weights: Dict[str, Weight] = {}
-
-    def store(name: str, t: torch.Tensor) -> None:
-        if fp8 and t.dim() >= 2 and not name.endswith(keep_dense):
-            weights[name] = quantize_e4m3(t.to(dtype))
-        else:
-            weights[name] = t.to(torch.float32 if name.endswith("bias") else dtype)
-
-    pending: Dict[str, torch.Tensor] = {}
-    for name, (shape, kind) in weight_shapes(cfg).items():
-        t = init_tensor(name, shape, kind, seed, device)
-        if ".mlp.experts.gate_proj." in name or ".mlp.experts.up_proj." in name:
-            pending[name] = t.to(dtype)
-            if len(pending) == 2:
-                gate, up = pending.values()
-                store(name.rsplit("mlp.experts.", 1)[0] + "mlp.experts.gate_up", torch.cat([gate, up], 1))
-                pending.clear()
-            continue
-        store(name, t)
-        del t
+    weights = build_weights(weight_shapes(cfg), seed, device, weight_dtype, dtype, cfg.moe.channels)
     return CrossEncoder(cfg, weights, dtype)
 
 
